@@ -3,15 +3,29 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
-1. build every CUDA kernel of the port from the sources in this checkout;
+1. build every CUDA kernel of the port from the sources in this checkout
+   (one nvcc per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card, on
-   seeded full-width inputs, within the stated tolerances;
-3. drive the main path — the dense fused head+torso frame render at
+   seeded full-width inputs, within the stated tolerances: render_rays,
+   then pair_field (head and torso, relu and softplus, a pair list with
+   gaps and an empty one) and far_head / far_torso (a ragged ray count);
+3. drive the dense main path — the fused head+torso frame render at
    450x450, 64 samples, bf16 — through encode_frame_signals and
    make_frame_renderer for a few frames of the synthetic scene with seeded
    random weights; check the frames, compare one with the plain version,
    check that the kernel launched once per frame, and time it;
-4. print the card's name and power limit, then one JSON line listing every
+4. cross-check the two hand-written paths: the pair kernels with every
+   (tile, slab) listed, the far kernels, deferred_composite and bg_blend
+   against the dense kernel on that frame;
+5. drive the pair-compacted serving path (BASELINE config 3's recipe, the
+   levers not ported yet switched off) for 16 frames across two flag
+   refreshes; check the flags are mixed and equal to flags built with
+   widened float32 products, the frames, a refresh frame and a steady frame
+   against the plain versions, and the launches per steady frame
+   (pair_field 2, far_head 1, far_torso 1); time the frames and each stage;
+6. the pair path after a contribution prune that drops tiles from the union
+   and every pair of one field: a steady frame against the plain versions;
+7. print the card's name and power limit, then one JSON line listing every
    ported kernel with its launches, error and times, and last a JSON status
    line.
 
@@ -21,11 +35,14 @@ result, when CUDA is unavailable or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -51,6 +68,26 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 # their count and the worst one's sh and error are printed.
 BLEND_SH_MIN = 1e-3
 TOL = {"head_max": 5e-4, "head_mean": 1e-6, "com_max": 5e-4, "com_mean": 5e-5}
+# Pair and far kernels vs their plain versions, both on the card. As above,
+# sum order and ulp-level sin/exp differences flip an occasional bf16
+# activation, which moves a density by a few 1e-4 (measured up to 3.9e-4 on
+# the CPU, port vs reference, tests/test_torch_pair_field.py). Densities are
+# held relatively, |d sigma| <= SIG_RTOL * (|sigma| + SIG_FLOOR), since they
+# range from ~1e-2 (relu, random init) to ~1 (softplus); the pair kernels
+# store colours in bf16, so those may differ by at most RGB_ULPS bf16 ulp
+# (2**-8 relative: a flipped rounding of the stored value); the far-plane
+# torso colour is float32 and held to the head's max bound.
+SIG_RTOL, SIG_FLOOR, RGB_ULPS = 2e-2, 5e-2, 1.0
+# The occupancy flags decide which pairs are rendered at all, and on the card
+# they come from bf16 products on the tensor cores (the CUDA branch of
+# fused_render._mm_cast). Each refresh's flags are rebuilt from the same
+# inputs with the products widened to float32 (the branch the CPU tests hold
+# against the reference) and compared node by node. The two differ only in
+# float32 sum order, which can flip a bf16 activation and move a node density
+# by a few 1e-4 (4.2e-4 measured, port vs reference on the CPU,
+# tests/test_torch_occupancy.py), so a node may take the other side of the
+# threshold sigma_thresh / 4 only where it lies within NODE_TOL of it.
+NODE_TOL = 1e-3
 
 
 def _fail(msg: str) -> None:
@@ -91,6 +128,15 @@ def _check_pair(tag, head, com, head_ref, com_ref, sh_last):
     return max(hm, cm)
 
 
+def _check_frame(tag, head, com):
+    for name, img in (("head", head), ("com", com)):
+        if img.shape != (H, W, 3) or not torch.isfinite(img).all():
+            _fail(f"{tag} {name}: shape {tuple(img.shape)} or non-finite values")
+        lo, hi = float(img.min()), float(img.max())
+        if lo < -1e-6 or hi > 1.0 + 1e-5:
+            _fail(f"{tag} {name}: values in [{lo}, {hi}], outside [0, 1]")
+
+
 def _cuda_ms(fn, reps: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -99,6 +145,17 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _cuda_call(fn):
+    """(fn(), its time in ms by CUDA events): one call, for the slow plain
+    versions, whose output is kept for the comparison."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def phase_build():
@@ -212,12 +269,7 @@ def phase_main_path():
     if launches != N_FRAMES:
         _fail(f"render_rays launched {launches} times for {N_FRAMES} frames")
     for i, (head, com) in enumerate(frames):
-        for name, img in (("head", head), ("com", com)):
-            if img.shape != (H, W, 3) or not torch.isfinite(img).all():
-                _fail(f"frame {i} {name}: shape {tuple(img.shape)} or non-finite values")
-            lo, hi = float(img.min()), float(img.max())
-            if lo < -1e-6 or hi > 1.0 + 1e-5:
-                _fail(f"frame {i} {name}: values in [{lo}, {hi}], outside [0, 1]")
+        _check_frame(f"frame {i}", head, com)
     print(f"[main path] frames finite, in [0, 1]; frame 0 com mean "
           f"{float(frames[0][1].mean()):.4f}", flush=True)
 
@@ -268,7 +320,539 @@ def phase_main_path():
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+    }, ops
+
+
+def _sigma_rel(got, ref):
+    """Largest |d sigma| / (|sigma| + SIG_FLOOR)."""
+    return float(((got - ref).abs() / (ref.abs() + SIG_FLOOR)).max()) if ref.numel() else 0.0
+
+
+def _bf16_ulps(got, ref):
+    """|got - ref| in bf16 ulps of ref (bf16 keeps 8 significant bits)."""
+    step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+    return (got.float() - ref.float()).abs() / step
+
+
+def _listed_mask(J, n_tiles, t_idx, j_idx, device):
+    """[J, 8, (n_tiles + 1) * 256] bool: the buffer blocks the pairs list."""
+    m = torch.zeros((J, 8, n_tiles + 1, 256), dtype=torch.bool, device=device)
+    m[j_idx.long(), :, t_idx.long(), :] = True
+    return m.reshape(J, 8, -1)
+
+
+def _check_buffers(tag, got, ref, listed):
+    """pair_field kernel vs plain on the listed blocks. Returns the largest
+    absolute difference of the four channels."""
+    sg, sr = got[0][listed], ref[0][listed]
+    rel = _sigma_rel(sg, sr)
+    ulps = [_bf16_ulps(g[listed], r[listed]) for g, r in zip(got[1:], ref[1:])]
+    n_off = sum(int((u > 0).sum()) for u in ulps)
+    worst_ulps = max(float(u.max()) for u in ulps)
+    abs_err = max([float((sg - sr).abs().max())]
+                  + [float((g[listed].float() - r[listed].float()).abs().max())
+                     for g, r in zip(got[1:], ref[1:])])
+    print(f"[{tag}] sigma max rel err {rel:.3e} (tol {SIG_RTOL:.0e} of |sigma| + {SIG_FLOOR:.0e}),"
+          f" abs {float((sg - sr).abs().max()):.3e}; rgb max {worst_ulps:.0f} bf16 ulp (tol "
+          f"{RGB_ULPS:.0f}), {n_off} of {3 * sg.numel()} entries differ", flush=True)
+    if not all(torch.isfinite(g[listed].float()).all() for g in got):
+        _fail(f"{tag}: non-finite values in listed blocks")
+    if rel > SIG_RTOL or worst_ulps > RGB_ULPS:
+        _fail(f"{tag}: kernel disagrees with its plain version")
+    return abs_err
+
+
+def _check_far(tag, sh, ct, sh_ref, ct_ref):
+    rel = _sigma_rel(sh, sh_ref)
+    ct_err = float((ct - ct_ref).abs().max())
+    print(f"[{tag}] sh max rel err {rel:.3e} (tol {SIG_RTOL:.0e} of |sh| + {SIG_FLOOR:.0e}), abs "
+          f"{float((sh - sh_ref).abs().max()):.3e}; ct max {ct_err:.3e} mean "
+          f"{float((ct - ct_ref).abs().mean()):.3e} (tol {TOL['head_max']:.0e})", flush=True)
+    if not (torch.isfinite(sh).all() and torch.isfinite(ct).all()):
+        _fail(f"{tag}: non-finite output")
+    if rel > SIG_RTOL or ct_err > TOL["head_max"]:
+        _fail(f"{tag}: kernel disagrees with its plain version")
+    return float((sh - sh_ref).abs().max()), ct_err
+
+
+def phase_pair_kernels_vs_plain():
+    """pair_field (head, torso; relu, softplus; a pair list with gaps and an
+    empty one) and far_head / far_torso (a ragged ray count), full width,
+    seeded bf16 packed weights."""
+    from dfanerf_torch.models import Decoder, DecoderConfig
+    from dfanerf_torch.models.layers import init_uniform_
+    from dfanerf_torch.ops.far_eval import (
+        far_eval_reference, far_head_kernel, far_torso_kernel,
+    )
+    from dfanerf_torch.ops.fused_render import view_bias
+    from dfanerf_torch.ops.pack import pack_field_weights
+    from dfanerf_torch.ops.pair_field import (
+        pair_field_eval_prepped, pair_field_eval_reference, pair_field_kernel,
+    )
+
+    g = torch.Generator().manual_seed(2)
+    dec = init_uniform_(Decoder(DecoderConfig()), g).cuda()
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g).cuda()
+
+    def rays(n):
+        return (rn(n, 3) * 0.05).contiguous(), (rn(n, 3) * 0.2 + torch.tensor(
+            [0.0, 0.0, -1.0]).cuda()).contiguous()
+
+    vecs = [rn(96), rn(42), rn(256), rn(256)]
+    z = torch.linspace(0.3, 0.9, N_SAMPLES).cuda()
+    T, J = 4, N_SAMPLES // 8
+    flags = torch.rand((T, J), generator=g) < 0.5
+    t_idx, j_idx = (x.to(torch.int32).cuda() for x in flags.nonzero(as_tuple=True))
+    listed = _listed_mask(J, T, t_idx, j_idx, "cuda")
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    print(f"[pair_field vs plain] {t_idx.numel()} of {T * J} (tile, slab) pairs listed",
+          flush=True)
+    packs = {}
+    for branch, sig in (("head", vecs[0]), ("torso", vecs[1])):
+        pw = packs[branch] = pack_field_weights(dec, sig, vecs[2], vecs[3], branch)
+        o, d = rays(T * 256)
+        vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
+        for act in ("relu", "softplus"):
+            got = pair_field_kernel(pw, branch, o, d, vr, z, t_idx, j_idx, act)
+            torch.cuda.synchronize()
+            ref = pair_field_eval_reference(pw, branch, o, d, vr, z, t_idx, j_idx, act)
+            _check_buffers(f"pair_field vs plain, {branch}, {act}", got, ref, listed)
+        before = pair_field_kernel.launches
+        bufs = pair_field_eval_prepped(pw, branch, o, d, vr, z, empty, empty)
+        if pair_field_kernel.launches != before or any(bool(b.float().any()) for b in bufs):
+            _fail(f"pair_field with no pairs: a launch or non-zero buffers")
+        print(f"[pair_field vs plain, {branch}, no pairs] zero buffers, no launch", flush=True)
+    n = 4096 + 77  # ragged: not a multiple of the kernels' 128-ray chunks
+    o, d = rays(n)
+    o_t, d_t = rays(n)
+    vr_t = view_bias(packs["torso"], d_t).to(torch.bfloat16).contiguous()
+    far = float(z[-1])
+    for act in ("relu", "softplus"):
+        sh = far_head_kernel(packs["head"], o, d, far, act=act)
+        ct = far_torso_kernel(packs["torso"], o_t, d_t, far, vr_t, act=act)
+        torch.cuda.synchronize()
+        sh_r, ct_r = far_eval_reference(packs["head"], packs["torso"], o, d, o_t, d_t, far, vr_t,
+                                        act)
+        _check_far(f"far kernels vs plain, {n} rays, {act}", sh, ct, sh_r, ct_r)
+
+
+def phase_pair_vs_dense(ops):
+    """Every (tile, slab) listed through the pair and far kernels, composited
+    by deferred_composite + bg_blend, against the dense render_rays kernel
+    with ert_eps = 0 on the same frame (the dense main path's frame 0): the
+    background epilogue and the in-kernel background concat are the same
+    math (the reference holds them to 3e-4, tests/test_ops.py:371-386)."""
+    from dfanerf_torch.ops.composite import bg_blend, deferred_composite
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.fused_render import render_rays_kernel
+    from dfanerf_torch.ops.pair_field import pair_field_kernel
+
+    T, J = ops.n_tiles, ops.n_slabs
+    head_d, com_d, _ = render_rays_kernel(dataclasses.replace(ops, ert_eps=0.0))
+    t_idx = torch.arange(T, device="cuda").repeat_interleave(J).to(torch.int32)
+    j_idx = torch.arange(J, device="cuda").repeat(T).to(torch.int32)
+    buf_h = pair_field_kernel(ops.packed_h, "head", ops.rays_o, ops.rays_d, ops.vr_h, ops.z_vals,
+                              t_idx, j_idx, ops.act)
+    buf_t = pair_field_kernel(ops.packed_t, "torso", ops.rays_o_t, ops.rays_d_t, ops.vr_t,
+                              ops.z_vals, t_idx, j_idx, ops.act)
+    far = float(ops.z_vals[-1])
+    sh = far_head_kernel(ops.packed_h, ops.rays_o, ops.rays_d, far, act=ops.act)
+    ct = far_torso_kernel(ops.packed_t, ops.rays_o_t, ops.rays_d_t, far, ops.vr_t, act=ops.act)
+    occ = torch.ones((2, T, J), dtype=torch.int32, device="cuda")
+    acc = deferred_composite(buf_h, buf_t, occ, ops.rays_d, ops.rays_d_t, ops.z_vals,
+                             with_diagnostics=False)
+    head, com = bg_blend(sh, ct, ops.rays_d, ops.rays_d_t, ops.bc, 1e10, *acc)
+    torch.cuda.synchronize()
+    _check_pair(f"pair path (all {T * J} pairs) vs dense kernel, ert_eps=0", head, com, head_d,
+                com_d, sh[:, 0])
+
+
+# Pair-compacted serving path: BASELINE config 3's recipe
+# (benchmarks/serve_trained.py:246-257) with the levers that are not ported
+# yet switched off (budget, carry, far_skip, far_subsample).
+PAIR_FRAMES = 16
+PAIR_RENDER = dict(n_samples=N_SAMPLES, concate_bg=True, compute_dtype="bfloat16",
+                   use_fused_kernel=True, spatial_tiles=True, ert_eps=1e-4, occ_sigma_thresh=2.0,
+                   occ_grid_res=96, occ_refresh_every=8, occ_pair_compaction=True,
+                   occ_prune_trans=0.1)
+# Added to the seeded sigma_out bias. With seed 0's random weights the raw
+# head and torso densities vary by only a few 1e-2 around the bias, and
+# softplus of the unshifted bias is ~0.69, above the grid's node threshold
+# occ_sigma_thresh / 4 = 0.5 everywhere, so every pair would be occupied.
+# The shift, -0.4593, puts the node threshold into the upper tail of the
+# raw densities (the occupied nodes cluster there), so the flags are mixed:
+# measured on an H100 before the prune, frame 0 lists 25% of the head's and
+# 75% of the torso's pairs, frame 8 20% and 87% (a search over the shift on
+# frame 0's flags; the printed refresh lines show the lists in force).
+SIGMA_SHIFT = -0.4593
+PAIR_FRACTION = (0.05, 0.95)  # each field's listed share of its T * J pairs
+
+
+def _pair_state(cfg):
+    from dfanerf_torch.train.state import init_train_state
+
+    state = init_train_state(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        state["params"].decoder.sigma_out.bias += SIGMA_SHIFT
+    return state
+
+
+def _pair_scene(cfg):
+    """(scene, args): the synthetic scene and args(i), frame i's arguments
+    to a frame renderer, with the shifted seeded weights."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.data.synthetic import make_synthetic_scene
+
+    scene = make_synthetic_scene(n_frames=PAIR_FRAMES, H=H, W=W, seed=0)
+    state = _pair_state(cfg)
+    params = state["params"]
+    auds, exps, poses = (torch.from_numpy(x).cuda() for x in (scene.auds, scene.exps, scene.poses))
+    bc_img = torch.from_numpy(scene.bc_img).cuda()
+
+    def args(i):
+        sig, sig_t = renderer.encode_frame_signals(params, auds, exps, poses, i, scene.n_frames,
+                                                   cfg, True)
+        return (params, state["z_shape"], state["z_app"], poses[i], poses[0], sig, sig_t, bc_img)
+
+    return scene, args
+
+
+@contextlib.contextmanager
+def _spy(name, runs):
+    """Appends (args, kwargs, result) of every call the renderer makes to
+    its function ``name`` (conservative_occupancy: each refresh's unpruned
+    flags; deferred_composite: its prune diagnostics)."""
+    import dfanerf_torch.render.renderer as renderer
+
+    real = getattr(renderer, name)
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        runs.append((args, kw, out))
+        return out
+
+    setattr(renderer, name, spy)
+    try:
+        yield
+    finally:
+        setattr(renderer, name, real)
+
+
+@contextlib.contextmanager
+def _plain_pair_path(captured):
+    """The pair renderer with its kernel calls swapped for their plain
+    versions on the card; captured["sh"] takes the plain far-plane head
+    density, untiled, for _check_pair."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.ops.far_eval import far_head_reference, far_torso_reference
+    from dfanerf_torch.ops.fused_render import view_bias
+    from dfanerf_torch.ops.pair_field import pair_field_eval_prepped, pair_field_eval_reference
+
+    def plain_pair(pw, branch, o, d, z, t_idx, j_idx, act):
+        vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
+        if t_idx.numel() == 0:
+            return pair_field_eval_prepped(pw, branch, o, d, vr, z, t_idx, j_idx, act)
+        return pair_field_eval_reference(pw, branch, o, d, vr, z, t_idx, j_idx, act)
+
+    def plain_far(pw_h, pw_t, o, d, o_t, d_t, far, act):
+        vr_t = view_bias(pw_t, d_t).to(torch.bfloat16).contiguous()
+        sh = far_head_reference(pw_h, o, d, far, act)
+        captured["sh"] = renderer.spatial_untile(sh, H, W)[..., 0]
+        return sh, far_torso_reference(pw_t, o_t, d_t, far, vr_t, act)
+
+    real = renderer.pair_field_eval, renderer.fused_far_eval_split
+    renderer.pair_field_eval, renderer.fused_far_eval_split = plain_pair, plain_far
+    try:
+        yield
+    finally:
+        renderer.pair_field_eval, renderer.fused_far_eval_split = real
+
+
+def _check_flags(tag, occ_args, occ_kw, flags):
+    """One refresh's shipped flags [2, T, J] against the flags of the same
+    inputs with widened float32 products (see NODE_TOL)."""
+    from unittest import mock
+
+    from dfanerf_torch.ops import fused_render, occupancy
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("TF32 float32 products are on: the widened flags need exact float32 products")
+    pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals, sigma_thresh = occ_args
+    grid_res, act = occ_kw["grid_res"], occ_kw["act"]
+    lo, span, boxes = occupancy.occupancy_boxes(ro, rd, ro_t, rd_t, z_vals, grid_res)
+    thr = sigma_thresh * 0.25
+    for f, (pw, branch) in enumerate(((pw_h, "head"), (pw_t, "torso"))):
+        sig = occupancy.node_density(pw, branch, lo, span, grid_res, act)
+        with mock.patch.object(occupancy, "_mm_cast", fused_render._mm_widened):
+            sig_w = occupancy.node_density(pw, branch, lo, span, grid_res, act)
+        on, on_w = sig > thr, sig_w > thr
+        flipped = on != on_w
+        n_far = int((flipped & ((sig_w - thr).abs() > NODE_TOL)).sum())
+        ship = flags[f].bool()
+        wide = occupancy.flags_from_nodes(on_w, *boxes[f])
+        print(f"[{tag}] {branch}: {int((ship != wide).sum())} of {ship.numel()} flags differ "
+              f"({int((ship & ~wide).sum())} on only in the shipped, {int((wide & ~ship).sum())} "
+              f"only in the widened); {int(flipped.sum())} of {on.numel()} nodes on the other "
+              f"side of {thr}, {n_far} of them farther than {NODE_TOL:.0e} from it; node "
+              f"density max diff {float((sig - sig_w).abs().max()):.3e}", flush=True)
+        if not torch.equal(ship, occupancy.flags_from_nodes(on, *boxes[f])):
+            _fail(f"{tag}: the shipped {branch} flags are not those of its nodes")
+        if n_far:
+            _fail(f"{tag}: {n_far} {branch} nodes flip farther than {NODE_TOL:.0e} from the "
+                  f"threshold")
+
+
+def phase_pair_main_path():
+    """The pair-compacted serving path at full width through the entry
+    points, 16 frames across two refreshes."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.composite import deferred_composite
+    from dfanerf_torch.ops.far_eval import (
+        far_head_kernel, far_head_reference, far_torso_kernel, far_torso_reference,
+    )
+    from dfanerf_torch.ops.fused_render import R_T, _weight_blobs, field_flops_per_sample, view_bias
+    from dfanerf_torch.ops.occupancy import conservative_occupancy
+    from dfanerf_torch.ops.pair_field import pair_field_eval_reference, pair_field_kernel
+
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**PAIR_RENDER))
+    rcfg = cfg.render
+    scene, args = _pair_scene(cfg)
+    warm = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    warm(*args(0))
+    warm(*args(1))
+    torch.cuda.synchronize()
+
+    render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    kernels = {"pair_field": pair_field_kernel, "far_head": far_head_kernel,
+               "far_torso": far_torso_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    frames, marks, refreshes, flag_runs, syncs = [], [], [], [], 0
+    with _spy("conservative_occupancy", flag_runs):
+        for i in range(PAIR_FRAMES):
+            a = args(i)
+            steady = (render.cache["lists"] is not None
+                      and render.cache["age"] < rcfg.occ_refresh_every)
+            before = {name: k.launches for name, k in kernels.items()}
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if steady:
+                    torch.cuda.set_sync_debug_mode("warn")
+                e0.record()
+                frames.append(render(*a))
+                e1.record()
+                torch.cuda.set_sync_debug_mode("default")
+            syncs += sum("synchroniz" in str(w.message) for w in caught) if steady else 0
+            marks.append((steady, e0, e1, {n: k.launches - before[n] for n, k in kernels.items()}))
+            if not steady:
+                c = render.cache
+                refreshes.append((i, c["lists"][0][0].numel(), c["lists"][1][0].numel(),
+                                  len(c["tiles_u"]), c["occ"].shape[1], c["occ"].shape[2]))
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    steady_ms = [e0.elapsed_time(e1) for st, e0, e1, _ in marks if st]
+    refresh_ms = [e0.elapsed_time(e1) for st, e0, e1, _ in marks if not st]
+    for i, k_h, k_t, k_u, T, J in refreshes:
+        print(f"[pair path] refresh at frame {i}: K_h {k_h} ({k_h / (T * J):.1%}), K_t {k_t} "
+              f"({k_t / (T * J):.1%}) of {T * J} pairs per field; {k_u} of {T} tiles in the "
+              f"union", flush=True)
+        for name, k in (("head", k_h), ("torso", k_t)):
+            if not PAIR_FRACTION[0] <= k / (T * J) <= PAIR_FRACTION[1]:
+                _fail(f"{name} lists {k} of {T * J} pairs at frame {i}, outside "
+                      f"{PAIR_FRACTION[0]:.0%}-{PAIR_FRACTION[1]:.0%}")
+    print(f"[pair path] {PAIR_FRAMES} frames {H}x{W}, {N_SAMPLES} samples: "
+          f"{sum(steady_ms) / len(steady_ms):.2f} ms per steady frame ({len(steady_ms)} frames), "
+          f"{sum(refresh_ms) / len(refresh_ms):.2f} ms per refresh frame ({len(refresh_ms)} "
+          f"frames) (CUDA events, warm); launches {launches}; host syncs in steady frames "
+          f"{syncs}", flush=True)
+    if len(refresh_ms) != 2:
+        _fail(f"{len(refresh_ms)} refresh frames in {PAIR_FRAMES}, expected 2")
+    for i, (st, _, _, got) in enumerate(marks):
+        if st and got != {"pair_field": 2, "far_head": 1, "far_torso": 1}:
+            _fail(f"steady frame {i} launched {got}")
+    if syncs:
+        _fail(f"{syncs} host synchronizations in the steady frames")
+    for i, (head, com) in enumerate(frames):
+        _check_frame(f"pair frame {i}", head, com)
+    print(f"[pair path] frames finite, in [0, 1]; frame 0 com mean "
+          f"{float(frames[0][1].mean()):.4f}", flush=True)
+    for (i, *_), (occ_args, occ_kw, flags) in zip(refreshes, flag_runs, strict=True):
+        _check_flags(f"pair path refresh frame {i}, flags vs widened float32", occ_args, occ_kw,
+                     flags)
+
+    # a refresh frame (0) and a steady frame (the last) through the plain
+    # versions on the card: the same renderer code with the kernel calls
+    # swapped for their plain versions
+    captured = {}
+    with _plain_pair_path(captured):
+        plain_render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+        head_r, com_r = plain_render(*args(0))
+        torch.cuda.synchronize()
+        err = _check_pair("pair path refresh frame 0, kernels vs plain", frames[0][0],
+                          frames[0][1], head_r, com_r, captured["sh"])
+        last = args(PAIR_FRAMES - 1)
+        head_r, com_r = render.run_fast(*last)
+        torch.cuda.synchronize()
+        err = max(err, _check_pair(f"pair path steady frame {PAIR_FRAMES - 1}, kernels vs plain",
+                                   frames[-1][0], frames[-1][1], head_r, com_r, captured["sh"]))
+
+    # each stage and kernel on the last steady frame's operands
+    pw_h, pw_t, ro, rd, ro_t, rd_t, _ = render.inputs_fn(*last)
+    c = render.cache
+    T, J = c["occ"].shape[1:]
+    sel = c["tiles_sel"]
+
+    def gather(x):
+        return x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
+
+    ro_g, rd_g, ro_t_g, rd_t_g = (gather(x) for x in (ro, rd, ro_t, rd_t))
+    z_vals = linspace(scene.near, scene.far, N_SAMPLES, device="cuda")
+    far = float(z_vals[-1])
+    act = cfg.decoder.density_activation
+    vh = view_bias(pw_h, rd_g).to(torch.bfloat16).contiguous()
+    vt = view_bias(pw_t, rd_t_g).to(torch.bfloat16).contiguous()
+    vrtf = view_bias(pw_t, rd_t).to(torch.bfloat16).contiguous()
+    (ti_h, ji_h), (ti_t, ji_t) = c["lists"]
+    k_u, n = len(c["tiles_u"]), ro.shape[0]
+    pair_ops = {"head": (pw_h, ro_g, rd_g, vh, ti_h, ji_h), "torso": (pw_t, ro_t_g, rd_t_g, vt,
+                                                                     ti_t, ji_t)}
+
+    occ_ms = _cuda_ms(lambda: conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals,
+                                                     rcfg.occ_sigma_thresh, rcfg.occ_grid_res,
+                                                     act), 2)
+    bufs, pair_ms, pair_plain_ms, pair_err, pair_flops, pair_bytes = {}, 0.0, 0.0, 0.0, 0.0, 0.0
+    for branch, (pw, o, d, vr, ti, ji) in pair_ops.items():
+        bufs[branch] = pair_field_kernel(pw, branch, o, d, vr, z_vals, ti, ji, act)
+        ms = _cuda_ms(lambda: pair_field_kernel(pw, branch, o, d, vr, z_vals, ti, ji, act), 3)
+        ref, plain_ms = _cuda_call(lambda: pair_field_eval_reference(pw, branch, o, d, vr, z_vals,
+                                                                     ti, ji, act))
+        pair_err = max(pair_err, _check_buffers(
+            f"pair path, pair_field {branch} vs plain", bufs[branch], ref,
+            _listed_mask(J, k_u, ti, ji, "cuda")))
+        K = ti.numel()
+        flops = K * 8 * R_T * field_flops_per_sample(branch)
+        w, b = _weight_blobs(pw, branch)
+        n_bytes = (2 * k_u * R_T * 3 * 4 + k_u * R_T * 256 * 2 + N_SAMPLES * 4 + 2 * K * 4
+                   + w.numel() * 2 + b.numel() * 4 + K * 8 * R_T * (4 + 3 * 2))
+        print(f"[pair path] pair_field {branch}: {K} pairs, {ms:.3f} ms per launch; plain "
+              f"{plain_ms:.1f} ms; {flops / 1e12:.3f} TFLOP at live widths -> "
+              f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak "
+              f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB", flush=True)
+        pair_ms, pair_plain_ms = pair_ms + ms, pair_plain_ms + plain_ms
+        pair_flops, pair_bytes = pair_flops + flops, pair_bytes + n_bytes
+    comp_ms = _cuda_ms(lambda: deferred_composite(bufs["head"], bufs["torso"], c["occ_sub"],
+                                                  rd_g, rd_t_g, z_vals, with_diagnostics=False), 5)
+
+    far_runs = {
+        "far_head": (lambda: far_head_kernel(pw_h, ro, rd, far, act=act),
+                     lambda: far_head_reference(pw_h, ro, rd, far, act),
+                     n * field_flops_per_sample("head", color=False),
+                     n * 2 * 3 * 4 + sum(x.numel() * x.element_size()
+                                         for x in _weight_blobs(pw_h, "head")) + n * 4),
+        "far_torso": (lambda: far_torso_kernel(pw_t, ro_t, rd_t, far, vrtf, act=act),
+                      lambda: far_torso_reference(pw_t, ro_t, rd_t, far, vrtf, act),
+                      n * field_flops_per_sample("torso", sigma=False),
+                      n * 2 * 3 * 4 + n * 256 * 2 + sum(x.numel() * x.element_size()
+                                                        for x in _weight_blobs(pw_t, "torso"))
+                      + n * 3 * 4),
     }
+    far_res = {}
+    for name, (kernel, plain, flops, n_bytes) in far_runs.items():
+        out = kernel()
+        ms = _cuda_ms(kernel, 5)
+        out_ref, plain_ms = _cuda_call(plain)
+        print(f"[pair path] {name}: {n} rays, {ms:.3f} ms per launch; plain {plain_ms:.1f} ms; "
+              f"{flops / 1e12:.3f} TFLOP at live widths -> {flops / PEAK_BF16_FLOPS * 1e3:.3f} "
+              f"ms at bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} "
+              f"MB", flush=True)
+        far_res[name] = (out, out_ref, ms, plain_ms, flops, n_bytes)
+    errs = _check_far("pair path, far kernels vs plain", far_res["far_head"][0],
+                      far_res["far_torso"][0], far_res["far_head"][1], far_res["far_torso"][1])
+    entries = [_entry("pair_field", "pair_field.cu", "dfanerf_tpu/ops/fused_render.py:974",
+                      launches["pair_field"], pair_err, pair_ms, pair_plain_ms, pair_flops,
+                      pair_bytes)]
+    for (name, line), err_k in zip((("far_head", 1508), ("far_torso", 1529)), errs):
+        entries.append(_entry(name, "far_eval.cu", f"dfanerf_tpu/ops/fused_render.py:{line}",
+                              launches[name], err_k, *far_res[name][2:]))
+    print(f"[pair path] stages on frame {PAIR_FRAMES - 1}'s operands: occupancy {occ_ms:.2f} ms "
+          f"(refresh frames only), pair_field head+torso {pair_ms:.2f} ms, far_head + far_torso "
+          f"{entries[1]['ms'] + entries[2]['ms']:.2f} ms, deferred_composite {comp_ms:.2f} ms; "
+          f"frame-level error vs plain {err:.3e}", flush=True)
+    print("[pair path] library_ms is null for pair_field, far_head and far_torso: no single "
+          "PyTorch call computes a packed NeRF field on listed (tile, slab) pairs or at the far "
+          "plane", flush=True)
+    return entries
+
+
+# A contribution prune that drops pairs on the card (the main path's
+# transmittance prune keeps every pair of these unsaturated random fields).
+# On frame 0's refresh the torso's per-(tile, slab) contributions reach at
+# most 0.0435 and the head's start at 0.0530 (the phase prints both; H100),
+# so 0.05 drops every torso pair (K_t = 0) and keeps every head pair, and the
+# union falls from 841 tiles to the head's 724.
+PRUNE_CONTRIB = 0.05
+
+
+def phase_pair_prune():
+    """The pair path after a prune that drops pairs: a refresh frame, then a
+    steady frame under the pruned lists, in which the union has shrunk and a
+    field has no pair; the steady frame is held against the plain versions."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.pair_field import pair_field_kernel
+
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**PAIR_RENDER, occ_prune_contrib=PRUNE_CONTRIB))
+    scene, args = _pair_scene(cfg)
+    render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    flag_runs, comp_runs = [], []
+    with _spy("conservative_occupancy", flag_runs), _spy("deferred_composite", comp_runs):
+        render(*args(0))
+    occ = flag_runs[0][2]
+    (_, _, occ_sub, *_), _, diag = comp_runs[0]
+    cb_h, cb_t = diag[6][occ_sub[0].bool()], diag[7][occ_sub[1].bool()]
+    c = render.cache
+    k_h, k_t, k_u = c["lists"][0][0].numel(), c["lists"][1][0].numel(), len(c["tiles_u"])
+    u_before = int(occ.amax(dim=(0, 2)).sum())
+    print(f"[pair prune] occ_prune_contrib {PRUNE_CONTRIB}: K_h {int(occ[0].sum())} -> {k_h}, "
+          f"K_t {int(occ[1].sum())} -> {k_t}, union {u_before} -> {k_u} tiles; listed "
+          f"contributions head {float(cb_h.min()):.4f}-{float(cb_h.max()):.4f}, torso "
+          f"{float(cb_t.min()):.4f}-{float(cb_t.max()):.4f}", flush=True)
+    if not (k_u < u_before and min(k_h, k_t) == 0 < max(k_h, k_t)):
+        _fail("the prune should drop tiles from the union and every pair of one field")
+
+    kernels = {"pair_field": pair_field_kernel, "far_head": far_head_kernel,
+               "far_torso": far_torso_kernel}
+    before = {name: k.launches for name, k in kernels.items()}
+    head, com = render(*args(1))
+    torch.cuda.synchronize()
+    got = {name: k.launches - before[name] for name, k in kernels.items()}
+    if got != {"pair_field": 1, "far_head": 1, "far_torso": 1}:
+        _fail(f"the pruned steady frame launched {got}")
+    _check_frame("pair prune steady frame 1", head, com)
+    captured = {}
+    with _plain_pair_path(captured):
+        head_r, com_r = render.run_fast(*args(1))
+    torch.cuda.synchronize()
+    _check_pair("pair prune steady frame 1, kernels vs plain", head, com, head_r, com_r,
+                captured["sh"])
+
+
+def _entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return {"name": name, "route": "cuda", "source": f"dfanerf_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
 def main() -> int:
@@ -284,11 +868,16 @@ def main() -> int:
           f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     phase_build()
     phase_kernel_vs_plain()
-    kernel = phase_main_path()
+    phase_pair_kernels_vs_plain()
+    kernel, dense_ops = phase_main_path()
+    phase_pair_vs_dense(dense_ops)
+    del dense_ops
+    pair_kernels = phase_pair_main_path()
+    phase_pair_prune()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [kernel] + pair_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from dfanerf_torch.config import ExperimentConfig
+from dfanerf_torch.device import resolve_device
 from dfanerf_torch.train.state import Params, TrainState
 
 _LEAF = {"w": "weight", "b": "bias"}
@@ -78,9 +79,11 @@ def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return listify(tree)
 
 
-def state_from_jax(jax_state: Dict[str, Any], cfg: ExperimentConfig, device="cpu") -> TrainState:
-    """A reference-package train state (as numpy arrays) -> the port's state.
-    The optimizer moments are not carried across."""
+def state_from_jax(jax_state: Dict[str, Any], cfg: ExperimentConfig, device=None) -> TrainState:
+    """A reference-package train state (as numpy arrays) -> the port's state
+    on ``device`` (default CUDA; see device.resolve_device). The optimizer
+    moments are not carried across."""
+    device = resolve_device(device)
     with torch.device("meta"):
         params = Params(cfg)
     params = params.to_empty(device="cpu")

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc into plain-C shared libraries.
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>-<digest>.so`` at the
-repository root, where the digest covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Sources build
+repository root, where the digest covers the source, every ``csrc`` header it
+includes (``#include "x.cuh"``, followed through headers) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded. Sources build
 in parallel, one nvcc process each. The wrappers load the libraries with
 ctypes; nothing is built when a module is imported.
 """
@@ -11,14 +12,15 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("render_rays",)
+SOURCES = ("render_rays", "pair_field", "far_eval")
 # --fmad=false: the kernels mirror their plain versions' float32 rounding
 # (see the note in csrc/render_rays.cu); -Xptxas -v reports registers, shared
 # memory and spills into the build log.
@@ -39,8 +41,29 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_includes(path: Path) -> List[Path]:
+    """The headers of ``path``'s directory that it includes, directly or
+    through other such headers, in first-include order."""
+    seen: List[Path] = []
+    todo = [path]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_text()):
+            header = path.parent / name
+            if header.exists() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    source = csrc / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in local_includes(source):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,0 +1,127 @@
+"""Compositing of the pair-compacted render (port of
+dfanerf_tpu/ops/fused_render.py deferred_composite :1698 and bg_blend
+:1663).
+
+``deferred_composite`` marches the head-only and composite stacks over the
+per-sample buffers that ops/pair_field.py writes, with the same per-sample
+math as the dense kernel in its background-epilogue mode (the final sample
+is the caller's ``bg_blend``). Reads are masked with ``torch.where(flag, x,
+0)``, never a multiply: blocks of unlisted pairs are never written and may
+hold NaN. Both are plain PyTorch, as the reference leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dfanerf_torch.ops.fused_render import R_T, S_SLAB
+
+
+def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
+                       rays_d_t: torch.Tensor, z_vals: torch.Tensor,
+                       with_diagnostics: bool = True, buf_h2=None, buf_t2=None, occ2=None,
+                       s_slab: int = None, with_ray_diag: bool = False, ray_err_bc=None,
+                       with_keys: bool = False):
+    """Composite two pair_field_eval buffers.
+
+    buf_h/buf_t: (sigma, r, g, b), each [J, 8, NT]; occ [2, T, J] masks
+    every (tile, slab) the pair lists may have skipped; rays [T * 256, 3].
+    Returns (acc_head [n, 3], acc_com [n, 3], t_head [n, 1], t_com [n, 1])
+    and, with ``with_diagnostics``, the per-(tile, slab) maxima over each
+    tile's rays of the slab-start transmittances (tile_trans_head,
+    tile_trans_com [T, J]) and of each field's summed compositing weight
+    over both stacks (contrib_head, contrib_torso [T, J]).
+
+    The packed-2 buffers (``buf_h2``/``occ2``), per-ray diagnostics
+    (``with_ray_diag``, ``ray_err_bc``) and live prune keys (``with_keys``)
+    serve levers that are not ported yet and raise."""
+    if buf_h2 is not None or buf_t2 is not None or occ2 is not None or s_slab not in (None, S_SLAB):
+        raise NotImplementedError(
+            "the packed-2 buffers (occ_pack2) are not ported yet (ROADMAP.md queue 1, item 8)")
+    if with_ray_diag or ray_err_bc is not None:
+        raise NotImplementedError(
+            "per-ray diagnostics (the budgeted prune) are not ported yet (ROADMAP.md queue 1, "
+            "item 8)")
+    if with_keys:
+        raise NotImplementedError(
+            "live prune keys (occ_live_keys) are not ported yet (ROADMAP.md queue 1, item 8)")
+    J = buf_h[0].shape[0]
+    NT = buf_h[0].shape[2]
+    n = rays_d.shape[0]
+    S = z_vals.shape[0]
+    T = n // R_T
+    sp = S_SLAB
+
+    def unpack(bufs, occ_f):
+        # [S, n] per channel; flag [T, J] -> [J, 1, T, 1]
+        flag = occ_f.bool().t()[:, None, :, None]
+
+        def chan(buf):
+            x = buf.reshape(J, sp, NT // R_T, R_T)[:, :, :T]
+            return torch.where(flag, x.float(), 0.0).reshape(S, n)
+
+        return chan(bufs[0]), tuple(chan(b) for b in bufs[1:])
+
+    sig_h, rgb_h = unpack(buf_h, occ[0])
+    sig_t, rgb_t = unpack(buf_t, occ[1])
+
+    # background-epilogue dists: tail 0 (the final sample is bg_blend's)
+    z = z_vals.float()
+    diffs = torch.cat([z[1:] - z[:-1], z.new_zeros(1)])
+
+    def dists_for(rd):
+        return diffs[:, None] * torch.linalg.norm(rd.float(), dim=-1)[None, :]
+
+    def march(alpha, colors):
+        # transmittance scan along the sample axis: accumulated colour
+        # [n, 3], final transmittance [n, 1], slab-start transmittances
+        # [J, n] and per-sample compositing weights [S, n]
+        t = torch.cumprod(1.0 - alpha + 1e-10, dim=0)
+        t_prev = torch.cat([t.new_ones((1, n)), t[:-1]], dim=0)
+        w = alpha * t_prev
+        acc = torch.stack([(w * c).sum(dim=0) for c in colors], dim=-1)
+        return acc, t[-1:].t(), t_prev[0:S:sp], w
+
+    alpha_h = 1.0 - torch.exp(-(sig_h + 1e-6) * dists_for(rays_d))
+    acc_head, tl_h, starts_h, w_h = march(alpha_h, rgb_h)
+
+    ssum = sig_h + sig_t
+    denom = torch.where(ssum == 0.0, 1e-4, ssum)
+    c_mix = tuple((sig_h * ch + sig_t * ct) / denom for ch, ct in zip(rgb_h, rgb_t))
+    alpha_c = 1.0 - torch.exp(-(ssum + 1e-6) * dists_for(rays_d_t))
+    acc_com, tl_c, starts_c, w_c = march(alpha_c, c_mix)
+    if not with_diagnostics:
+        return acc_head, acc_com, tl_h, tl_c
+
+    def tile_trans(starts):  # [J, n] -> [T, J]
+        return starts.reshape(J, T, R_T).amax(dim=2).t()
+
+    def tile_contrib(w):  # [S, n] -> [T, J]: max-ray summed slab weight
+        return w.reshape(J, sp, T, R_T).sum(dim=1).amax(dim=2).t()
+
+    frac_h = sig_h / denom
+    contrib_h = tile_contrib(w_h + w_c * frac_h)
+    contrib_t = tile_contrib(w_c * (1.0 - frac_h))
+    return (acc_head, acc_com, tl_h, tl_c, tile_trans(starts_h), tile_trans(starts_c),
+            contrib_h, contrib_t)
+
+
+def bg_blend(sh, ct, rays_d, rays_d_t, bc_rgb, last_dist, acc_head, acc_com, t_head, t_com):
+    """The background catch-all at the final sample, given the far-plane
+    head density sh [n, 1] and torso colour ct [n, 3] (the reference's
+    bg-concat last-sample math). Returns (head [n, 3], com [n, 3])."""
+    dh_l = last_dist * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
+    dt_l = last_dist * torch.linalg.norm(rays_d_t.float(), dim=-1, keepdim=True)
+    bc = bc_rgb.float()
+
+    sh_head = sh + 1e-6
+    alpha_h = 1.0 - torch.exp(-(sh_head + 1e-6) * dh_l)
+    head = acc_head + (alpha_h * t_head) * bc
+
+    st_com = 1e-6
+    ssum = sh + st_com
+    denom = torch.where(ssum == 0.0, 1e-4, ssum)
+    c_mix = (sh * bc + st_com * ct) / denom
+    alpha_c = 1.0 - torch.exp(-(ssum + 1e-6) * dt_l)
+    com = acc_com + (alpha_c * t_com) * c_mix
+    return head, com

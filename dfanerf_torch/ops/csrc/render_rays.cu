@@ -26,7 +26,8 @@
 // in VMEM; a Hopper block has 227 KB of shared memory, so the weights cannot
 // stay on chip and are streamed from L2 for every row chunk.
 //
-// Design (the simple, correct first version):
+// Design (the simple, correct first version; the field's device code is
+// shared with the pair and far-plane kernels in field_mlp.cuh):
 // - One block of 8 warps per 256-ray tile. The TPU's sequential slab grid
 //   axis and its scratch carry become a loop over the slabs inside the block;
 //   the per-ray transmittances and rgb sums live in shared memory, and the
@@ -58,71 +59,18 @@
 //   compositing recurrences round as in the plain version. sinf/expf are
 //   the accurate library functions (never --use_fast_math).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "field_mlp.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int RT = 256;    // rays per tile
-constexpr int SS = 8;      // samples per slab
-constexpr int M = 128;     // rows per chunk
-constexpr int NTHR = 256;  // threads per block (8 warps)
-constexpr int HID = 256;   // trunk width
-constexpr int DEF = 128;   // block-diagonal deform width
-constexpr int PEW = 64;    // padded PE width
-constexpr int LDH = HID + 8;  // row stride (elements) of the activation buffers
-constexpr int LDP = DEF + 8;  // row stride of the PE / deformed-input buffer
-
-// Weight blob (bf16, every matrix stored [out][in]), per field:
-//   w_in [256][KIN], w_blocks 7 x [256][256], w_skip [256][KIN],
-//   w_sf [384][256], w_out rows 0:8 [8][256];
-// the torso (KIN = 128) appends d_w1 [128][64], d_wk 4 x [128][128],
-//   d_wskip [128][64], d_wout [128][128].
-template <int KIN>
-struct WOff {
-  static constexpr int IN = 0;
-  static constexpr int BLK = IN + HID * KIN;
-  static constexpr int SKIP = BLK + 7 * HID * HID;
-  static constexpr int SF = SKIP + HID * KIN;
-  static constexpr int OUT = SF + 384 * HID;
-  static constexpr int END = OUT + 8 * HID;
-};
-constexpr int D_W1 = WOff<DEF>::END;
-constexpr int D_WK = D_W1 + DEF * PEW;
-constexpr int D_WSKIP = D_WK + 4 * DEF * DEF;
-constexpr int D_WOUT = D_WSKIP + DEF * PEW;
-constexpr int TORSO_WEND = D_WOUT + DEF * DEF;
-
-// Bias blob (fp32), per field: b_in 256, b_blocks 7 x 256, b_skip 256,
-// b_sf 384, b_out 8; the torso appends d_b1 128, d_bk 4 x 128, d_bskip 128,
-// d_bout 128, sig_pad 128.
-constexpr int B_IN = 0;
-constexpr int B_BLK = B_IN + HID;
-constexpr int B_SKIP = B_BLK + 7 * HID;
-constexpr int B_SF = B_SKIP + HID;
-constexpr int B_OUT = B_SF + 384;
-constexpr int B_END = B_OUT + 8;
-constexpr int DB_1 = B_END;
-constexpr int DB_K = DB_1 + DEF;
-constexpr int DB_SKIP = DB_K + 4 * DEF;
-constexpr int DB_OUT = DB_SKIP + DEF;
-constexpr int SIG_PAD = DB_OUT + DEF;
-constexpr int TORSO_BEND = SIG_PAD + DEF;
-
-// Shared memory (bytes).
-constexpr int SM_X = 0;
-constexpr int SM_Y = SM_X + M * LDH * 2;
-constexpr int SM_P = SM_Y + M * LDH * 2;
-constexpr int SM_STATE = SM_P + M * LDP * 2;       // t_head, t_com [RT]
+// Shared memory (bytes): the field's buffers (field_mlp.cuh), then the
+// compositing state.
+constexpr int SM_STATE = SM_FIELD_END;              // t_head, t_com [RT]
 constexpr int SM_ACC = SM_STATE + 2 * RT * 4;      // acc_h, acc_c [RT][3]
 constexpr int SM_RES = SM_ACC + 2 * RT * 3 * 4;    // sig_h, sig_t [M]; rgb_h, rgb_t [M][3]
 constexpr int SM_RED = SM_RES + 2 * M * 4 * 4;     // 8 floats
 constexpr int SMEM_BYTES = SM_RED + 8 * 4;
-
-enum { RELU = 0, SKIP = 1, VIEW = 2, DEFORM_OUT = 3 };
 
 struct Params {
   const float *o_h, *d_h, *o_t, *d_t;  // [n_pad][3]
@@ -139,218 +87,6 @@ struct Params {
   int n_tiles, n_slabs, softplus;
   float ert_eps;
 };
-
-__device__ __forceinline__ uint32_t ldg_pair(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[mt][nt] += A[0:128, 0:K] . W[n0 + 8 nt + (0:8), 0:K]^T for the calling
-// warp: A in shared memory (row stride lda), W in global memory [N][K].
-template <int K, int NT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[8][NT][4], const bf16* A, int lda,
-                                          const bf16* W, int n0, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-  const bf16* wrow[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) wrow[nt] = W + (n0 + nt * 8 + g) * K + q * 2;
-  const bf16* arow = A + (lane & 15) * lda + (lane >> 4) * 8;
-  uint32_t b[2][NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    b[0][nt][0] = ldg_pair(wrow[nt]);
-    b[0][nt][1] = ldg_pair(wrow[nt] + 8);
-  }
-#pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks) {
-    const int cur = ks & 1;
-    if (ks + 1 < K / 16) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        b[cur ^ 1][nt][0] = ldg_pair(wrow[nt] + (ks + 1) * 16);
-        b[cur ^ 1][nt][1] = ldg_pair(wrow[nt] + (ks + 1) * 16 + 8);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 8; ++mt) {
-      uint32_t a[4];
-      ldmatrix_x4(a, arow + mt * 16 * lda + ks * 16);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[cur][nt][0], b[cur][nt][1]);
-    }
-  }
-}
-
-// One dense layer over the chunk's 128 rows; the warp owns NT x 8 output
-// columns. MODE picks the epilogue:
-//   RELU:       out = bf16(relu(A W^T + b))
-//   SKIP:       out = bf16(relu(A W^T + b) + P Wp^T + bp)      (trunk block 3,
-//               deform block 2; P has KP columns)
-//   VIEW:       out = bf16(relu((A W^T + b) + vr[ray]))        (view feature)
-//   DEFORM_OUT: out = bf16(((A W^T + b) + bp) + pe)  written in place over
-//               the PE buffer `out` (pe = 0 beyond column 64; bp = sig_pad)
-template <int K, int NT, int MODE, int KP>
-__device__ __forceinline__ void layer(const bf16* A, int lda, const bf16* W, const float* bias,
-                                      bf16* out, int ldo, const bf16* P, const bf16* Wp,
-                                      const float* bp, const bf16* vr, int ray0, int warp,
-                                      int lane) {
-  float acc[8][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  const int n0 = warp * NT * 8, g = lane >> 2, q = lane & 3;
-  warp_gemm<K, NT>(acc, A, lda, W, n0, lane);
-  if (MODE == SKIP) {
-#pragma unroll
-    for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[mt][nt][i] = fmaxf(acc[mt][nt][i] + bias[n0 + nt * 8 + q * 2 + (i & 1)], 0.f);
-    warp_gemm<KP, NT>(acc, P, LDP, Wp, n0, lane);
-  }
-#pragma unroll
-  for (int mt = 0; mt < 8; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = n0 + nt * 8 + q * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = mt * 16 + g + h * 8;
-        float x0 = acc[mt][nt][2 * h], x1 = acc[mt][nt][2 * h + 1];
-        bf16* dst = out + row * ldo + col;
-        if (MODE == RELU) {
-          x0 = fmaxf(x0 + bias[col], 0.f);
-          x1 = fmaxf(x1 + bias[col + 1], 0.f);
-        } else if (MODE == SKIP) {
-          x0 = x0 + bp[col];
-          x1 = x1 + bp[col + 1];
-        } else if (MODE == VIEW) {
-          const float2 v = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(vr + (ray0 + row) * HID + col));
-          x0 = fmaxf((x0 + bias[col]) + v.x, 0.f);
-          x1 = fmaxf((x1 + bias[col + 1]) + v.y, 0.f);
-        } else {  // DEFORM_OUT
-          float p0 = 0.f, p1 = 0.f;
-          if (col < PEW) {
-            const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dst));
-            p0 = v.x;
-            p1 = v.y;
-          }
-          x0 = ((x0 + bias[col]) + bp[col]) + p0;
-          x1 = ((x1 + bias[col + 1]) + bp[col + 1]) + p1;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
-      }
-    }
-  }
-}
-
-// The warp's 16 rows x 8 columns of A[., 0:256] . W[0:8, 0:256]^T (the sigma
-// column of w_sf, or the rgb columns of w_out).
-__device__ __forceinline__ void narrow8(float (&d)[4], const bf16* A, const bf16* W, int warp,
-                                        int lane) {
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-  const bf16* wrow = W + (lane >> 2) * HID + (lane & 3) * 2;
-  const bf16* arow = A + (warp * 16 + (lane & 15)) * LDH + (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < HID / 16; ++ks) {
-    uint32_t a[4];
-    ldmatrix_x4(a, arow + ks * 16);
-    const uint32_t b0 = ldg_pair(wrow + ks * 16), b1 = ldg_pair(wrow + ks * 16 + 8);
-    mma_bf16(d, a, b0, b1);
-  }
-}
-
-__device__ __forceinline__ float density_act(float x, int softplus) {
-  return softplus ? fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))) : fmaxf(x, 0.f);
-}
-
-// sin((o + d z) * freq + phase) for the chunk's 128 rays in the 64 PE slots
-// (slot c reads coordinate c % 3; slots 60:64 are zero), rounded to bf16.
-__device__ __forceinline__ void encode(bf16* P, const float* o, const float* d, float zs,
-                                       const float* freq, const float* phase, int ray0,
-                                       int tid) {
-  for (int idx = tid; idx < M * PEW; idx += NTHR) {
-    const int row = idx >> 6, c = idx & (PEW - 1);
-    float v = 0.f;
-    if (c < 60) {
-      const int k = (ray0 + row) * 3 + c % 3;
-      const float pts = o[k] + d[k] * zs;
-      const float arg = pts * freq[c] + phase[c];
-      v = sinf(arg);
-    }
-    P[row * LDP + c] = __float2bfloat16_rn(v);
-  }
-}
-
-// sigma [M] and rgb [M][3] of one field over the chunk, from the trunk
-// output in Y (input of w_sf); leaves the colour-head input in X.
-template <int KIN>
-__device__ __forceinline__ void trunk_and_heads(bf16* X, bf16* Y, bf16* P, const bf16* w,
-                                                const float* b, const bf16* vr, int ray0,
-                                                int softplus, float* sig, float* rgb, int warp,
-                                                int lane) {
-  typedef WOff<KIN> O;
-  const bf16* nul = nullptr;
-  layer<KIN, 4, RELU, 16>(P, LDP, w + O::IN, b + B_IN, X, LDH, nul, nul, nullptr, nul, 0, warp, lane);
-  __syncthreads();
-  bf16* src = X;
-  bf16* dst = Y;
-#pragma unroll 1
-  for (int i = 0; i < 7; ++i) {
-    if (i == 3) {
-      layer<HID, 4, SKIP, KIN>(src, LDH, w + O::BLK + i * HID * HID, b + B_BLK + i * HID, dst,
-                               LDH, P, w + O::SKIP, b + B_SKIP, nul, 0, warp, lane);
-    } else {
-      layer<HID, 4, RELU, 16>(src, LDH, w + O::BLK + i * HID * HID, b + B_BLK + i * HID, dst,
-                              LDH, nul, nul, nullptr, nul, 0, warp, lane);
-    }
-    __syncthreads();
-    bf16* t = src;
-    src = dst;
-    dst = t;
-  }
-  // src holds h (Y after 7 blocks); the sigma column, then the view feature.
-  const int g = lane >> 2, q = lane & 3;
-  float d[4];
-  narrow8(d, src, w + O::SF, warp, lane);
-  if (q == 0) {
-    sig[warp * 16 + g] = density_act(d[0] + b[B_SF], softplus);
-    sig[warp * 16 + g + 8] = density_act(d[2] + b[B_SF], softplus);
-  }
-  layer<HID, 4, VIEW, 16>(src, LDH, w + O::SF + 128 * HID, b + B_SF + 128, dst, LDH, nul, nul,
-                          nullptr, vr, ray0, warp, lane);
-  __syncthreads();
-  narrow8(d, dst, w + O::OUT, warp, lane);
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int c = q * 2 + e;
-    if (c < 3) {
-      rgb[(warp * 16 + g) * 3 + c] = 1.f / (1.f + expf(-(d[e] + b[B_OUT + c])));
-      rgb[(warp * 16 + g + 8) * 3 + c] = 1.f / (1.f + expf(-(d[2 + e] + b[B_OUT + c])));
-    }
-  }
-}
 
 __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -371,7 +107,6 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
   const int tile = blockIdx.x;
   const int J = p.n_slabs;
   const int n_pad = p.n_tiles * RT;
-  const bf16* nul = nullptr;
 
   t_head[tid] = 1.f;
   t_com[tid] = 1.f;
@@ -415,24 +150,7 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
       // torso field: deform, then the trunk on p' = deform + sig_pad + pe
       encode(P, p.o_t, p.d_t, zs, p.freq, p.phase, ray0, tid);
       __syncthreads();
-      layer<PEW, 2, RELU, 16>(P, LDP, p.w_t + D_W1, p.b_t + DB_1, X, LDH, nul, nul, nullptr, nul,
-                              0, warp, lane);
-      __syncthreads();
-      layer<DEF, 2, RELU, 16>(X, LDH, p.w_t + D_WK, p.b_t + DB_K, Y, LDH, nul, nul, nullptr, nul,
-                              0, warp, lane);
-      __syncthreads();
-      layer<DEF, 2, RELU, 16>(Y, LDH, p.w_t + D_WK + DEF * DEF, p.b_t + DB_K + DEF, X, LDH, nul,
-                              nul, nullptr, nul, 0, warp, lane);
-      __syncthreads();
-      layer<DEF, 2, SKIP, PEW>(X, LDH, p.w_t + D_WK + 2 * DEF * DEF, p.b_t + DB_K + 2 * DEF, Y,
-                               LDH, P, p.w_t + D_WSKIP, p.b_t + DB_SKIP, nul, 0, warp, lane);
-      __syncthreads();
-      layer<DEF, 2, RELU, 16>(Y, LDH, p.w_t + D_WK + 3 * DEF * DEF, p.b_t + DB_K + 3 * DEF, X,
-                              LDH, nul, nul, nullptr, nul, 0, warp, lane);
-      __syncthreads();
-      layer<DEF, 2, DEFORM_OUT, 16>(X, LDH, p.w_t + D_WOUT, p.b_t + DB_OUT, P, LDP, nul, nul,
-                                    p.b_t + SIG_PAD, nul, 0, warp, lane);
-      __syncthreads();
+      deform(X, Y, P, p.w_t, p.b_t, warp, lane);
       trunk_and_heads<DEF>(X, Y, P, p.w_t, p.b_t, p.vr_t, ray0, p.softplus, sig_t, rgb_t, warp,
                            lane);
       __syncthreads();

@@ -1,0 +1,194 @@
+"""The far-plane fields of the background catch-all (port of
+dfanerf_tpu/ops/fused_render.py fused_far_eval_split :1566 and
+fused_far_eval_split_prepped :1588).
+
+At each ray's far-plane point o + d * far: the head field's density sh
+[n, 1] (after the density activation) and the torso field's colour ct
+[n, 3], both float32 — what ``composite.bg_blend`` needs for the last
+sample. The reference's kernels return [n, 8] broadcasts of these (a TPU
+lane layout); the port returns the values themselves.
+
+Two implementations over the same operands:
+
+- ``far_head_kernel`` and ``far_torso_kernel``: the hand-written CUDA
+  kernels of csrc/far_eval.cu (the ports of the Pallas ``_far_head_kernel``
+  and ``_far_torso_kernel``), bound with ctypes and built at first launch,
+  each counting its launches in ``.launches``.
+- ``far_head_reference`` and ``far_torso_reference`` (both together:
+  ``far_eval_reference``): their plain PyTorch versions, with the same bf16
+  rounding points.
+
+``fused_far_eval_split_prepped`` takes the plain version only for tensors on
+the CPU; for CUDA tensors it launches both kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from dfanerf_torch.ops.fused_render import (
+    _field_rows, _mm_kernel, _slot_tables, _trunk, _weight_blobs, density_act, pe_replicate,
+    view_bias,
+)
+
+_REF_ROWS = 16384  # rays per group in the plain version (bounds its activation memory)
+
+
+def _check_operands(rays_o, rays_d, rays_o_t, rays_d_t, vr_t, act):
+    n = rays_o.shape[0]
+    for name, x in (("rays_d", rays_d), ("rays_o_t", rays_o_t), ("rays_d_t", rays_d_t)):
+        if tuple(x.shape) != (n, 3):
+            raise ValueError(f"{name}: expected {(n, 3)}, got {tuple(x.shape)}")
+    if tuple(vr_t.shape) != (n, 256):
+        raise ValueError(f"vr_t: expected {(n, 256)}, got {tuple(vr_t.shape)}")
+    if act not in ("relu", "softplus"):
+        raise ValueError(f"unknown density activation {act!r}")
+
+
+def _far_rows(o, d, far, rows):
+    """Far-plane PE of the given rays: sin(pe_replicate(o + d * far) * freq
+    + phase) in bf16, as the kernels encode it."""
+    freq, phase = _slot_tables(o.device)
+    pts = o[rows].float() + d[rows].float() * torch.tensor(far, dtype=torch.float32)
+    return torch.sin(pe_replicate(pts) * freq + phase).to(torch.bfloat16)
+
+
+@torch.no_grad()
+def far_head_reference(pw_h: Dict[str, torch.Tensor], rays_o, rays_d, far: float,
+                       act: str = "relu") -> torch.Tensor:
+    """Plain PyTorch version of far_head: sh [n, 1]."""
+    return torch.cat([
+        density_act(_trunk(pw_h, _far_rows(rays_o, rays_d, far, slice(a, a + _REF_ROWS)),
+                           _mm_kernel)[:, 0:1], act)
+        for a in range(0, rays_o.shape[0], _REF_ROWS)])
+
+
+@torch.no_grad()
+def far_torso_reference(pw_t: Dict[str, torch.Tensor], rays_o_t, rays_d_t, far: float,
+                        vr_t: torch.Tensor, act: str = "relu") -> torch.Tensor:
+    """Plain PyTorch version of far_torso: ct [n, 3]."""
+    out = []
+    for a in range(0, rays_o_t.shape[0], _REF_ROWS):
+        rows = slice(a, a + _REF_ROWS)
+        _, rgb = _field_rows(pw_t, _far_rows(rays_o_t, rays_d_t, far, rows), vr_t[rows].float(),
+                             "torso", act)
+        out.append(rgb)
+    return torch.cat(out)
+
+
+def far_eval_reference(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t, far: float,
+                       vr_t: torch.Tensor, act: str = "relu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of both kernels: (sh [n, 1], ct [n, 3])."""
+    _check_operands(rays_o, rays_d, rays_o_t, rays_d_t, vr_t, act)
+    return (far_head_reference(pw_h, rays_o, rays_d, far, act),
+            far_torso_reference(pw_t, rays_o_t, rays_d_t, far, vr_t, act))
+
+
+class FarEvalKernel:
+    """ctypes binding of one entry point of csrc/far_eval.cu (``torso``
+    False: far_head, True: far_torso); builds and loads the library at its
+    first launch. ``launches`` counts the kernel launches."""
+
+    def __init__(self, torso: bool):
+        self.torso = torso
+        self.launches = 0
+        self._lib = None
+        self._layout = None
+
+    def _library(self):
+        """Path of the built shared library (built on first use)."""
+        from dfanerf_torch.ops import _build
+
+        return _build.build(["far_eval"])["far_eval"]
+
+    def _load(self):
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self._library()))
+            lib.far_eval_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.far_eval_layout.restype = ctypes.c_int
+            ptr = ctypes.c_void_p
+            lib.far_eval_launch.argtypes = (
+                [ctypes.c_int, ptr, ptr, ctypes.c_float] + [ptr] * 6
+                + [ctypes.c_int, ctypes.c_int, ptr])
+            lib.far_eval_launch.restype = ctypes.c_int
+            sizes = (ctypes.c_int * 5)()
+            lib.far_eval_layout(sizes)
+            self._layout = tuple(sizes)
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, pw, rays_o, rays_d, far: float, vr=None, act: str = "relu"):
+        """Launch on the current stream: far_head returns sh [n, 1], far_torso
+        (which needs the torso view bias vr [n, 256] bf16) ct [n, 3]."""
+        dev = rays_o.device
+        if dev.type != "cuda":
+            raise ValueError(f"far_eval kernels need CUDA tensors, got {dev}")
+        n = rays_o.shape[0]
+        operands = {"rays_o": (rays_o, (n, 3), torch.float32),
+                    "rays_d": (rays_d, (n, 3), torch.float32)}
+        if self.torso:
+            if vr is None:
+                raise ValueError("far_torso needs the torso view bias")
+            operands["vr"] = (vr, (n, 256), torch.bfloat16)
+        for name, (x, shape, dtype) in operands.items():
+            if (x.device != dev or tuple(x.shape) != shape or x.dtype != dtype
+                    or not x.is_contiguous()):
+                raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {dev}, got "
+                                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if act not in ("relu", "softplus"):
+            raise ValueError(f"unknown density activation {act!r}")
+        lib = self._load()
+        w, b = _weight_blobs(pw, "torso" if self.torso else "head")
+        for blob, size in zip((w, b), self._layout[2:4] if self.torso else self._layout[0:2]):
+            if blob.numel() != size or blob.device != dev:
+                raise ValueError(f"weight blob of {blob.numel()} on {blob.device}, kernel "
+                                 f"expects {size} on {dev}")
+        out = torch.empty((n, 3 if self.torso else 1), dtype=torch.float32, device=dev)
+        if n == 0:
+            return out
+        freq, phase = _slot_tables(dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.far_eval_launch(
+                int(self.torso), rays_o.data_ptr(), rays_d.data_ptr(), float(far),
+                vr.data_ptr() if self.torso else None, freq.data_ptr(), phase.data_ptr(),
+                w.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(act == "softplus"), stream)
+        if err != 0:
+            raise RuntimeError(f"far_eval kernel launch failed with cudaError {err}")
+        self.launches += 1
+        return out
+
+
+far_head_kernel = FarEvalKernel(torso=False)
+far_torso_kernel = FarEvalKernel(torso=True)
+
+
+def fused_far_eval_split_prepped(pw_h: Dict[str, torch.Tensor], pw_t: Dict[str, torch.Tensor],
+                                 rays_o, rays_d, rays_o_t, rays_d_t, far: float,
+                                 vr_t: torch.Tensor, act: str = "relu"
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Head density and torso colour at the far plane, given the torso view
+    bias vr_t [n, 256] bf16. The reference's prepped operands are the
+    slot-replicated far-plane points; here the kernels take the rays and
+    ``far`` and form o + d * far themselves, in the same float32 order.
+    Returns sh [n, 1] and ct [n, 3], float32."""
+    _check_operands(rays_o, rays_d, rays_o_t, rays_d_t, vr_t, act)
+    dev = rays_o.device
+    if dev.type == "cuda":
+        return (far_head_kernel(pw_h, rays_o, rays_d, far, act=act),
+                far_torso_kernel(pw_t, rays_o_t, rays_d_t, far, vr_t, act=act))
+    if dev.type != "cpu":
+        raise ValueError(f"fused_far_eval_split runs on cpu or cuda tensors, got {dev}")
+    return far_eval_reference(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t, far, vr_t, act)
+
+
+def fused_far_eval_split(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t, far: float,
+                         act: str = "relu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_far_eval_split_prepped`` with the torso view bias computed
+    here."""
+    vr_t = view_bias(pw_t, rays_d_t).to(torch.bfloat16).contiguous()
+    return fused_far_eval_split_prepped(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t, far,
+                                        vr_t, act)

@@ -21,9 +21,9 @@ Two implementations of one function, over the same prepared operands
 ``fused_render_rays`` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
 
-Not ported yet (ROADMAP.md queue 2): ``fields='head'|'torso'``,
-``bg_epilogue=True`` and the occupancy construction (conservative_occupancy);
-the wrapper raises on the first two.
+Not ported yet (ROADMAP.md queue 2), each raising NotImplementedError in the
+wrapper: ``fields='head'|'torso'`` and ``bg_epilogue=True``. The occupancy
+flags are ops/occupancy.py's.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import torch
 
 from dfanerf_torch.core.posenc import sincos_posenc
 
-R_T = 256      # rays per tile
+TILE = 16      # a ray tile is a TILE x TILE pixel block
+R_T = TILE * TILE  # rays per tile
 S_SLAB = 8     # samples per slab
 PE_PAD = 64    # padded PE width
 _REF_TILES = 16  # tiles per group in the plain version (bounds its activation memory)
@@ -61,11 +62,25 @@ _PE_PHASE = (np.where(_SLOT % 6 >= 3, np.float32(np.pi / 2.0), np.float32(0.0))
 # ---------------------------------------------------------------------------
 
 
-def _mm_cast(dtype):
-    """x @ w with both operands rounded to ``dtype`` and fp32 accumulation
-    (bf16 x bf16 products are exact in fp32)."""
+def _mm_widened(dtype):
+    """x @ w with both operands rounded to ``dtype``, then widened to a
+    float32 product (bf16 x bf16 products are exact in fp32)."""
     def mm(x, w):
         return x.to(dtype).float() @ w.to(dtype).float()
+    return mm
+
+
+def _mm_cast(dtype):
+    """x @ w with both operands rounded to ``dtype`` and fp32 accumulation.
+    On CUDA, bf16 operands go to the tensor cores with a float32 result, as
+    the reference's ``preferred_element_type=float32`` dots; the CPU has no
+    such product, so there they are widened (``_mm_widened``)."""
+    widened = _mm_widened(dtype)
+
+    def mm(x, w):
+        if dtype == torch.bfloat16 and x.is_cuda:
+            return torch.mm(x.to(dtype), w.to(dtype), out_dtype=torch.float32)
+        return widened(x, w)
     return mm
 
 
@@ -76,10 +91,11 @@ def _mm_kernel(x, w):
 
 def _trunk(pw: Dict[str, torch.Tensor], x, mm) -> torch.Tensor:
     """Shared trunk: x [N, 64|128] -> sf [N, 384] (sigma col 0, view feature
-    cols 128:384). Activations enter each product through ``mm``."""
-    h = torch.relu(mm(x, pw["w_in"]) + pw["b_in"])
+    cols 128:384). Activations enter each product through ``mm``, whose
+    fresh result takes the bias and relu in place."""
+    h = mm(x, pw["w_in"]).add_(pw["b_in"]).relu_()
     for i in range(pw["w_blocks"].shape[0]):
-        h = torch.relu(mm(h, pw["w_blocks"][i]) + pw["b_blocks"][i])
+        h = mm(h, pw["w_blocks"][i]).add_(pw["b_blocks"][i]).relu_()
         if i == 3:
             h = h + mm(x, pw["w_skip"]) + pw["b_skip"]
     return mm(h, pw["w_sf"]) + pw["b_sf"]
@@ -87,9 +103,9 @@ def _trunk(pw: Dict[str, torch.Tensor], x, mm) -> torch.Tensor:
 
 def _deform(pw: Dict[str, torch.Tensor], pe, mm) -> torch.Tensor:
     """Torso deformation (packed block-diagonal): pe [N, 64] -> p' [N, 128]."""
-    h = torch.relu(mm(pe, pw["d_w1"]) + pw["d_b1"])
+    h = mm(pe, pw["d_w1"]).add_(pw["d_b1"]).relu_()
     for i in range(pw["d_wk"].shape[0]):
-        h = torch.relu(mm(h, pw["d_wk"][i]) + pw["d_bk"][i])
+        h = mm(h, pw["d_wk"][i]).add_(pw["d_bk"][i]).relu_()
         if i == 2:
             h = h + mm(pe, pw["d_wskip"]) + pw["d_bskip"]
     d = mm(h, pw["d_wout"]) + pw["d_bout"]
@@ -131,27 +147,27 @@ def density_act(x: torch.Tensor, act: str = "relu") -> torch.Tensor:
     return torch.clamp_min(x, 0.0)
 
 
-def spatial_tile_permutation(H: int, W: int, block_h: int = 16, block_w: int = 16) -> torch.Tensor:
-    """Flat pixel indices reordered into 16x16 blocks, one block per ray tile;
-    edge blocks clamp coordinates. Position k in tile order reads pixel
-    perm[k]. Returns an int64 CPU tensor of length Hp * Wp."""
-    hb = -(-H // block_h)
-    wb = -(-W // block_w)
+def spatial_tile_permutation(H: int, W: int) -> torch.Tensor:
+    """Flat pixel indices reordered into TILE x TILE blocks, one block per
+    ray tile, row-major within a block; edge blocks clamp coordinates.
+    Position k in tile order reads pixel perm[k]. Returns an int64 CPU
+    tensor of length Hp * Wp."""
+    hb = -(-H // TILE)
+    wb = -(-W // TILE)
     by, bx = np.meshgrid(np.arange(hb), np.arange(wb), indexing="ij")
-    iy, ix = np.meshgrid(np.arange(block_h), np.arange(block_w), indexing="ij")
-    y = np.minimum(by[:, :, None, None] * block_h + iy[None, None], H - 1)
-    x = np.minimum(bx[:, :, None, None] * block_w + ix[None, None], W - 1)
+    iy, ix = np.meshgrid(np.arange(TILE), np.arange(TILE), indexing="ij")
+    y = np.minimum(by[:, :, None, None] * TILE + iy[None, None], H - 1)
+    x = np.minimum(bx[:, :, None, None] * TILE + ix[None, None], W - 1)
     return torch.from_numpy((y * W + x).reshape(-1).astype(np.int64))
 
 
-def spatial_untile(v: torch.Tensor, H: int, W: int, block_h: int = 16,
-                   block_w: int = 16) -> torch.Tensor:
+def spatial_untile(v: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """Undo the gather of ``spatial_tile_permutation``: v [Hp * Wp, C] in
     tile order -> [H, W, C] (the edge-clamped copies are dropped)."""
-    hb = -(-H // block_h)
-    wb = -(-W // block_w)
-    return v.reshape(hb, wb, block_h, block_w, -1).permute(0, 2, 1, 3, 4).reshape(
-        hb * block_h, wb * block_w, -1)[:H, :W]
+    hb = -(-H // TILE)
+    wb = -(-W // TILE)
+    return v.reshape(hb, wb, TILE, TILE, -1).permute(0, 2, 1, 3, 4).reshape(
+        hb * TILE, wb * TILE, -1)[:H, :W]
 
 
 # ---------------------------------------------------------------------------
@@ -243,10 +259,36 @@ def prepare_render_operands(
 # ---------------------------------------------------------------------------
 
 
+_TABLES: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+
+def _tables(device) -> Tuple[torch.Tensor, ...]:
+    """(freq, phase, coord, valid) slot tables on ``device``, copied there
+    once: a per-frame host-to-device copy would stall the frame loop."""
+    device = torch.device(device if device is not None else "cpu")
+    if device not in _TABLES:
+        _TABLES[device] = tuple(torch.from_numpy(t).to(device)
+                                for t in (_PE_FREQ, _PE_PHASE, _PE_COORD, _SLOT_VALID))
+    return _TABLES[device]
+
+
 def _slot_tables(device):
-    freq = torch.from_numpy(_PE_FREQ).to(device)
-    phase = torch.from_numpy(_PE_PHASE).to(device)
-    return freq, phase
+    return _tables(device)[:2]
+
+
+def pe_replicate(rays: torch.Tensor) -> torch.Tensor:
+    """PE-slot replication (reference: fused_render.py pe_replicate :1042):
+    [n, 3] -> [n, 64] float32, slot c holding coordinate c % 3, zero past
+    the 60 valid slots."""
+    _, _, coord, valid = _tables(rays.device)
+    return rays[:, coord].float() * valid
+
+
+def pe_freq_phase(device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The [1, 64] frequency and phase rows matching pe_replicate
+    (reference: pe_freq_phase :1052)."""
+    freq, phase = _slot_tables(device)
+    return freq[None], phase[None]
 
 
 def _encode(o_rep, d_rep, z, freq, phase):
@@ -283,11 +325,9 @@ def fused_render_rays_reference(
     T, J = ops.n_tiles, ops.n_slabs
     dev = ops.rays_o.device
     freq, phase = _slot_tables(dev)
-    coord = torch.from_numpy(_PE_COORD).to(dev)
-    valid = torch.from_numpy(_SLOT_VALID).to(dev)
 
     def rep(r):  # [n_pad, 3] -> [T, R_T, 64]
-        return (r[:, coord] * valid).reshape(T, R_T, PE_PAD)
+        return pe_replicate(r).reshape(T, R_T, PE_PAD)
 
     o_h, d_h, o_t, d_t = rep(ops.rays_o), rep(ops.rays_d), rep(ops.rays_o_t), rep(ops.rays_d_t)
     vr_h = ops.vr_h.float().reshape(T, R_T, 256)
@@ -364,7 +404,8 @@ def fused_render_rays_reference(
 
 def _weight_blobs(pw: Dict[str, torch.Tensor], branch: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flatten one field's packed operands into the kernel's blobs: bf16
-    matrices stored [out][in], fp32 biases (layout in csrc/render_rays.cu)."""
+    matrices stored [out][in], fp32 biases (layout in csrc/field_mlp.cuh,
+    shared by every kernel of the port)."""
     k_in = 64 if branch == "head" else 128
     shapes = {
         "w_in": (k_in, 256), "w_blocks": (7, 256, 256), "w_skip": (k_in, 256),
@@ -522,21 +563,40 @@ def fused_render_rays(
     return head[:n], com[:n]
 
 
-def render_flops_per_sample(pe_dim: int = 60, torso_signal_dim: int = 42, hidden: int = 256,
-                            deform_hidden: int = 64) -> int:
-    """Matrix-product FLOPs one (ray, sample) needs for both fields, counted
-    at the live widths, not the kernel's zero-padded ones: the PE's 60 rows
-    (of 64), the torso trunk's 60 + 42 input rows (of 128), the deformation
-    net as its two independent 64-wide chains (of the 128-wide block-diagonal
-    form; the signal half of its first layer and skip is folded into biases),
-    the fused output layer at its 257 live columns (sigma and the view
-    feature) and the colour layer at its 3."""
-    def trunk(k_in):
-        return 2 * (k_in * hidden * 2 + 7 * hidden * hidden + hidden * (1 + hidden) + hidden * 3)
-    dh, d_in = deform_hidden, pe_dim + torso_signal_dim
-    deform = 2 * (pe_dim * 2 * dh            # first layer, both chains read the PE
-                  + 4 * 2 * dh * dh          # 4 hidden blocks per chain
-                  + pe_dim * dh              # PE skip into the embed chain
-                  + dh * d_in)               # outputs: dh -> 60 and dh -> 42
-    return trunk(pe_dim) + trunk(d_in) + deform
+# Live widths of the default decoder, for the FLOP counts below.
+_PE_DIM, _TORSO_SIGNAL_DIM, _HIDDEN, _DEFORM_HIDDEN = 60, 42, 256, 64
 
+
+def field_flops_per_sample(branch: str, sigma: bool = True, color: bool = True) -> int:
+    """Matrix-product FLOPs of one field at one (ray, sample), counted at the
+    live widths, not the kernels' zero-padded ones: the PE's 60 rows (of
+    64), the torso trunk's 60 + 42 input rows (of 128), the deformation net
+    as its two independent 64-wide chains (of the 128-wide block-diagonal
+    form; the signal half of its first layer and skip is folded into
+    biases), the sigma column of the fused output layer and its 256 view
+    feature columns, and the colour layer's 3 columns. ``sigma`` and
+    ``color`` select the heads a kernel computes: the pair kernels both,
+    the far-plane head kernel sigma only, the far-plane torso kernel colour
+    only."""
+    if branch not in ("head", "torso"):
+        raise ValueError(f"unknown branch {branch!r}")
+    pe, hidden = _PE_DIM, _HIDDEN
+    k_in = pe if branch == "head" else pe + _TORSO_SIGNAL_DIM
+    macs = k_in * hidden * 2 + 7 * hidden * hidden   # input layer, PE skip, 7 blocks
+    if sigma:
+        macs += hidden
+    if color:
+        macs += hidden * hidden + hidden * 3
+    if branch == "torso":
+        dh = _DEFORM_HIDDEN
+        macs += (pe * 2 * dh               # first layer, both chains read the PE
+                 + 4 * 2 * dh * dh          # 4 hidden blocks per chain
+                 + pe * dh                  # PE skip into the embed chain
+                 + dh * k_in)               # outputs: dh -> 60 and dh -> 42
+    return 2 * macs
+
+
+def render_flops_per_sample() -> int:
+    """Both fields with both heads at one (ray, sample): the dense render
+    kernel's work (see field_flops_per_sample)."""
+    return field_flops_per_sample("head") + field_flops_per_sample("torso")

@@ -1,0 +1,160 @@
+"""Conservative per-(field, tile, slab) occupancy flags (port of
+dfanerf_tpu/ops/fused_render.py :374-600).
+
+The reference computes these in XLA, outside any kernel, so they are plain
+PyTorch here too. For each (tile, slab) the samples of a TILE x TILE pixel
+tile lie inside the convex hull of its 4 corner rays at the slab's z
+extremes, so the axis-aligned box of those 8 points bounds them; a flag is
+set when the box meets an occupied voxel of a dilated density grid, found
+with one summed-area-table query.
+
+Flags must equal the reference's exactly, so every step keeps its rounding:
+the grid nodes come from the XLA-rounded ``linspace``, the fine grid is
+evaluated in z-groups of 8 slices (bounding the [8 Gf^2, 384] trunk
+intermediate), the pooling and dilation are max-pools, the table is an
+integer cumsum, and the box bounds are the same float32 expressions in the
+same order. What can differ is the float32 sum order of the bf16 trunk
+products, which moves a node's density by a few ulps: a node within that
+distance of ``sigma_thresh * 0.25`` can flip.
+
+The reference's knobs that its renderer never sets are constants here: 16x16
+tiles (``TILE``, the layout of ``spatial_tile_permutation``), 2 fine nodes per
+grid step (``SUPERSAMPLE``) and bf16 trunk products.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dfanerf_torch.core.posenc import sincos_posenc
+from dfanerf_torch.core.rays import linspace
+from dfanerf_torch.ops.fused_render import (
+    PE_PAD, R_T, S_SLAB, TILE, _deform, _mm_cast, _trunk, density_act,
+)
+
+SUPERSAMPLE = 2  # fine density nodes per grid step along each axis
+
+
+def packed_sigma_xla(pw: Dict[str, torch.Tensor], pts: torch.Tensor, branch: str) -> torch.Tensor:
+    """Density-only packed forward (reference :374): pts [N, 3] -> [N] raw
+    sigma (before the density activation). Matrix inputs are rounded to
+    bf16 with float32 accumulation, as the reference's dots."""
+    pe = sincos_posenc(pts.float(), 10, 2.0)
+    pe = torch.cat([pe, pe.new_zeros((pe.shape[0], PE_PAD - pe.shape[1]))], dim=-1)
+    mm = _mm_cast(torch.bfloat16)
+    x = _deform(pw, pe, mm) if branch == "torso" else pe
+    # the fused output layer's sigma column only
+    sigma_only = dict(pw, w_sf=pw["w_sf"][:, :1], b_sf=pw["b_sf"][:1])
+    return _trunk(sigma_only, x, mm)[:, 0]
+
+
+def node_density(pw, branch: str, lo: torch.Tensor, span: torch.Tensor, grid_res: int,
+                 act: str = "relu") -> torch.Tensor:
+    """Density (after the activation) at the (grid_res * SUPERSAMPLE)^3 fine
+    nodes spanning [lo, lo + span], axes (z, y, x) (reference :407-423)."""
+    gf = grid_res * SUPERSAMPLE
+    g_fine = linspace(0.0, 1.0, gf, device=lo.device)
+    gy, gx = torch.meshgrid(g_fine, g_fine, indexing="ij")
+    zc = 8 if gf % 8 == 0 else 4
+    slabs = []
+    for z_group in g_fine.reshape(gf // zc, zc):
+        pts = lo + torch.stack(
+            [gx.expand(zc, gf, gf), gy.expand(zc, gf, gf),
+             z_group[:, None, None].expand(zc, gf, gf)], dim=-1).reshape(-1, 3) * span
+        slabs.append(density_act(packed_sigma_xla(pw, pts, branch), act).reshape(zc, gf, gf))
+    return torch.cat(slabs)
+
+
+def _occupancy_sat(node_on: torch.Tensor) -> torch.Tensor:
+    """Occupied fine nodes [Gf]^3 (bool) -> 3D summed-area table [G+1]^3
+    (reference :389): max-pooled down to G^3 and dilated 3^3 (zero padding)
+    before the table, which has axes (z, y, x)."""
+    occ = F.max_pool3d(node_on.float()[None, None], SUPERSAMPLE, SUPERSAMPLE)
+    # values are >= 0, so max-pooling's implicit -inf padding equals zeros
+    occ = F.max_pool3d(occ, 3, 1, padding=1)[0, 0].to(torch.int32)
+    sat = F.pad(occ, (1, 0, 1, 0, 1, 0))
+    return sat.cumsum(0).cumsum(1).cumsum(2)
+
+
+def _sat_box_any(sat: torch.Tensor, i_lo: torch.Tensor, i_hi: torch.Tensor) -> torch.Tensor:
+    """Any-occupied query over inclusive node boxes (reference :439).
+    i_lo/i_hi [..., 3] in (x, y, z) order; the table's axes are (z, y, x)."""
+    a0, a1 = i_lo[..., 2].long(), i_hi[..., 2].long() + 1
+    b0, b1 = i_lo[..., 1].long(), i_hi[..., 1].long() + 1
+    c0, c1 = i_lo[..., 0].long(), i_hi[..., 0].long() + 1
+
+    def s(a, b, c):
+        return sat[a, b, c]
+
+    count = (s(a1, b1, c1) - s(a0, b1, c1) - s(a1, b0, c1) - s(a1, b1, c0)
+             + s(a0, b0, c1) + s(a0, b1, c0) + s(a1, b0, c0) - s(a0, b0, c0))
+    return count > 0
+
+
+def flags_from_nodes(node_on: torch.Tensor, i_lo: torch.Tensor, i_hi: torch.Tensor) -> torch.Tensor:
+    """[T, J] bool: which (tile, slab) boxes meet the dilated grid of the
+    occupied fine nodes ``node_on`` [Gf]^3."""
+    return _sat_box_any(_occupancy_sat(node_on), i_lo, i_hi)
+
+
+def tile_corner_rays(rays: torch.Tensor) -> torch.Tensor:
+    """Corner rays of each spatial tile (reference :453): rays [n, 3] in
+    spatial-tile order -> [n_tiles, 4, 3]. Pinhole ray directions are affine
+    in pixel coordinates, so every ray of a tile lies in the hull of its 4
+    corners."""
+    n = rays.shape[0]
+    if n % R_T:
+        raise ValueError(f"{n} rays do not make whole {TILE}x{TILE} tiles")
+    corners = torch.tensor([0, TILE - 1, (TILE - 1) * TILE, TILE * TILE - 1], device=rays.device)
+    return rays.reshape(n // R_T, R_T, 3)[:, corners]
+
+
+Box = Tuple[torch.Tensor, torch.Tensor]
+
+
+def occupancy_boxes(rays_o, rays_d, rays_o_t, rays_d_t, z_vals: torch.Tensor,
+                    grid_res: int) -> Tuple[torch.Tensor, torch.Tensor, List[Box]]:
+    """The node grid both fields share and each field's (tile, slab) boxes
+    on it (reference :545-592): (lo, span, [(i_lo, i_hi) head, (i_lo, i_hi)
+    torso]), boxes [T, J, 3] int32 inclusive node indices in (x, y, z)."""
+    n_slabs = z_vals.shape[0] // S_SLAB
+    zs = z_vals.float().reshape(n_slabs, S_SLAB)
+    z_ends = torch.stack([zs[:, 0], zs[:, -1]], dim=1)  # [J, 2]
+
+    def corner_pts(ro, rd):  # [T, J, 2, 4, 3]
+        o_c, d_c = tile_corner_rays(ro.float()), tile_corner_rays(rd.float())
+        return o_c[:, None, None] + d_c[:, None, None] * z_ends[None, :, :, None, None]
+
+    pts = [corner_pts(rays_o, rays_d), corner_pts(rays_o_t, rays_d_t)]
+    allp = torch.cat([p.reshape(-1, 3) for p in pts])
+    lo = allp.amin(0)
+    span = torch.clamp_min(allp.amax(0) - lo, 1e-6)
+    voxel = span / (grid_res - 1)
+
+    def box(p):
+        ab_lo = p.amin(dim=(2, 3))  # [T, J, 3]
+        ab_hi = p.amax(dim=(2, 3))
+        i_lo = torch.clamp(torch.ceil((ab_lo - lo) / voxel - 0.5).to(torch.int32),
+                           0, grid_res - 1)
+        i_hi = torch.clamp(torch.floor((ab_hi - lo) / voxel + 0.5).to(torch.int32),
+                           0, grid_res - 1)
+        return i_lo, i_hi
+
+    return lo, span, [box(p) for p in pts]
+
+
+@torch.no_grad()
+def conservative_occupancy(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t,
+                           z_vals: torch.Tensor, sigma_thresh: float, grid_res: int = 64,
+                           act: str = "relu") -> torch.Tensor:
+    """Per-(field, tile, slab) occupancy flags for the pair kernels
+    (reference :534). Rays in spatial-tile order; z_vals [S]. Returns
+    [2, n_tiles, n_slabs] int32 (0 = head, 1 = torso)."""
+    lo, span, boxes = occupancy_boxes(rays_o, rays_d, rays_o_t, rays_d_t, z_vals, grid_res)
+    flags = [flags_from_nodes(node_density(pw, branch, lo, span, grid_res, act)
+                              > sigma_thresh * 0.25, *b)
+             for pw, branch, b in ((pw_h, "head", boxes[0]), (pw_t, "torso", boxes[1]))]
+    return torch.stack(flags).to(torch.int32)

@@ -1,18 +1,29 @@
-"""Full-frame renderer (port of the dense fused path of
+"""Full-frame renderer (port of the fused paths of
 dfanerf_tpu/render/renderer.py).
 
 ``make_frame_renderer`` returns render_frame(params, z_shape, z_app, pose,
 pose_torso, signal, signal_torso, bc_img) -> (rgb_head, rgb_com), each
-[H, W, 3] float32: per frame it folds the signals into both fields' weights
-(ops/pack.py), builds the rays — in 16x16 spatial tiles when
-``spatial_tiles`` is set — renders them with ``fused_render_rays`` (the CUDA
-kernel on a CUDA device, its plain version on the CPU) and untiles.
+[H, W, 3] float32. Per frame it folds the signals into both fields' weights
+(ops/pack.py) and builds the rays, in 16x16 spatial tiles when
+``spatial_tiles`` is set or occupancy is on. Then:
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without CUDA a call with no device raises. Not ported yet: the occupancy
-serving paths (``occ_sigma_thresh > 0``: tile classes, tile and pair
-compaction) and the unfused ``render_ray_batch`` path
-(``use_fused_kernel=False``); both raise NotImplementedError.
+- dense (``occ_sigma_thresh == 0``): ``fused_render_rays`` renders every
+  (tile, slab) of both fields and the renderer untiles;
+- pair-compacted (``occ_sigma_thresh > 0`` with ``occ_pair_compaction``,
+  the serving path): each field is evaluated only on its occupied (tile,
+  slab) pairs (``pair_field_eval``), the far plane once per ray
+  (``fused_far_eval_split``), and ``deferred_composite`` + ``bg_blend``
+  composite the union-occupied tiles and the background catch-all. Flags
+  are rebuilt every ``occ_refresh_every`` frames (see
+  ``_make_pair_compaction_renderer``).
+
+Kernels run on a CUDA device, their plain versions on the CPU. Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA a
+call with no device raises. Not ported yet, each raising
+NotImplementedError: the unfused ``render_ray_batch`` path
+(``use_fused_kernel=False``), the occupancy paths without pair compaction
+(tile classes, tile compaction) and the pair path's further levers (listed
+in ``_refuse_unported``).
 """
 
 from __future__ import annotations
@@ -22,26 +33,23 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from dfanerf_torch.config import ExperimentConfig
+from dfanerf_torch.config import ExperimentConfig, RenderConfig
 from dfanerf_torch.core.rays import get_rays, linspace
+from dfanerf_torch.device import resolve_device
+from dfanerf_torch.ops.composite import bg_blend, deferred_composite
+from dfanerf_torch.ops.far_eval import fused_far_eval_split
 from dfanerf_torch.ops.fused_render import (
-    fused_render_rays, spatial_tile_permutation, spatial_untile,
+    R_T, S_SLAB, fused_render_rays, spatial_tile_permutation, spatial_untile,
 )
+from dfanerf_torch.ops.occupancy import conservative_occupancy
 from dfanerf_torch.ops.pack import pack_field_weights
+from dfanerf_torch.ops.pair_field import pair_field_eval
 from dfanerf_torch.train.signals import encode_signal, encode_signal_torso
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA, which must then be available; no silent CPU path."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the plain version")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, device=None):
-    """Build the dense fused frame renderer on ``device`` (default CUDA)."""
+    """Build the fused frame renderer on ``device`` (default CUDA): dense,
+    or pair-compacted when ``occ_sigma_thresh > 0``."""
     dev = resolve_device(device)
     H, W, focal, cx, cy = hwfcxy
     H, W = int(H), int(W)
@@ -50,15 +58,17 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         raise NotImplementedError(
             "use_fused_kernel=False (the render_ray_batch path) is not ported yet "
             "(ROADMAP.md queue 1, items 4 and 8)")
-    if rcfg.occ_sigma_thresh > 0:
+    if rcfg.occ_sigma_thresh > 0 and not rcfg.occ_pair_compaction:
         raise NotImplementedError(
-            "occ_sigma_thresh > 0 (occupancy, tile-class and pair-compacted serving) is not "
-            "ported yet (ROADMAP.md queue 1, item 8; queue 2)")
-    if not rcfg.concate_bg or rcfg.n_samples % 8:
+            "occ_sigma_thresh > 0 without occ_pair_compaction (the occupancy, tile-class and "
+            "tile-compaction paths) is not ported yet (ROADMAP.md queue 1, item 8; queue 2)")
+    if not rcfg.concate_bg or rcfg.n_samples % S_SLAB:
         raise ValueError("the fused renderer needs concate_bg and n_samples % 8 == 0")
+    if rcfg.occ_sigma_thresh > 0:
+        _refuse_unported(rcfg)
 
     act = dcfg.density_activation
-    use_tiles = rcfg.spatial_tiles
+    use_tiles = rcfg.spatial_tiles or rcfg.occ_sigma_thresh > 0
     z_vals_c = linspace(near, far, rcfg.n_samples, device=dev)
     pdt = torch.bfloat16 if rcfg.compute_dtype == "bfloat16" else torch.float32
     if use_tiles:
@@ -78,7 +88,7 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
             R = pose[:3, :3]
             rd = (dirs_tiled[:, 0:1] * R[:, 0][None] + dirs_tiled[:, 1:2] * R[:, 1][None]
                   + dirs_tiled[:, 2:3] * R[:, 2][None])
-            return pose[:3, -1].expand(rd.shape), rd
+            return pose[:3, -1].expand(rd.shape).contiguous(), rd
 
     def untile(v):
         return spatial_untile(v, H, W) if use_tiles else v.reshape(H, W, 3)
@@ -87,7 +97,10 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         return torch.as_tensor(x).to(device=dev, dtype=torch.float32)
 
     @torch.no_grad()
-    def render_frame(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+    def frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+        """(pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p): both fields' packed
+        weights, the rays and the background pixels, in tile order when
+        tiling."""
         pose, pose_torso = as_f32(pose), as_f32(pose_torso)
         z_shape, z_app = as_f32(z_shape), as_f32(z_app)
         bc = torch.as_tensor(bc_img).to(dev).float() / 255.0
@@ -103,11 +116,189 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
                                   param_dtype=pdt)
         pw_t = pack_field_weights(params.decoder, as_f32(signal_torso), z_shape[1], z_app[1],
                                   "torso", param_dtype=pdt)
+        return pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p
+
+    if rcfg.occ_sigma_thresh > 0:
+        return _make_pair_compaction_renderer(
+            rcfg, act, len(perm) // R_T, z_vals_c, float(np.float32(far)), frame_inputs, untile)
+
+    @torch.no_grad()
+    def render_frame(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+        pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = frame_inputs(
+            params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img)
         head, com = fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc_p,
                                       last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps, act=act)
         return untile(head), untile(com)
 
     return render_frame
+
+
+def _refuse_unported(rcfg: RenderConfig) -> None:
+    """The pair path's levers that are not ported yet raise, each naming its
+    ROADMAP.md item."""
+    unported = [
+        (rcfg.occ_prune_budget > 0 or rcfg.occ_budget_color or rcfg.occ_budget_iters != 1,
+         "the budgeted prune (occ_prune_budget, occ_budget_color, occ_budget_iters)"),
+        (rcfg.occ_prune_carry > 0 or rcfg.occ_prune_hist_decay > 0 or rcfg.occ_live_keys,
+         "occ_prune_carry, occ_prune_hist_decay and occ_live_keys"),
+        (rcfg.occ_async_refresh, "occ_async_refresh (the async refresh worker)"),
+        (rcfg.far_skip_tol > 0, "far_skip_tol > 0"),
+        (rcfg.far_subsample > 1, "far_subsample > 1"),
+        (rcfg.occ_pack2, "occ_pack2 (_pair2_field_kernel)"),
+    ]
+    for on, what in unported:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md queue 1, item 8)")
+
+
+def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, far: float,
+                                   frame_inputs, untile):
+    """The (tile, slab)-pair-compacted serving path (port of the semantics
+    of the reference's _make_pair_compaction_renderer, renderer.py :502).
+
+    A refresh frame (the first, then every ``occ_refresh_every``-th) builds
+    per-field flags [2, T, J] with ``conservative_occupancy``, copies them to
+    the host and derives the pair lists (``set_flags``); it renders under
+    these unpruned flags and returns that image. With ``occ_prune_trans`` or
+    ``occ_prune_contrib`` set, its composite diagnostics then drop the pairs
+    behind saturated opacity or invisible to every stack (``prune_flags``),
+    and the following frames render under the pruned lists. A steady frame
+    copies nothing to the host: it gathers the union-occupied tiles, runs
+    each field's pair kernel over exactly its listed pairs and both
+    far-plane kernels over every ray, composites the gathered tiles, scatters
+    them back, blends the background catch-all and untiles.
+
+    The reference pads pair lists and tile sets to bucket sizes so that XLA
+    compiles few programs; its padding pairs write only a dummy tile row and
+    its padding tiles carry zero flags, so the port launches exactly K pairs
+    and gathers exactly the union tiles and gets the same images.
+
+    ``render.cache`` holds the flag state: ``lists`` (per field, the pair
+    coordinates t_idx, j_idx as int32 device tensors, t in union-tile
+    positions), ``tiles_u`` (the union tiles, host int64), ``occ`` ([2, T, J]
+    flags in force), ``occ_sub`` (their union-tile rows) and ``age``.
+    ``render.inputs_fn`` is the frame-input builder and ``render.run_fast``
+    renders a frame under the current flags without advancing the cadence."""
+    dev = z_vals_c.device
+    J = rcfg.n_samples // S_SLAB
+    prune_on = rcfg.occ_prune_trans > 0 or rcfg.occ_prune_contrib > 0
+    cache = {"age": 0, "lists": None, "occ": None, "tiles_u": None, "tiles_sel": None,
+             "occ_sub": None}
+
+    def occ_fn(inputs):
+        pw_h, pw_t, ro, rd, ro_t, rd_t, _ = inputs
+        return conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
+                                      rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res, act=act)
+
+    def set_flags(occ_np):
+        """Pair lists and union tiles of host flags [2, T, J] (reference
+        set_flags :724, without padding). np.nonzero lists a field's pairs
+        tile-major, slabs ascending, so consecutive pairs of one tile read
+        the same rays."""
+        occ_np = np.ascontiguousarray(occ_np, dtype=np.int32)
+        tiles_u = np.nonzero(occ_np.max(axis=(0, 2)))[0]
+        pos_of = np.zeros(T, np.int32)
+        pos_of[tiles_u] = np.arange(len(tiles_u), dtype=np.int32)
+        lists = []
+        for f in range(2):
+            t_i, j_i = np.nonzero(occ_np[f])
+            lists.append((torch.from_numpy(pos_of[t_i]).to(dev),
+                          torch.from_numpy(j_i.astype(np.int32)).to(dev)))
+        cache.update(age=0, lists=lists, occ=torch.from_numpy(occ_np).to(dev), tiles_u=tiles_u,
+                     tiles_sel=torch.from_numpy(tiles_u).to(dev),
+                     occ_sub=torch.from_numpy(np.ascontiguousarray(occ_np[:, tiles_u])).to(dev))
+
+    def run(inputs, diag: bool = False):
+        """One frame under the cached flags; with ``diag`` also the prune
+        diagnostics, in union-tile rows."""
+        pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = inputs
+        sel = cache["tiles_sel"]
+
+        def gather(x):
+            return x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
+
+        ro_g, rd_g, ro_t_g, rd_t_g = (gather(x) for x in (ro, rd, ro_t, rd_t))
+        (ti_h, ji_h), (ti_t, ji_t) = cache["lists"]
+        buf_h = pair_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, ti_h, ji_h, act)
+        buf_t = pair_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, ti_t, ji_t, act)
+        sh, ct = fused_far_eval_split(pw_h, pw_t, ro, rd, ro_t, rd_t, far, act)
+        out = deferred_composite(buf_h, buf_t, cache["occ_sub"], rd_g, rd_t_g, z_vals_c,
+                                 with_diagnostics=diag)
+
+        def scatter(x, fill):
+            full = x.new_full((T, R_T, x.shape[-1]), fill)
+            return full.index_copy_(0, sel, x.reshape(-1, R_T, x.shape[-1])).reshape(T * R_T, -1)
+
+        ah, ac, t_h, t_c = out[:4]
+        head, com = bg_blend(sh, ct, rd, rd_t, bc_p, rcfg.last_dist, scatter(ah, 0.0),
+                             scatter(ac, 0.0), scatter(t_h, 1.0), scatter(t_c, 1.0))
+        imgs = (untile(head), untile(com))
+        return (imgs, *out[4:]) if diag else imgs
+
+    def expand_tiles(x_sub):
+        """[K_u, J] union-tile diagnostic -> [T, J] on the host, zero off
+        the union (reference expand_tiles :831)."""
+        full = np.zeros((T, J), np.float32)
+        full[cache["tiles_u"]] = x_sub.cpu().numpy()
+        return full
+
+    def prune_flags(tm_h, tm_c, cb_h, cb_t):
+        """Keep-masks [T, J] from one frame's composite diagnostics: the
+        transmittance prune and the contribution prune of the reference's
+        prune_flags (:878-883, :929-932)."""
+        keep_h = np.ones((T, J), bool)
+        keep_t = np.ones((T, J), bool)
+        if rcfg.occ_prune_trans > 0:
+            eps = rcfg.occ_prune_trans
+            tm_h_f, tm_c_f = expand_tiles(tm_h), expand_tiles(tm_c)
+            keep_h &= np.maximum(tm_h_f, tm_c_f) > eps
+            keep_t &= tm_c_f > eps
+        if rcfg.occ_prune_contrib > 0:
+            eps = rcfg.occ_prune_contrib
+            keep_h &= expand_tiles(cb_h) > eps
+            keep_t &= expand_tiles(cb_t) > eps
+        return keep_h, keep_t
+
+    @torch.no_grad()
+    def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+        inputs = frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
+                              bc_img)
+        if cache["lists"] is not None and cache["age"] < max(rcfg.occ_refresh_every, 1):
+            cache["age"] += 1
+            return run(inputs)
+        occ_np = occ_fn(inputs).cpu().numpy()
+        set_flags(occ_np)
+        if prune_on:
+            imgs, tm_h, tm_c, cb_h, cb_t = run(inputs, diag=True)
+            keep_h, keep_t = prune_flags(tm_h, tm_c, cb_h, cb_t)
+            set_flags(np.stack([occ_np[0] * keep_h, occ_np[1] * keep_t]))
+        else:
+            imgs = run(inputs)
+        cache["age"] = 1  # this frame consumed the refresh
+        return imgs
+
+    @torch.no_grad()
+    def run_fast(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+        return run(frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
+                                bc_img))
+
+    def refresh_union(*_, **__):
+        raise NotImplementedError(
+            "refresh_union (the offline per-window flags) is not ported yet "
+            "(ROADMAP.md queue 1, item 8)")
+
+    def precompile_headroom(*_, **__):
+        raise NotImplementedError(
+            "precompile_headroom and occ_class_clamp (the async worker's program classes) are "
+            "not ported yet (ROADMAP.md queue 1, item 8)")
+
+    render.cache = cache
+    render.inputs_fn = frame_inputs
+    render.run_fast = run_fast
+    render.refresh_union = refresh_union
+    render.precompile_headroom = precompile_headroom
+    return render
 
 
 @torch.no_grad()

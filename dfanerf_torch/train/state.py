@@ -15,6 +15,7 @@ from torch import nn
 
 from dfanerf_torch.config import ExperimentConfig
 from dfanerf_torch.core.posenc import nerf_embed_dim
+from dfanerf_torch.device import resolve_device
 from dfanerf_torch.models import AudioAttNet, AudioNetW2L, Decoder, ExpressionEnc
 from dfanerf_torch.models.layers import init_uniform_
 
@@ -38,10 +39,13 @@ class Params(nn.Module):
         self.poseattnet = AudioAttNet(dim_aud=dim_et, seq_len=cfg.signal.smo_torso_size)
 
 
-def init_train_state(cfg: ExperimentConfig, seed: int = 0, device="cpu") -> TrainState:
-    """Seeded state with the reference package's shapes. The weights come
-    from a ``torch.Generator``, so they differ from the JAX package's init
-    for the same seed; tests convert JAX's state instead (compat/from_jax.py)."""
+def init_train_state(cfg: ExperimentConfig, seed: int = 0, device=None) -> TrainState:
+    """Seeded state with the reference package's shapes, on ``device``
+    (default CUDA; see device.resolve_device). The weights come from a
+    ``torch.Generator`` on the CPU, so they are the same on every device but
+    differ from the JAX package's init for the same seed; tests convert
+    JAX's state instead (compat/from_jax.py)."""
+    device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     with torch.device("meta"):
         params = Params(cfg)

@@ -3,9 +3,10 @@
     python3 perf/probe_render_rays.py
 
 Builds dfanerf_torch/ops/csrc/render_rays.cu once as shipped and once per
-timing probe: a copy of the source with one kind of work removed by text
-substitution (PROBES below), built with the shipped nvcc flags into
-build/probe/. Times every build on the main path's operands: one 450x450
+timing probe: a copy of the source, with its shared field code
+(csrc/field_mlp.cuh) pasted in place of the include, and with one kind of
+work removed by text substitution (PROBES below), built with the shipped
+nvcc flags into build/probe/. Times every build on the main path's operands: one 450x450
 frame of the synthetic scene, 64 samples, both fields, bf16, with seeded
 random weights, as chip_smoke.py renders it. The probes compute wrong
 colours on purpose; only their times are read. Also times the shipped kernel
@@ -76,6 +77,10 @@ PROBES = {
 
 def patched_source(subs) -> str:
     src = (_build.CSRC / "render_rays.cu").read_text()
+    include = '#include "field_mlp.cuh"'
+    if src.count(include) != 1:
+        raise SystemExit(f"render_rays.cu includes field_mlp.cuh {src.count(include)} times")
+    src = src.replace(include, (_build.CSRC / "field_mlp.cuh").read_text())
     for old, new in subs:
         if src.count(old) != 1:
             raise SystemExit(f"probe substitution matches {src.count(old)} times: {old!r}")

@@ -49,7 +49,7 @@ def js():
 def test_train_state_round_trip_bit_exact(js):
     """JAX params -> state dict -> the port's Params -> back: every leaf
     bit-equal, and the module tree holds exactly the converted keys."""
-    st = state_from_jax(js, tcfg.ExperimentConfig())
+    st = state_from_jax(js, tcfg.ExperimentConfig(), device="cpu")
     back = state_dict_to_params(st["params"].state_dict())
     flat_j = jax.tree_util.tree_leaves_with_path(js["params"])
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
@@ -75,11 +75,11 @@ def test_port_init_has_reference_shapes(js):
     """The port's own seeded init (used where there is no JAX) has every
     parameter of the reference tree, with the same shapes."""
     ref = {k: tuple(v.shape) for k, v in params_to_state_dict(js["params"]).items()}
-    st = init_train_state(tcfg.ExperimentConfig(), seed=0)
+    st = init_train_state(tcfg.ExperimentConfig(), seed=0, device="cpu")
     got = {k: tuple(v.shape) for k, v in st["params"].state_dict().items()}
     assert got == ref
     assert st["z_shape"].shape == (2, 256) and st["z_app"].shape == (2, 256)
-    again = init_train_state(tcfg.ExperimentConfig(), seed=0)["params"].state_dict()
+    again = init_train_state(tcfg.ExperimentConfig(), seed=0, device="cpu")["params"].state_dict()
     for k, v in st["params"].state_dict().items():
         assert torch.equal(v, again[k])
     assert isinstance(st["params"], Params)

@@ -51,14 +51,27 @@ def test_source_has_no_jax_import(path):
 
 
 def test_no_silent_cpu_fallback():
+    """Every entry point defaults to the card: the dense and the pair
+    renderer, the seeded state and the state converted from the reference."""
+    from dfanerf_torch.compat.from_jax import state_from_jax
     from dfanerf_torch.config import ExperimentConfig, RenderConfig
     from dfanerf_torch.render.renderer import make_frame_renderer
+    from dfanerf_torch.train.state import init_train_state
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device; the check is for machines without one")
-    cfg = ExperimentConfig(render=RenderConfig(use_fused_kernel=True, n_samples=16))
+    hw = (24, 24, 26.4, 12.0, 12.0)
+    dense = ExperimentConfig(render=RenderConfig(use_fused_kernel=True, n_samples=16))
+    pairs = ExperimentConfig(render=RenderConfig(
+        use_fused_kernel=True, n_samples=16, spatial_tiles=True, occ_sigma_thresh=0.5,
+        occ_pair_compaction=True))
+    for cfg in (dense, pairs):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_frame_renderer(cfg, hw, 0.3, 0.9)
     with pytest.raises(RuntimeError, match="CUDA"):
-        make_frame_renderer(cfg, (24, 24, 26.4, 12.0, 12.0), 0.3, 0.9)
+        init_train_state(dense)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_from_jax({}, dense)
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_serve():

@@ -52,7 +52,7 @@ def setup():
                 "z_app": jax.random.normal(ks[6], (2, 256)), "step": jnp.zeros((), jnp.int32)}
 
     jstate = jax.jit(init)(jax.random.PRNGKey(0))
-    tstate = state_from_jax(jax.tree.map(np.asarray, jstate), ExperimentConfig())
+    tstate = state_from_jax(jax.tree.map(np.asarray, jstate), ExperimentConfig(), device="cpu")
     return ds, jstate, tstate
 
 
