@@ -25,7 +25,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (pair_field 2, far_head 1, far_torso 1); time the frames and each stage;
 6. the pair path after a contribution prune that drops tiles from the union
    and every pair of one field: a steady frame against the plain versions;
-7. print the card's name and power limit, then one JSON line listing every
+7. hold the hierarchical head render's kernels (sigma_head, render_head,
+   pair_sigma, pair_field_perz) against their plain versions at a 450x450
+   frame's rays and 64 + 128 samples, with ERT slab counts, exact zeros in
+   clear slabs, pair lists with gaps and empty ones; cross-check the pair
+   kernels with every pair listed against the dense kernels;
+8. drive the hierarchical render (BASELINE config 2) through
+   encode_frame_signals and make_head_hierarchical_renderer: no-skip for 5
+   frames (sigma_head and render_head once per frame), then the
+   pair-compacted serving recipe for 12 frames across three refreshes
+   (pair_sigma and pair_field_perz once per steady frame, no host sync);
+   check the frames, the flags and lists, a frame of each kind against the
+   plain versions; time the frames, each stage and each kernel;
+9. print the card's name and power limit, then one JSON line listing every
    ported kernel with its launches, error and times, and last a JSON status
    line.
 
@@ -128,13 +140,17 @@ def _check_pair(tag, head, com, head_ref, com_ref, sh_last):
     return max(hm, cm)
 
 
+def _check_image(tag, img):
+    if img.shape != (H, W, 3) or not torch.isfinite(img).all():
+        _fail(f"{tag}: shape {tuple(img.shape)} or non-finite values")
+    lo, hi = float(img.min()), float(img.max())
+    if lo < -1e-6 or hi > 1.0 + 1e-5:
+        _fail(f"{tag}: values in [{lo}, {hi}], outside [0, 1]")
+
+
 def _check_frame(tag, head, com):
     for name, img in (("head", head), ("com", com)):
-        if img.shape != (H, W, 3) or not torch.isfinite(img).all():
-            _fail(f"{tag} {name}: shape {tuple(img.shape)} or non-finite values")
-        lo, hi = float(img.min()), float(img.max())
-        if lo < -1e-6 or hi > 1.0 + 1e-5:
-            _fail(f"{tag} {name}: values in [{lo}, {hi}], outside [0, 1]")
+        _check_image(f"{tag} {name}", img)
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -615,7 +631,8 @@ def phase_pair_main_path():
     from dfanerf_torch.ops.far_eval import (
         far_head_kernel, far_head_reference, far_torso_kernel, far_torso_reference,
     )
-    from dfanerf_torch.ops.fused_render import R_T, _weight_blobs, field_flops_per_sample, view_bias
+    from dfanerf_torch.ops._build import weight_blobs
+    from dfanerf_torch.ops.fused_render import R_T, field_flops_per_sample, view_bias
     from dfanerf_torch.ops.occupancy import conservative_occupancy
     from dfanerf_torch.ops.pair_field import pair_field_eval_reference, pair_field_kernel
 
@@ -738,7 +755,7 @@ def phase_pair_main_path():
             _listed_mask(J, k_u, ti, ji, "cuda")))
         K = ti.numel()
         flops = K * 8 * R_T * field_flops_per_sample(branch)
-        w, b = _weight_blobs(pw, branch)
+        w, b = weight_blobs(pw, branch)
         n_bytes = (2 * k_u * R_T * 3 * 4 + k_u * R_T * 256 * 2 + N_SAMPLES * 4 + 2 * K * 4
                    + w.numel() * 2 + b.numel() * 4 + K * 8 * R_T * (4 + 3 * 2))
         print(f"[pair path] pair_field {branch}: {K} pairs, {ms:.3f} ms per launch; plain "
@@ -755,12 +772,12 @@ def phase_pair_main_path():
                      lambda: far_head_reference(pw_h, ro, rd, far, act),
                      n * field_flops_per_sample("head", color=False),
                      n * 2 * 3 * 4 + sum(x.numel() * x.element_size()
-                                         for x in _weight_blobs(pw_h, "head")) + n * 4),
+                                         for x in weight_blobs(pw_h, "head")) + n * 4),
         "far_torso": (lambda: far_torso_kernel(pw_t, ro_t, rd_t, far, vrtf, act=act),
                       lambda: far_torso_reference(pw_t, ro_t, rd_t, far, vrtf, act),
                       n * field_flops_per_sample("torso", sigma=False),
                       n * 2 * 3 * 4 + n * 256 * 2 + sum(x.numel() * x.element_size()
-                                                        for x in _weight_blobs(pw_t, "torso"))
+                                                        for x in weight_blobs(pw_t, "torso"))
                       + n * 3 * 4),
     }
     far_res = {}
@@ -847,6 +864,600 @@ def phase_pair_prune():
                 captured["sh"])
 
 
+# Hierarchical head render, BASELINE config 2 (benchmarks/serve_trained.py:
+# 654-662): 64 coarse + 128 fine samples, bf16, softplus density; no-skip
+# (dense, occ_sigma_thresh 0, ert_eps 0) and the pair-compacted serving
+# recipe (occupancy grid 48, refresh every 4 frames, budgeted contribution
+# prune 3e-3, the default transmittance prune).
+HIER_NOSKIP = dict(n_samples=N_SAMPLES, n_importance=128, compute_dtype="bfloat16",
+                   use_fused_kernel=True, ert_eps=0.0, occ_sigma_thresh=0.0, occ_grid_res=48)
+HIER_PAIRS = dict(HIER_NOSKIP, ert_eps=1e-4, occ_sigma_thresh=2.0, occ_pair_compaction=True,
+                  occ_refresh_every=4, occ_prune_contrib=3e-3)
+HIER_FRAMES = 12  # refreshes at frames 0, 4 and 8
+# Added to the seeded sigma_out bias for both hierarchical paths (the same
+# weights, so the pair frames can be held against the no-skip frames). As
+# for the head+torso pair path above, softplus of the unshifted random-init
+# density is above the node threshold everywhere; this shift puts the node
+# threshold into the upper tail of the head's raw densities on the head-only
+# grid, so the coarse flags and the fine pairs are mixed (a search over the
+# shift on frame 0's refresh, on an H100; the pair phase prints the lists).
+HIER_SHIFT = -0.455
+
+
+def _hier_rays(scene):
+    """Frame 0's head rays in spatial-tile order, as the dense hierarchical
+    renderer builds them."""
+    from dfanerf_torch.core.rays import get_rays
+    from dfanerf_torch.ops.fused_render import spatial_tile_permutation
+
+    perm = spatial_tile_permutation(H, W).cuda()
+    _, _, focal, cx, cy = scene.hwfcxy
+    ro, rd = get_rays(H, W, focal, torch.from_numpy(scene.poses[0]).cuda(), cx, cy)
+    return ro.reshape(-1, 3)[perm].contiguous(), rd.reshape(-1, 3)[perm].contiguous()
+
+
+def _check_sigma_buf(tag, got, ref, clear=None):
+    """Densities, kernel vs plain: relative bar, and exact zeros in `clear`."""
+    rel = _sigma_rel(got, ref)
+    n_zero = 0 if clear is None else int((got[clear] != 0).sum())
+    print(f"[{tag}] sigma max rel err {rel:.3e} (tol {SIG_RTOL:.0e} of |sigma| + "
+          f"{SIG_FLOOR:.0e}), abs {float((got - ref).abs().max()):.3e}"
+          + ("" if clear is None else f"; {n_zero} non-zero of {int(clear.sum())} in clear slabs"),
+          flush=True)
+    if not torch.isfinite(got).all():
+        _fail(f"{tag}: non-finite densities")
+    if rel > SIG_RTOL or n_zero:
+        _fail(f"{tag}: kernel disagrees with its plain version")
+    return float((got - ref).abs().max())
+
+
+def _check_head(tag, got, ref, max_tol=None, mean_tol=None):
+    """Head colours, kernel vs plain (TOL's head bars unless given)."""
+    hm, ha = _errors(got, ref)
+    max_tol = TOL["head_max"] if max_tol is None else max_tol
+    mean_tol = TOL["head_mean"] if mean_tol is None else mean_tol
+    print(f"[{tag}] head max {hm:.3e} mean {ha:.3e} (tol {max_tol:.2e}/{mean_tol:.2e})",
+          flush=True)
+    if not torch.isfinite(got).all():
+        _fail(f"{tag}: non-finite output")
+    if hm > max_tol or ha > mean_tol:
+        _fail(f"{tag}: kernel disagrees with its plain version")
+    return hm
+
+
+def phase_hier_kernels_vs_plain():
+    """sigma_head, render_head, pair_sigma and pair_field_perz against their
+    plain versions on the card, at a 450x450 frame's rays and the config's
+    64 + 128 samples, seeded bf16 packed weights; then the cross-check of
+    the two hand-written paths (pair kernels with every pair listed against
+    the dense kernels)."""
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.data.synthetic import make_synthetic_scene
+    from dfanerf_torch.models import Decoder, DecoderConfig
+    from dfanerf_torch.models.layers import init_uniform_
+    from dfanerf_torch.ops.composite import deferred_composite_head
+    from dfanerf_torch.ops.fused_render import view_bias
+    from dfanerf_torch.ops.pack import pack_field_weights
+    from dfanerf_torch.ops.pair_hier import (
+        pair_field_eval_perz, pair_field_eval_perz_reference, pair_field_perz_kernel,
+        pair_sigma_eval, pair_sigma_eval_reference, pair_sigma_kernel,
+    )
+    from dfanerf_torch.ops.render_head import (
+        fused_render_head_reference, prepare_head_operands, render_head_kernel,
+    )
+    from dfanerf_torch.ops.sigma_head import fused_sigma_head_reference, sigma_head_kernel
+
+    g = torch.Generator().manual_seed(3)
+    scene = make_synthetic_scene(n_frames=1, H=H, W=W, seed=0)
+    ro, rd = _hier_rays(scene)
+    n = ro.shape[0]
+    T, J_c, J_f = n // 256, N_SAMPLES // 8, (N_SAMPLES + 128) // 8
+    z_c = linspace(scene.near, scene.far, N_SAMPLES, device="cuda")
+    z_f = torch.sort(torch.cat([z_c.expand(n, -1), scene.near + (scene.far - scene.near) * torch.rand(
+        (n, 128), generator=g).cuda()], dim=1), dim=1).values.contiguous()
+    bc = torch.rand((n, 3), generator=g).cuda()
+    vecs = [torch.randn(k, generator=g).cuda() for k in (96, 256, 256)]
+
+    def head_pack(bias=None):
+        dec = init_uniform_(Decoder(DecoderConfig()), torch.Generator().manual_seed(3)).cuda()
+        if bias is not None:
+            with torch.no_grad():
+                dec.sigma_out.bias.fill_(bias)
+        return pack_field_weights(dec, *vecs, "head")
+
+    pw = head_pack()
+    flags_c = (torch.rand((T, J_c), generator=g) < 0.5).to(torch.int32).cuda()
+    flags_f = (torch.rand((T, J_f), generator=g) < 0.5).to(torch.int32).cuda()
+    all_c = torch.ones_like(flags_c)
+    print(f"[hier kernels vs plain] {T} tiles, {N_SAMPLES} + {z_f.shape[1] - N_SAMPLES} samples; flags "
+          f"{int(flags_c.sum())} of {T * J_c} coarse, {int(flags_f.sum())} of {T * J_f} fine",
+          flush=True)
+
+    # A: sigma_head, flags with gaps (softplus) and every flag set (relu)
+    sig_all = {}
+    for act, occ in (("softplus", flags_c), ("relu", all_c)):
+        got = sigma_head_kernel(pw, ro, rd, z_c, occ, act)
+        torch.cuda.synchronize()
+        ref = fused_sigma_head_reference(pw, ro, rd, z_c, occ, act)
+        clear = (occ == 0).repeat_interleave(256, 0).repeat_interleave(8, 1)
+        _check_sigma_buf(f"sigma_head vs plain, {act}, {int(occ.sum())} of {T * J_c} slabs", got,
+                         ref, clear)
+        sig_all[act] = got
+
+    # B: render_head on per-ray depths: flags with gaps and ERT (softplus),
+    # no flags and no ERT (relu), and a saturating field (ERT slab counts)
+    for tag, pack, eps, occ, act in (("flags, ert_eps=1e-4, softplus", pw, 1e-4, flags_f, "softplus"),
+                                     ("ert_eps=0, relu", pw, 0.0, None, "relu"),
+                                     ("ert_eps=1e-4 saturating field", head_pack(200.0), 1e-4, None,
+                                      "relu")):
+        ops = prepare_head_operands(pack, ro, rd, z_f, bc, 1e10, eps, occ, act)
+        got, slabs = render_head_kernel(ops)
+        torch.cuda.synchronize()
+        ref, slabs_r = fused_render_head_reference(ops)
+        _check_head(f"render_head vs plain, {tag}", got, ref)
+        if not torch.equal(slabs, slabs_r):
+            _fail(f"render_head {tag}: slabs run differ from the plain version's")
+        print(f"[render_head vs plain, {tag}] slabs run {int(slabs.sum())} of {T * J_f}, equal",
+              flush=True)
+
+    # C and D: lists with gaps, relu and softplus; empty lists
+    t_c, j_c = (x.to(torch.int32).contiguous() for x in flags_c.nonzero(as_tuple=True))
+    t_f, j_f = (x.to(torch.int32).contiguous() for x in flags_f.nonzero(as_tuple=True))
+    z_buf = torch.cat([z_f.reshape(T, 256, J_f, 8).permute(2, 3, 0, 1).reshape(J_f, 8, n),
+                       z_f.new_zeros((J_f, 8, 256))], dim=2).contiguous()
+    vr = view_bias(pw, rd).to(torch.bfloat16).contiguous()
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    for act in ("relu", "softplus"):
+        got = pair_sigma_kernel(pw, ro, rd, z_c, t_c, j_c, act)
+        torch.cuda.synchronize()
+        ref = pair_sigma_eval_reference(pw, ro, rd, z_c, t_c, j_c, act)
+        listed = _listed_mask(J_c, T, t_c, j_c, "cuda")
+        _check_sigma_buf(f"pair_sigma vs plain, {act}, {t_c.numel()} pairs", got[listed],
+                         ref[listed])
+        got = pair_field_perz_kernel(pw, ro, rd, vr, z_buf, t_f, j_f, act)
+        torch.cuda.synchronize()
+        ref = pair_field_eval_perz_reference(pw, ro, rd, vr, z_buf, t_f, j_f, act)
+        _check_buffers(f"pair_field_perz vs plain, {act}, {t_f.numel()} pairs", got, ref,
+                       _listed_mask(J_f, T, t_f, j_f, "cuda"))
+    before = (pair_sigma_kernel.launches, pair_field_perz_kernel.launches)
+    zero_c = pair_sigma_eval(pw, ro, rd, z_c, empty, empty)
+    zero_f = pair_field_eval_perz(pw, ro, rd, z_buf, empty, empty)
+    if ((pair_sigma_kernel.launches, pair_field_perz_kernel.launches) != before
+            or bool(zero_c.any()) or any(bool(b.float().any()) for b in zero_f)):
+        _fail("pair_sigma / pair_field_perz with no pairs: a launch or non-zero buffers")
+    print("[hier pair kernels, no pairs] zero buffers, no launch", flush=True)
+
+    # cross-check: pair_sigma with every pair listed = sigma_head with every
+    # flag set (the same device code on the same rows)
+    t_all = torch.arange(T, device="cuda").repeat_interleave(J_c).to(torch.int32)
+    j_all = torch.arange(J_c, device="cuda").repeat(T).to(torch.int32)
+    buf = pair_sigma_kernel(pw, ro, rd, z_c, t_all, j_all, "relu")
+    dense = sig_all["relu"].t().reshape(J_c, 8, n)
+    diff = float((buf[:, :, :n] - dense).abs().max())
+    print(f"[hier cross-check] pair_sigma (all {T * J_c} pairs) vs sigma_head: max abs diff "
+          f"{diff:.3e}", flush=True)
+    if _sigma_rel(buf[:, :, :n], dense) > SIG_RTOL:
+        _fail("pair_sigma with every pair listed disagrees with sigma_head")
+
+    # cross-check: pair_field_perz with every pair listed, composited by
+    # deferred_composite_head, against render_head (ert_eps 0) on the same
+    # per-ray depths. The pair path stores colours in bf16; its effect on
+    # the composite is measured here with the plain versions of both paths
+    # and added to the head bar.
+    t_all = torch.arange(T, device="cuda").repeat_interleave(J_f).to(torch.int32)
+    j_all = torch.arange(J_f, device="cuda").repeat(T).to(torch.int32)
+    ops = prepare_head_operands(pw, ro, rd, z_f, bc, 1e10, 0.0, None, "softplus")
+    head_d, _ = render_head_kernel(ops)
+    dists = ops.dists.clone()
+    dists[-1] = 0.0  # the catch-all: deferred_composite_head closes with the background
+    occ_all = torch.ones((T, J_f), dtype=torch.int32, device="cuda")
+    bufs = pair_field_perz_kernel(pw, ro, rd, vr, z_buf, t_all, j_all, "softplus")
+    head_p = deferred_composite_head(bufs, occ_all, dists, bc)
+    bufs_r = pair_field_eval_perz_reference(pw, ro, rd, vr, z_buf, t_all, j_all, "softplus")
+    head_dr, _ = fused_render_head_reference(ops)
+    effect = _errors(deferred_composite_head(bufs_r, occ_all, dists, bc), head_dr)
+    torch.cuda.synchronize()
+    print(f"[hier cross-check] bf16-colour effect, plain pair path vs plain dense path: max "
+          f"{effect[0]:.3e} mean {effect[1]:.3e}", flush=True)
+    _check_head(f"hier cross-check, pair_field_perz (all {T * J_f} pairs) + "
+                f"deferred_composite_head vs render_head, ert_eps=0", head_p, head_d,
+                TOL["head_max"] + effect[0], TOL["head_mean"] + effect[1])
+
+
+def _hier_state(cfg):
+    from dfanerf_torch.train.state import init_train_state
+
+    state = init_train_state(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        state["params"].decoder.sigma_out.bias += HIER_SHIFT
+    return state
+
+
+def _hier_scene(cfg):
+    """(scene, args): the synthetic scene and args(i), frame i's arguments to
+    a hierarchical renderer, with the shifted seeded weights."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.data.synthetic import make_synthetic_scene
+
+    scene = make_synthetic_scene(n_frames=HIER_FRAMES, H=H, W=W, seed=0)
+    state = _hier_state(cfg)
+    params = state["params"]
+    auds, exps, poses = (torch.from_numpy(x).cuda() for x in (scene.auds, scene.exps, scene.poses))
+    bc_img = torch.from_numpy(scene.bc_img).cuda()
+
+    def args(i):
+        sig, _ = renderer.encode_frame_signals(params, auds, exps, poses, i, scene.n_frames, cfg,
+                                               True)
+        return params, state["z_shape"], state["z_app"], poses[i], sig, bc_img
+
+    return scene, args
+
+
+@contextlib.contextmanager
+def _patched(**fns):
+    """The renderer module's functions ``fns`` swapped in for the block."""
+    import dfanerf_torch.render.renderer as renderer
+
+    real = {name: getattr(renderer, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(renderer, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(renderer, name, fn)
+
+
+def _plain_hier_dense():
+    """The dense hierarchical renderer's kernel calls as their plain versions."""
+    from dfanerf_torch.ops.render_head import fused_render_head_reference, prepare_head_operands
+    from dfanerf_torch.ops.sigma_head import fused_sigma_head_reference
+
+    def sigma(pw, ro, rd, z, occupancy=None, act="relu"):
+        occ = occupancy if occupancy is not None else torch.ones(
+            (ro.shape[0] // 256, z.shape[0] // 8), dtype=torch.int32, device=ro.device)
+        return fused_sigma_head_reference(pw, ro, rd, z, occ, act)
+
+    def fine(pw, ro, rd, z, bc, last_dist=1e10, ert_eps=0.0, occupancy=None, act="relu"):
+        ops = prepare_head_operands(pw, ro, rd, z, bc, last_dist, ert_eps, occupancy, act)
+        return fused_render_head_reference(ops)[0][:ro.shape[0]]
+
+    return _patched(fused_sigma_head=sigma, fused_render_head=fine)
+
+
+def _plain_hier_pairs():
+    """The pair hierarchical renderer's kernel calls as their plain versions."""
+    from dfanerf_torch.ops.fused_render import view_bias
+    from dfanerf_torch.ops.pair_hier import (
+        pair_field_eval_perz, pair_field_eval_perz_reference, pair_sigma_eval,
+        pair_sigma_eval_reference,
+    )
+
+    def sigma(pw, ro, rd, z, t_idx, j_idx, act="relu"):
+        if t_idx.numel() == 0:
+            return pair_sigma_eval(pw, ro, rd, z, t_idx, j_idx, act)
+        return pair_sigma_eval_reference(pw, ro, rd, z, t_idx, j_idx, act)
+
+    def fine(pw, ro, rd, z_buf, t_idx, j_idx, act="relu"):
+        if t_idx.numel() == 0:
+            return pair_field_eval_perz(pw, ro, rd, z_buf, t_idx, j_idx, act)
+        vr = view_bias(pw, rd).to(torch.bfloat16).contiguous()
+        return pair_field_eval_perz_reference(pw, ro, rd, vr, z_buf, t_idx, j_idx, act)
+
+    return _patched(pair_sigma_eval=sigma, pair_field_eval_perz=fine)
+
+
+def _timed(fn, *a):
+    """(fn(*a), its time in ms by CUDA events)."""
+    return _cuda_call(lambda: fn(*a))
+
+
+def _stage_line(tag, times):
+    return f"[{tag}] stages: " + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+
+
+def phase_hier_dense_main_path():
+    """Config 2 no-skip at full width through the entry points: 5 frames;
+    one frame against the plain versions; launches, times and stages."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.fused_render import field_flops_per_sample
+    from dfanerf_torch.ops.render_head import (
+        fused_render_head_reference, prepare_head_operands, render_head_kernel,
+    )
+    from dfanerf_torch.ops.sigma_head import fused_sigma_head_reference, sigma_head_kernel
+
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**HIER_NOSKIP))
+    rcfg = cfg.render
+    scene, args = _hier_scene(cfg)
+    render = renderer.make_head_hierarchical_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    render(*args(0))  # warm-up
+    torch.cuda.synchronize()
+    kernels = {"sigma_head": sigma_head_kernel, "render_head": render_head_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    frames = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(N_FRAMES):
+        frames.append(render(*args(i)))
+    end.record()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    ms_frame = start.elapsed_time(end) / N_FRAMES
+    print(f"[hier dense] {N_FRAMES} frames {H}x{W}, {rcfg.n_samples} + {rcfg.n_importance} "
+          f"samples, no-skip: {ms_frame:.2f} ms per frame (CUDA events, warm); launches "
+          f"{launches}", flush=True)
+    if launches != {"sigma_head": N_FRAMES, "render_head": N_FRAMES}:
+        _fail(f"hier dense: launches {launches} for {N_FRAMES} frames, expected one each per frame")
+    for i, img in enumerate(frames):
+        _check_image(f"hier dense frame {i}", img)
+    print(f"[hier dense] frames finite, in [0, 1]; frame 0 mean {float(frames[0].mean()):.4f}",
+          flush=True)
+    with _plain_hier_dense():
+        ref = render(*args(0))
+    torch.cuda.synchronize()
+    frame_err = _check_head("hier dense frame 0, kernels vs plain", frames[0], ref)
+
+    # the stages and both kernels on frame 0's operands
+    st = render.stages
+    times = {}
+    (pw, ro, rd, bc), times["prep"] = _timed(st["prep"], *args(0))
+    (occ_c, sat), times["coarse flags"] = _timed(st["coarse_flags"], pw, ro, rd)
+    sigma_c, times["coarse kernel"] = _timed(st["sigma"], pw, ro, rd, occ_c)
+    (z_fine, occ_f), times["resample"] = _timed(st["resample"], pw, ro, rd, sigma_c, sat)
+    rgb, times["fine kernel"] = _timed(st["fine"], pw, ro, rd, z_fine, bc, occ_f)
+    _, times["finish"] = _timed(st["finish"], rgb)
+    print(_stage_line("hier dense frame 0", times), flush=True)
+
+    n, S_c = ro.shape[0], rcfg.n_samples
+    T = n // 256
+    z_c = linspace(scene.near, scene.far, S_c, device="cuda")
+    occ = torch.ones((T, S_c // 8), dtype=torch.int32, device="cuda")
+    ms_a = _cuda_ms(lambda: sigma_head_kernel(pw, ro, rd, z_c, occ, "softplus"), 3)
+    ref_a, plain_a = _cuda_call(lambda: fused_sigma_head_reference(pw, ro, rd, z_c, occ,
+                                                                   "softplus"))
+    err_a = _check_sigma_buf("hier dense, sigma_head vs plain", sigma_head_kernel(
+        pw, ro, rd, z_c, occ, "softplus"), ref_a)
+    ops = prepare_head_operands(pw, ro, rd, z_fine, bc, rcfg.last_dist, rcfg.ert_eps, None,
+                                "softplus")
+    got_b, slabs = render_head_kernel(ops)
+    ms_b = _cuda_ms(lambda: render_head_kernel(ops), 3)
+    (ref_b, _), plain_b = _cuda_call(lambda: fused_render_head_reference(ops))
+    err_b = _check_head("hier dense, render_head vs plain", got_b, ref_b)
+    w_bytes = sum(t.numel() * t.element_size() for k, t in pw.items()
+                  if k not in ("w_view", "b_view"))
+    S_f = z_fine.shape[1]
+    flops_a = float(occ.sum()) * 8 * 256 * field_flops_per_sample("head", color=False)
+    bytes_a = 2 * n * 3 * 4 + S_c * 4 + occ.numel() * 4 + w_bytes + n * S_c * 4
+    flops_b = float(slabs.sum()) * 8 * 256 * field_flops_per_sample("head")
+    bytes_b = (2 * n * 3 * 4 + 2 * S_f * n * 4 + n * 256 * 2 + n * 3 * 4 + T * (S_f // 8) * 4
+               + w_bytes + n * 3 * 4 + T * 4)
+    for name, ms, plain, flops, nb in (("sigma_head", ms_a, plain_a, flops_a, bytes_a),
+                                       ("render_head", ms_b, plain_b, flops_b, bytes_b)):
+        print(f"[hier dense] {name} {ms:.3f} ms per launch; plain {plain:.1f} ms; "
+              f"{flops / 1e12:.2f} TFLOP at live widths -> {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms "
+              f"at bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {nb / 1e6:.1f} MB",
+              flush=True)
+    print(f"[hier dense] render_head slabs run {int(slabs.sum())} of {T * (S_f // 8)}; frame-level "
+          f"error vs plain {frame_err:.3e}; library_ms is null for sigma_head and render_head: no "
+          f"single PyTorch call computes a packed NeRF field", flush=True)
+    entries = [_entry("sigma_head", "sigma_head.cu", "dfanerf_tpu/ops/fused_render.py:837",
+                      launches["sigma_head"], err_a, ms_a, plain_a, flops_a, bytes_a),
+               _entry("render_head", "render_head.cu", "dfanerf_tpu/ops/fused_render.py:1954",
+                      launches["render_head"], err_b, ms_b, plain_b, flops_b, bytes_b)]
+    return entries, frames
+
+
+def _check_hier_flags(tag, args, kw, result):
+    """One refresh's coarse head flags against the flags of the same inputs
+    with widened float32 products (see NODE_TOL)."""
+    from unittest import mock
+
+    from dfanerf_torch.ops import fused_render, occupancy
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("TF32 float32 products are on: the widened flags need exact float32 products")
+    pw, branch, ro, rd, z, thresh = args
+    flags, (sat, lo, span) = result
+    grid_res, act = kw["grid_res"], kw["act"]
+    thr = thresh * 0.25
+    sig = occupancy.node_density(pw, branch, lo, span, grid_res, act)
+    with mock.patch.object(occupancy, "_mm_cast", fused_render._mm_widened):
+        sig_w = occupancy.node_density(pw, branch, lo, span, grid_res, act)
+    on, on_w = sig > thr, sig_w > thr
+    flipped = on != on_w
+    n_far = int((flipped & ((sig_w - thr).abs() > NODE_TOL)).sum())
+
+    def flags_of(nodes):
+        return occupancy.occupancy_flags_and_sat(pw, branch, ro, rd, z, thresh, grid_res,
+                                                 (occupancy._occupancy_sat(nodes), lo, span),
+                                                 act)[0]
+
+    wide = flags_of(on_w).bool()
+    ship = flags.bool()
+    print(f"[{tag}] {int((ship != wide).sum())} of {ship.numel()} flags differ; "
+          f"{int(flipped.sum())} of {on.numel()} nodes on the other side of {thr}, {n_far} of them "
+          f"farther than {NODE_TOL:.0e} from it; node density max diff "
+          f"{float((sig - sig_w).abs().max()):.3e}", flush=True)
+    if not torch.equal(ship, flags_of(on).bool()):
+        _fail(f"{tag}: the shipped flags are not those of their nodes")
+    if n_far:
+        _fail(f"{tag}: {n_far} nodes flip farther than {NODE_TOL:.0e} from the threshold")
+
+
+def phase_hier_pair_main_path(noskip_frames):
+    """Config 2's serving recipe at full width through the entry points: 12
+    frames over three refreshes; flags, lists, launches, host syncs, one
+    refresh frame and one steady frame against the plain versions; times."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.fused_render import field_flops_per_sample, view_bias
+    from dfanerf_torch.ops.pair_hier import (
+        pair_field_eval_perz_reference, pair_field_perz_kernel, pair_sigma_eval_reference,
+        pair_sigma_kernel,
+    )
+
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**HIER_PAIRS))
+    rcfg = cfg.render
+    scene, args = _hier_scene(cfg)
+    warm = renderer.make_head_hierarchical_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    warm(*args(0))
+    warm(*args(1))
+    torch.cuda.synchronize()
+
+    render = renderer.make_head_hierarchical_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    kernels = {"pair_sigma": pair_sigma_kernel, "pair_field_perz": pair_field_perz_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    frames, marks, refreshes, flag_runs, syncs = [], [], [], [], 0
+    with _spy("occupancy_flags_and_sat", flag_runs):
+        for i in range(HIER_FRAMES):
+            a = args(i)
+            c = render.cache
+            steady = "empty" in c and c["age"] < rcfg.occ_refresh_every
+            before = {name: k.launches for name, k in kernels.items()}
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if steady:
+                    torch.cuda.set_sync_debug_mode("warn")
+                e0.record()
+                frames.append(render(*a))
+                e1.record()
+                torch.cuda.set_sync_debug_mode("default")
+            syncs += sum("synchroniz" in str(w.message) for w in caught) if steady else 0
+            marks.append((steady, e0, e1, {n: k.launches - before[n] for n, k in kernels.items()}))
+            if not steady:
+                if c["empty"]:
+                    _fail(f"hier pair refresh at frame {i} found no occupied tile")
+                refreshes.append((i, c["ti_c"].numel(), c["ti_f"].numel(), len(c["tiles_u"]),
+                                  [x.clone() for x in (c["ti_c"], c["ji_c"], c["ti_f"],
+                                                       c["ji_f"])]))
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    steady_ms = [e0.elapsed_time(e1) for st, e0, e1, _ in marks if st]
+    refresh_ms = [e0.elapsed_time(e1) for st, e0, e1, _ in marks if not st]
+    T = (-(-H // 16)) ** 2
+    J_c, J_f = rcfg.n_samples // 8, (rcfg.n_samples + rcfg.n_importance) // 8
+    for i, k_c, k_f, k_u, _ in refreshes:
+        print(f"[hier pair] refresh at frame {i}: K_c {k_c} ({k_c / (T * J_c):.1%} of {T * J_c}), "
+              f"K_f {k_f} ({k_f / (T * J_f):.1%} of {T * J_f}); {k_u} of {T} tiles in the union",
+              flush=True)
+        for name, k, total in (("coarse", k_c, T * J_c), ("fine", k_f, T * J_f)):
+            if not PAIR_FRACTION[0] <= k / total <= PAIR_FRACTION[1]:
+                _fail(f"hier pair: {name} lists {k} of {total} pairs at frame {i}, outside "
+                      f"{PAIR_FRACTION[0]:.0%}-{PAIR_FRACTION[1]:.0%}")
+    window = (sum(refresh_ms) / len(refresh_ms)
+              + (rcfg.occ_refresh_every - 1) * sum(steady_ms) / len(steady_ms)) / rcfg.occ_refresh_every
+    print(f"[hier pair] {HIER_FRAMES} frames {H}x{W}, {rcfg.n_samples} + {rcfg.n_importance} "
+          f"samples: {sum(steady_ms) / len(steady_ms):.2f} ms per steady frame ({len(steady_ms)} "
+          f"frames), {sum(refresh_ms) / len(refresh_ms):.2f} ms per refresh frame "
+          f"({len(refresh_ms)} frames), {window:.2f} ms per frame over a refresh window (CUDA "
+          f"events, warm); launches {launches}; host syncs in steady frames {syncs}", flush=True)
+    if len(refresh_ms) != 3:
+        _fail(f"{len(refresh_ms)} refresh frames in {HIER_FRAMES}, expected 3")
+    for i, (st, _, _, got) in enumerate(marks):
+        if st and got != {"pair_sigma": 1, "pair_field_perz": 1}:
+            _fail(f"hier pair steady frame {i} launched {got}")
+    if syncs:
+        _fail(f"{syncs} host synchronizations in the hier pair steady frames")
+    for i, img in enumerate(frames):
+        _check_image(f"hier pair frame {i}", img)
+    errs = [float((frames[i] - noskip_frames[i]).abs().max()) for i in range(len(noskip_frames))]
+    print(f"[hier pair] frames finite, in [0, 1]; max error against the no-skip frames 0-"
+          f"{len(noskip_frames) - 1} (same weights and poses; random weights set no bar): "
+          f"{max(errs):.4e} ({', '.join(f'{e:.2e}' for e in errs)})", flush=True)
+    coarse_runs = [r for r in flag_runs if r[1].get("sat_cache") is None]
+    for (i, *_), (occ_args, occ_kw, result) in zip(refreshes, coarse_runs, strict=True):
+        _check_hier_flags(f"hier pair refresh frame {i}, coarse flags vs widened float32",
+                          occ_args, occ_kw, result)
+
+    # a refresh frame (0; a fresh renderer with the plain versions, whose
+    # lists must equal the kernels') and a steady frame (the last, under the
+    # kernels' lists) against the plain versions
+    with _plain_hier_pairs():
+        plain = renderer.make_head_hierarchical_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+        ref = plain(*args(0))
+        torch.cuda.synchronize()
+        pc = plain.cache
+        same = all(torch.equal(a, b) for a, b in zip(
+            (pc["ti_c"], pc["ji_c"], pc["ti_f"], pc["ji_f"]), refreshes[0][4]))
+        print(f"[hier pair] refresh frame 0 with the plain versions: pair lists "
+              f"{'equal to' if same else 'DIFFER from'} the kernels'", flush=True)
+        if not same:
+            _fail("hier pair: the plain versions' refresh lists differ from the kernels'")
+        err = _check_head("hier pair refresh frame 0, kernels vs plain", frames[0], ref)
+        last = args(HIER_FRAMES - 1)
+        ref = render.run_fast(*last)
+        torch.cuda.synchronize()
+        err = max(err, _check_head(f"hier pair steady frame {HIER_FRAMES - 1}, kernels vs plain",
+                                   frames[-1], ref))
+
+    # stages and kernels on the last steady frame's operands
+    st, c = render.stages, render.cache
+    times = {}
+    (pw, ro, rd, bc_p), times["prep"] = _timed(st["prep"], *last)
+    sel = c["tiles_sel"]
+    (ro_g, rd_g, bc_g), times["gather"] = _timed(
+        lambda: tuple(st["gather"](x, sel) for x in (ro, rd, bc_p)))
+    sig_buf, times["coarse pair kernel"] = _timed(st["sigma"], pw, ro_g, rd_g)
+    (z_buf, dists, occ_f), times["resample"] = _timed(st["resample"], pw, ro_g, rd_g, sig_buf)
+    bufs, times["fine pair kernel"] = _timed(st["fine"], pw, ro_g, rd_g, z_buf)
+    _, times["finish"] = _timed(st["finish"], bufs, occ_f, dists, bc_g, bc_p)
+    k_u = len(c["tiles_u"])
+    ti_c, ji_c, ti_f, ji_f = c["ti_c"], c["ji_c"], c["ti_f"], c["ji_f"]
+    # a refresh on the same operands (it replaces the lists in the cache)
+    _, times["coarse flags + SAT"] = _timed(st["coarse_flags"], pw, ro, rd)
+    _, times["whole refresh (coarse flags + SAT, 2 host copies, lists, coarse pass, resample)"] = (
+        _timed(st["refresh"], pw, ro, rd, bc_p))
+    print(_stage_line(f"hier pair steady frame {HIER_FRAMES - 1}", times), flush=True)
+
+    n_u = k_u * 256
+    z_c = linspace(scene.near, scene.far, rcfg.n_samples, device="cuda")
+    vr = view_bias(pw, rd_g).to(torch.bfloat16).contiguous()
+    w_bytes = sum(t.numel() * t.element_size() for k, t in pw.items()
+                  if k not in ("w_view", "b_view"))
+    K_c, K_f = ti_c.numel(), ti_f.numel()
+    got_c = pair_sigma_kernel(pw, ro_g, rd_g, z_c, ti_c, ji_c, "softplus")
+    ms_c = _cuda_ms(lambda: pair_sigma_kernel(pw, ro_g, rd_g, z_c, ti_c, ji_c, "softplus"), 3)
+    ref_c, plain_c = _cuda_call(lambda: pair_sigma_eval_reference(pw, ro_g, rd_g, z_c, ti_c, ji_c,
+                                                                  "softplus"))
+    listed = _listed_mask(J_c, k_u, ti_c, ji_c, "cuda")
+    err_c = _check_sigma_buf("hier pair, pair_sigma vs plain", got_c[listed], ref_c[listed])
+    got_f = pair_field_perz_kernel(pw, ro_g, rd_g, vr, z_buf, ti_f, ji_f, "softplus")
+    ms_f = _cuda_ms(lambda: pair_field_perz_kernel(pw, ro_g, rd_g, vr, z_buf, ti_f, ji_f,
+                                                   "softplus"), 3)
+    ref_f, plain_f = _cuda_call(lambda: pair_field_eval_perz_reference(pw, ro_g, rd_g, vr, z_buf,
+                                                                       ti_f, ji_f, "softplus"))
+    err_f = _check_buffers("hier pair, pair_field_perz vs plain", got_f, ref_f,
+                           _listed_mask(J_f, k_u, ti_f, ji_f, "cuda"))
+    flops_c = K_c * 8 * 256 * field_flops_per_sample("head", color=False)
+    bytes_c = 2 * n_u * 3 * 4 + rcfg.n_samples * 4 + 2 * K_c * 4 + w_bytes + K_c * 8 * 256 * 4
+    flops_f = K_f * 8 * 256 * field_flops_per_sample("head")
+    bytes_f = (2 * n_u * 3 * 4 + K_f * 8 * 256 * 4 + n_u * 256 * 2 + 2 * K_f * 4 + w_bytes
+               + K_f * 8 * 256 * (4 + 3 * 2))
+    for name, K, ms, plain_ms, flops, nb in (
+            ("pair_sigma", K_c, ms_c, plain_c, flops_c, bytes_c),
+            ("pair_field_perz", K_f, ms_f, plain_f, flops_f, bytes_f)):
+        print(f"[hier pair] {name}: {K} pairs, {ms:.3f} ms per launch; plain {plain_ms:.1f} ms; "
+              f"{flops / 1e12:.3f} TFLOP at live widths -> {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at "
+              f"bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {nb / 1e6:.1f} MB", flush=True)
+    print(f"[hier pair] frame-level error vs plain {err:.3e}; library_ms is null for pair_sigma "
+          f"and pair_field_perz: no single PyTorch call computes a packed NeRF field on listed "
+          f"(tile, slab) pairs", flush=True)
+    return [_entry("pair_sigma", "pair_hier.cu", "dfanerf_tpu/ops/fused_render.py:2165",
+                   launches["pair_sigma"], err_c, ms_c, plain_c, flops_c, bytes_c),
+            _entry("pair_field_perz", "pair_hier.cu", "dfanerf_tpu/ops/fused_render.py:2256",
+                   launches["pair_field_perz"], err_f, ms_f, plain_f, flops_f, bytes_f)]
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return {"name": name, "route": "cuda", "source": f"dfanerf_torch/ops/csrc/{source}",
@@ -874,10 +1485,13 @@ def main() -> int:
     del dense_ops
     pair_kernels = phase_pair_main_path()
     phase_pair_prune()
+    phase_hier_kernels_vs_plain()
+    hier_dense, noskip_frames = phase_hier_dense_main_path()
+    hier_pairs = phase_hier_pair_main_path(noskip_frames[:N_FRAMES])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    print(json.dumps({"kernels": [kernel] + pair_kernels}), flush=True)
+    print(json.dumps({"kernels": [kernel] + pair_kernels + hier_dense + hier_pairs}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -17,17 +18,19 @@ def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
     ``jnp.linspace`` is on XLA:CPU: out[i] = fma(i, stop * r, start * (1 - i * r))
     with r = 1 / (num - 1) in float32, and out[-1] = stop. The fma is taken in
     float64, where the product i * (stop * r) is exact. ``torch.linspace``
-    rounds differently in the last bit, which moves every sample depth."""
+    rounds differently in the last bit, which moves every sample depth.
+
+    Computed on ``device`` from host scalars: no host-to-device copy, which
+    would synchronize a frame that builds depths."""
     f32 = torch.float32
-    s = torch.tensor(start, dtype=f32)
-    e = torch.tensor(stop, dtype=f32)
+    s, e = np.float32(start), np.float32(stop)
     if num == 1:
-        return s.reshape(1).to(device)
-    r = torch.tensor(1.0, dtype=f32) / torch.tensor(float(num - 1), dtype=f32)
-    i = torch.arange(num - 1, dtype=f32)
-    head = s * (1.0 - i * r)
-    out = (i.double() * (e * r).double() + head.double()).to(f32)
-    return torch.cat([out, e.reshape(1)]).to(device)
+        return torch.full((1,), float(s), dtype=f32, device=device)
+    r = np.float32(1.0) / np.float32(num - 1)
+    i = torch.arange(num - 1, dtype=f32, device=device)
+    head = float(s) * (1.0 - i * float(r))
+    out = (i.double() * float(np.float32(e * r)) + head.double()).to(f32)
+    return torch.cat([out, torch.full((1,), float(e), dtype=f32, device=device)])
 
 
 def get_rays(

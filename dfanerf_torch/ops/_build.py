@@ -5,22 +5,27 @@ repository root, where the digest covers the source, every ``csrc`` header it
 includes (``#include "x.cuh"``, followed through headers) and the flags, so an
 edited source or header is rebuilt and a stale library is never loaded. Sources build
 in parallel, one nvcc process each. The wrappers load the libraries with
-ctypes; nothing is built when a module is imported.
+ctypes through ``Binding``, which also lays out a field's weights for the
+kernels and launches them; nothing is built when a module is imported.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("render_rays", "pair_field", "far_eval")
+SOURCES = ("render_rays", "pair_field", "far_eval", "sigma_head", "render_head", "pair_hier")
+LAYOUT_SIZES = 5  # ints a library's <name>_layout writes: weight and bias blob sizes, smem
 # --fmad=false: the kernels mirror their plain versions' float32 rounding
 # (see the note in csrc/render_rays.cu); -Xptxas -v reports registers, shared
 # memory and spills into the build log.
@@ -68,6 +73,23 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def load(path: Path, name: str,
+         launchers: Dict[str, Sequence]) -> Tuple[ctypes.CDLL, Tuple[int, ...]]:
+    """Load the library of kernel source ``name`` from ``path``; type its
+    launch functions (``launchers``: function name -> ctypes argtypes, each
+    returning a cudaError_t as int) and read its ``<name>_layout`` sizes."""
+    lib = ctypes.CDLL(str(path))
+    layout = getattr(lib, f"{name}_layout")
+    layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    layout.restype = ctypes.c_int
+    for fn, argtypes in launchers.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    sizes = (ctypes.c_int * LAYOUT_SIZES)()
+    layout(sizes)
+    return lib, tuple(sizes)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Build the named kernels that are not built yet; return their paths.
 
@@ -96,3 +118,100 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def weight_blobs(pw: Dict[str, torch.Tensor], branch: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flatten one field's packed operands into the kernels' blobs: bf16
+    matrices stored [out][in], fp32 biases (layout in csrc/field_mlp.cuh,
+    shared by every kernel of the port)."""
+    k_in = 64 if branch == "head" else 128
+    shapes = {
+        "w_in": (k_in, 256), "w_blocks": (7, 256, 256), "w_skip": (k_in, 256),
+        "w_sf": (256, 384), "w_out": (256, 128),
+    }
+    if branch == "torso":
+        shapes.update({"d_w1": (64, 128), "d_wk": (4, 128, 128), "d_wskip": (64, 128),
+                       "d_wout": (128, 128)})
+    for key, shape in shapes.items():
+        w = pw[key]
+        if w.dtype != torch.bfloat16 or tuple(w.shape) != shape:
+            raise ValueError(
+                f"{branch} {key}: the CUDA kernel takes bf16 {shape}, got "
+                f"{w.dtype} {tuple(w.shape)} (pack with param_dtype=torch.bfloat16)")
+
+    def t(w):
+        return w.transpose(-1, -2).reshape(-1)
+
+    mats = [t(pw["w_in"]), t(pw["w_blocks"]), t(pw["w_skip"]), t(pw["w_sf"]),
+            t(pw["w_out"][:, :8])]
+    biases = [pw["b_in"], pw["b_blocks"].reshape(-1), pw["b_skip"], pw["b_sf"], pw["b_out"][:8]]
+    if branch == "torso":
+        mats += [t(pw["d_w1"]), t(pw["d_wk"]), t(pw["d_wskip"]), t(pw["d_wout"])]
+        biases += [pw["d_b1"], pw["d_bk"].reshape(-1), pw["d_bskip"], pw["d_bout"], pw["sig_pad"]]
+    return (torch.cat(mats).contiguous(),
+            torch.cat([b.to(torch.float32) for b in biases]).contiguous())
+
+
+def check_cuda_operands(name: str, operands: Dict[str, Tuple]) -> torch.device:
+    """The CUDA device of a kernel's operands (name -> (tensor, shape,
+    dtype)); raises unless each lies on it, contiguous, with that shape and
+    dtype."""
+    dev = next(iter(operands.values()))[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    for key, (x, shape, dtype) in operands.items():
+        if (x.device != dev or tuple(x.shape) != tuple(shape) or x.dtype != dtype
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} {key}: expected contiguous {dtype} {tuple(shape)} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return dev
+
+
+class Binding:
+    """ctypes binding of kernel library ``name``, built and loaded at its
+    first use (never at import). ``launches`` counts the launches of the
+    kernel the subclass wraps: ``launch`` raises it where the kernel is
+    launched, and nothing else does."""
+
+    def __init__(self, name: str, launchers: Dict[str, Sequence]):
+        self.name = name
+        self.launches = 0
+        self._launchers = launchers
+        self._lib = None
+        self._layout = None
+
+    def _library(self) -> Path:
+        """Path of the built shared library (built on first use)."""
+        return build([self.name])[self.name]
+
+    def _load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self._lib, self._layout = load(self._library(), self.name, self._launchers)
+        return self._lib
+
+    def blobs(self, pw: Dict[str, torch.Tensor], branch: str,
+              dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One field's weight and bias blobs (``weight_blobs``), checked
+        against the sizes the library reports (its ``<name>_layout``: head
+        weight, head bias, torso weight, torso bias)."""
+        self._load()
+        w, b = weight_blobs(pw, branch)
+        for blob, size in zip((w, b), self._layout[2:4] if branch == "torso" else self._layout[0:2]):
+            if blob.numel() != size or blob.device != dev:
+                raise ValueError(f"weight blob of {blob.numel()} on {blob.device}, kernel expects "
+                                 f"{size} on {dev}")
+        return w, b
+
+    def launch(self, fn: str, dev: torch.device, *args) -> None:
+        """Call the library's launch function ``fn`` on the current stream of
+        ``dev``: tensors pass as their data pointers, other arguments as
+        they are, the stream last. Raises on a nonzero cudaError; counts the
+        launch."""
+        lib = self._load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn)(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+                               stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch {fn} failed with cudaError {err}")
+        self.launches += 1

@@ -1,6 +1,6 @@
-"""Compositing of the pair-compacted render (port of
-dfanerf_tpu/ops/fused_render.py deferred_composite :1698 and bg_blend
-:1663).
+"""Compositing of the pair-compacted renders (port of
+dfanerf_tpu/ops/fused_render.py deferred_composite :1698, bg_blend :1663
+and deferred_composite_head :2369).
 
 ``deferred_composite`` marches the head-only and composite stacks over the
 per-sample buffers that ops/pair_field.py writes, with the same per-sample
@@ -125,3 +125,35 @@ def bg_blend(sh, ct, rays_d, rays_d_t, bc_rgb, last_dist, acc_head, acc_com, t_h
     alpha_c = 1.0 - torch.exp(-(ssum + 1e-6) * dt_l)
     com = acc_com + (alpha_c * t_com) * c_mix
     return head, com
+
+
+def deferred_composite_head(buf, occ: torch.Tensor, dists: torch.Tensor,
+                            bc_rgb: torch.Tensor) -> torch.Tensor:
+    """Head-only composite of a pair buffer with per-ray dists (the
+    hierarchical fine pass; reference :2369).
+
+    buf: the (sigma, r, g, b) buffers of pair_hier.pair_field_eval_perz,
+    each [J, 8, NT]; occ [T, J] the flags that built its pair list (any
+    dtype, nonzero = listed); dists [S, n] per-ray interval lengths, 0 on
+    the final one; bc_rgb [n, 3]. With the catch-all's last_dist >= 1e8 its
+    alpha is exactly 1 in float32, so the background closes the march with
+    no field value at the far sample: head = acc + t_final * bc. Returns
+    [n, 3] float32."""
+    J, NT = buf[0].shape[0], buf[0].shape[2]
+    S, n = dists.shape
+    T = n // R_T
+    if S != J * S_SLAB:
+        raise ValueError(f"dists for {S} samples, buffers for {J * S_SLAB}")
+    flag = occ.bool().t()[:, None, :, None]
+
+    def chan(b):
+        x = b.reshape(J, S_SLAB, NT // R_T, R_T)[:, :, :T]
+        return torch.where(flag, x.float(), 0.0).reshape(S, n)
+
+    sigma = chan(buf[0])
+    alpha = 1.0 - torch.exp(-(sigma + 1e-6) * dists)
+    t = torch.cumprod(1.0 - alpha + 1e-10, dim=0)
+    t_prev = torch.cat([t.new_ones((1, n)), t[:-1]], dim=0)
+    w = alpha * t_prev
+    acc = torch.stack([(w * chan(b)).sum(dim=0) for b in buf[1:]], dim=-1)
+    return acc + t[-1:].t() * bc_rgb.float()

@@ -1,6 +1,7 @@
 // Device code shared by the port's field kernels (render_rays.cu,
-// pair_field.cu, far_eval.cu): one packed, frame-folded field (ops/pack.py)
-// evaluated over a chunk of 128 rows by a block of 8 warps.
+// pair_field.cu, far_eval.cu, sigma_head.cu, render_head.cu, pair_hier.cu):
+// one packed, frame-folded field (ops/pack.py) evaluated over a chunk of 128
+// rows by a block of 8 warps.
 //
 //   torso: deform MLP 64 -> 128 (x4, PE skip at block 2) -> + sig_pad + pe
 //          -> trunk;  head: trunk on the PE directly;
@@ -255,6 +256,23 @@ __device__ __forceinline__ void encode(bf16* P, const float* o, const float* d, 
   }
 }
 
+// As encode, with a depth per ray (the hierarchical fine pass): row r of
+// the chunk takes z[r], where z points at ray ray0's depth.
+__device__ __forceinline__ void encode_perz(bf16* P, const float* o, const float* d,
+                                            const float* z, const float* freq,
+                                            const float* phase, int ray0, int tid) {
+  for (int idx = tid; idx < M * PEW; idx += NTHR) {
+    const int row = idx >> 6, c = idx & (PEW - 1);
+    float v = 0.f;
+    if (c < 60) {
+      const int k = (ray0 + row) * 3 + c % 3;
+      const float pts = o[k] + d[k] * z[row];
+      v = sinf(pts * freq[c] + phase[c]);
+    }
+    P[row * LDP + c] = __float2bfloat16_rn(v);
+  }
+}
+
 // The torso's deformation net over the chunk: PE in P -> p' = deform + sig_pad
 // + pe, written over P (bf16). Uses X and Y as scratch; ends with a barrier.
 __device__ __forceinline__ void deform(bf16* X, bf16* Y, bf16* P, const bf16* w, const float* b,
@@ -344,6 +362,50 @@ __device__ __forceinline__ void color_head(const bf16* h, bf16* feat, const bf16
       rgb[(warp * 16 + g + 8) * 3 + c] = 1.f / (1.f + expf(-(d[2 + e] + b[B_OUT + c])));
     }
   }
+}
+
+// The head's density on one (tile, slab) at the slab's 8 shared depths
+// z[0:8], for the density-only kernels (sigma_head.cu, pair_hier.cu): 16
+// chunks of 128 rows (one sample, half the tile's 256 rays), each encoded,
+// run through the trunk and the sigma column. Thread tid < M hands its row's
+// density to store(s, ray, sigma), with ray the index into o and d; sig is M
+// floats of shared memory.
+template <typename Store>
+__device__ __forceinline__ void sigma_walk(bf16* X, bf16* Y, bf16* P, float* sig, const float* o,
+                                           const float* d, const float* z, const float* freq,
+                                           const float* phase, const bf16* w, const float* b,
+                                           int softplus, int tile, Store store) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+#pragma unroll 1
+  for (int c = 0; c < 2 * SS; ++c) {
+    const int s = c >> 1;
+    const int ray0 = tile * RT + (c & 1) * M;
+    encode(P, o, d, z[s], freq, phase, ray0, tid);
+    __syncthreads();
+    bf16* spare;
+    const bf16* h = trunk<PEW>(X, Y, P, w, b, warp, lane, spare);
+    sigma_head<PEW>(h, w, b, softplus, sig, warp, lane);
+    __syncthreads();
+    if (tid < M) store(s, ray0 + tid, sig[tid]);
+    // the next chunk rewrites sig only after several barriers
+  }
+}
+
+// The largest of the block's values m, one per thread: the early ray
+// termination test of the compositing kernels (render_rays.cu,
+// render_head.cu), each thread passing its ray's transmittance. red is 8
+// floats of shared memory; the caller puts a barrier before the call and
+// one after it before red is written again.
+__device__ __forceinline__ float block_max(float m, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  float mx = red[0];
+#pragma unroll
+  for (int w = 1; w < NTHR / 32; ++w) mx = fmaxf(mx, red[w]);
+  return mx;
 }
 
 // sigma [M] and rgb [M][3] of one field over the chunk, from its input in P;

@@ -31,8 +31,9 @@
 // - One block of 8 warps per 256-ray tile. The TPU's sequential slab grid
 //   axis and its scratch carry become a loop over the slabs inside the block;
 //   the per-ray transmittances and rgb sums live in shared memory, and the
-//   ERT test at each slab start is a block-wide max over the 256 rays, so
-//   the kernel skips exactly the slabs the TPU kernel skips.
+//   ERT test at each slab start is a block-wide max over the 256 rays
+//   (field_mlp.cuh block_max), so the kernel skips exactly the slabs the
+//   TPU kernel skips.
 // - A slab (8 samples x 256 rays = 2048 rows, sample-major) runs in chunks
 //   of 128 rows (one sample, half the rays). For each chunk the whole MLP
 //   chain of one field runs with activations in shared memory (two
@@ -120,14 +121,7 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
   for (int j = 0; j < J; ++j) {
     const bool is_last = j == J - 1;
     __syncthreads();
-    float m = fmaxf(t_head[tid], t_com[tid]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) red[warp] = m;
-    __syncthreads();
-    float mx = red[0];
-#pragma unroll
-    for (int w = 1; w < NTHR / 32; ++w) mx = fmaxf(mx, red[w]);
+    const float mx = block_max(fmaxf(t_head[tid], t_com[tid]), red);
     const bool alive = (mx > p.ert_eps && p.occ[tile * J + j] != 0) || is_last;
     __syncthreads();
     if (!alive) continue;

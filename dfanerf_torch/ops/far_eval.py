@@ -29,9 +29,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from dfanerf_torch.ops import _build
 from dfanerf_torch.ops.fused_render import (
-    _field_rows, _mm_kernel, _slot_tables, _trunk, _weight_blobs, density_act, pe_replicate,
-    view_bias,
+    _field_rows, _mm_kernel, _slot_tables, _trunk, density_act, pe_replicate, view_bias,
 )
 
 _REF_ROWS = 16384  # rays per group in the plain version (bounds its activation memory)
@@ -87,45 +87,19 @@ def far_eval_reference(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t, far: floa
             far_torso_reference(pw_t, rays_o_t, rays_d_t, far, vr_t, act))
 
 
-class FarEvalKernel:
+class FarEvalKernel(_build.Binding):
     """ctypes binding of one entry point of csrc/far_eval.cu (``torso``
-    False: far_head, True: far_torso); builds and loads the library at its
-    first launch. ``launches`` counts the kernel launches."""
+    False: far_head, True: far_torso)."""
 
     def __init__(self, torso: bool):
+        ptr = ctypes.c_void_p
+        super().__init__("far_eval", {"far_eval_launch": [ctypes.c_int, ptr, ptr, ctypes.c_float]
+                                      + [ptr] * 6 + [ctypes.c_int, ctypes.c_int, ptr]})
         self.torso = torso
-        self.launches = 0
-        self._lib = None
-        self._layout = None
-
-    def _library(self):
-        """Path of the built shared library (built on first use)."""
-        from dfanerf_torch.ops import _build
-
-        return _build.build(["far_eval"])["far_eval"]
-
-    def _load(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self._library()))
-            lib.far_eval_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.far_eval_layout.restype = ctypes.c_int
-            ptr = ctypes.c_void_p
-            lib.far_eval_launch.argtypes = (
-                [ctypes.c_int, ptr, ptr, ctypes.c_float] + [ptr] * 6
-                + [ctypes.c_int, ctypes.c_int, ptr])
-            lib.far_eval_launch.restype = ctypes.c_int
-            sizes = (ctypes.c_int * 5)()
-            lib.far_eval_layout(sizes)
-            self._layout = tuple(sizes)
-            self._lib = lib
-        return self._lib
 
     def __call__(self, pw, rays_o, rays_d, far: float, vr=None, act: str = "relu"):
         """Launch on the current stream: far_head returns sh [n, 1], far_torso
         (which needs the torso view bias vr [n, 256] bf16) ct [n, 3]."""
-        dev = rays_o.device
-        if dev.type != "cuda":
-            raise ValueError(f"far_eval kernels need CUDA tensors, got {dev}")
         n = rays_o.shape[0]
         operands = {"rays_o": (rays_o, (n, 3), torch.float32),
                     "rays_d": (rays_d, (n, 3), torch.float32)}
@@ -133,32 +107,16 @@ class FarEvalKernel:
             if vr is None:
                 raise ValueError("far_torso needs the torso view bias")
             operands["vr"] = (vr, (n, 256), torch.bfloat16)
-        for name, (x, shape, dtype) in operands.items():
-            if (x.device != dev or tuple(x.shape) != shape or x.dtype != dtype
-                    or not x.is_contiguous()):
-                raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {dev}, got "
-                                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        dev = _build.check_cuda_operands("far_eval_kernel", operands)
         if act not in ("relu", "softplus"):
             raise ValueError(f"unknown density activation {act!r}")
-        lib = self._load()
-        w, b = _weight_blobs(pw, "torso" if self.torso else "head")
-        for blob, size in zip((w, b), self._layout[2:4] if self.torso else self._layout[0:2]):
-            if blob.numel() != size or blob.device != dev:
-                raise ValueError(f"weight blob of {blob.numel()} on {blob.device}, kernel "
-                                 f"expects {size} on {dev}")
+        w, b = self.blobs(pw, "torso" if self.torso else "head", dev)
         out = torch.empty((n, 3 if self.torso else 1), dtype=torch.float32, device=dev)
         if n == 0:
             return out
         freq, phase = _slot_tables(dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.far_eval_launch(
-                int(self.torso), rays_o.data_ptr(), rays_d.data_ptr(), float(far),
-                vr.data_ptr() if self.torso else None, freq.data_ptr(), phase.data_ptr(),
-                w.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(act == "softplus"), stream)
-        if err != 0:
-            raise RuntimeError(f"far_eval kernel launch failed with cudaError {err}")
-        self.launches += 1
+        self.launch("far_eval_launch", dev, int(self.torso), rays_o, rays_d, float(far),
+                    vr if self.torso else None, freq, phase, w, b, out, n, int(act == "softplus"))
         return out
 
 

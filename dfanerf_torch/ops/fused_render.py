@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from dfanerf_torch.core.posenc import sincos_posenc
+from dfanerf_torch.ops import _build
 
 TILE = 16      # a ray tile is a TILE x TILE pixel block
 R_T = TILE * TILE  # rays per tile
@@ -99,6 +100,12 @@ def _trunk(pw: Dict[str, torch.Tensor], x, mm) -> torch.Tensor:
         if i == 3:
             h = h + mm(x, pw["w_skip"]) + pw["b_skip"]
     return mm(h, pw["w_sf"]) + pw["b_sf"]
+
+
+def sigma_only(pw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The packed field with its fused output layer cut to the sigma column
+    (for _trunk where only the density is needed)."""
+    return dict(pw, w_sf=pw["w_sf"][:, :1], b_sf=pw["b_sf"][:1])
 
 
 def _deform(pw: Dict[str, torch.Tensor], pe, mm) -> torch.Tensor:
@@ -402,115 +409,42 @@ def fused_render_rays_reference(
 # ---------------------------------------------------------------------------
 
 
-def _weight_blobs(pw: Dict[str, torch.Tensor], branch: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flatten one field's packed operands into the kernel's blobs: bf16
-    matrices stored [out][in], fp32 biases (layout in csrc/field_mlp.cuh,
-    shared by every kernel of the port)."""
-    k_in = 64 if branch == "head" else 128
-    shapes = {
-        "w_in": (k_in, 256), "w_blocks": (7, 256, 256), "w_skip": (k_in, 256),
-        "w_sf": (256, 384), "w_out": (256, 128),
-    }
-    if branch == "torso":
-        shapes.update({"d_w1": (64, 128), "d_wk": (4, 128, 128), "d_wskip": (64, 128),
-                       "d_wout": (128, 128)})
-    for key, shape in shapes.items():
-        w = pw[key]
-        if w.dtype != torch.bfloat16 or tuple(w.shape) != shape:
-            raise ValueError(
-                f"{branch} {key}: the CUDA kernel takes bf16 {shape}, got "
-                f"{w.dtype} {tuple(w.shape)} (pack with param_dtype=torch.bfloat16)")
-
-    def t(w):
-        return w.transpose(-1, -2).reshape(-1)
-
-    mats = [t(pw["w_in"]), t(pw["w_blocks"]), t(pw["w_skip"]), t(pw["w_sf"]),
-            t(pw["w_out"][:, :8])]
-    biases = [pw["b_in"], pw["b_blocks"].reshape(-1), pw["b_skip"], pw["b_sf"], pw["b_out"][:8]]
-    if branch == "torso":
-        mats += [t(pw["d_w1"]), t(pw["d_wk"]), t(pw["d_wskip"]), t(pw["d_wout"])]
-        biases += [pw["d_b1"], pw["d_bk"].reshape(-1), pw["d_bskip"], pw["d_bout"], pw["sig_pad"]]
-    return (torch.cat(mats).contiguous(),
-            torch.cat([b.to(torch.float32) for b in biases]).contiguous())
-
-
-class RenderRaysKernel:
-    """ctypes binding of csrc/render_rays.cu; builds and loads the library at
-    its first launch. ``launches`` counts the kernel launches."""
+class RenderRaysKernel(_build.Binding):
+    """ctypes binding of csrc/render_rays.cu."""
 
     def __init__(self):
-        self.launches = 0
-        self._lib = None
-        self._layout = None
-
-    def _library(self):
-        """Path of the built shared library (built on first use)."""
-        from dfanerf_torch.ops import _build
-
-        return _build.build(["render_rays"])["render_rays"]
-
-    def _load(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self._library()))
-            lib.render_rays_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.render_rays_layout.restype = ctypes.c_int
-            ptr = ctypes.c_void_p
-            lib.render_rays_launch.argtypes = (
-                [ptr] * 20 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ptr])
-            lib.render_rays_launch.restype = ctypes.c_int
-            sizes = (ctypes.c_int * 5)()
-            lib.render_rays_layout(sizes)
-            self._layout = tuple(sizes)
-            self._lib = lib
-        return self._lib
+        ptr = ctypes.c_void_p
+        super().__init__("render_rays", {"render_rays_launch": [ptr] * 20 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ptr]})
 
     def __call__(self, ops: RenderOperands) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Launch on the current stream. Returns rgb_head [n_pad, 3],
         rgb_com [n_pad, 3] and slabs evaluated per tile [n_tiles] (int32)."""
         T, J = ops.n_tiles, ops.n_slabs
         n_pad = T * R_T
-        dev = ops.rays_o.device
-        if dev.type != "cuda":
-            raise ValueError(f"render_rays_kernel needs CUDA tensors, got {dev}")
-        expect = {
-            "rays_o": ((n_pad, 3), torch.float32), "rays_d": ((n_pad, 3), torch.float32),
-            "rays_o_t": ((n_pad, 3), torch.float32), "rays_d_t": ((n_pad, 3), torch.float32),
-            "z_vals": ((J * S_SLAB,), torch.float32),
-            "dists_h": ((J * S_SLAB, n_pad), torch.float32),
-            "dists_t": ((J * S_SLAB, n_pad), torch.float32),
-            "vr_h": ((n_pad, 256), torch.bfloat16), "vr_t": ((n_pad, 256), torch.bfloat16),
-            "bc": ((n_pad, 3), torch.float32), "occ": ((T, J), torch.int32),
-        }
-        for name, (shape, dtype) in expect.items():
-            x = getattr(ops, name)
-            if (x.device != dev or tuple(x.shape) != shape or x.dtype != dtype
-                    or not x.is_contiguous()):
-                raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {dev}, got "
-                                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        dev = _build.check_cuda_operands("render_rays_kernel", {
+            "rays_o": (ops.rays_o, (n_pad, 3), torch.float32),
+            "rays_d": (ops.rays_d, (n_pad, 3), torch.float32),
+            "rays_o_t": (ops.rays_o_t, (n_pad, 3), torch.float32),
+            "rays_d_t": (ops.rays_d_t, (n_pad, 3), torch.float32),
+            "z_vals": (ops.z_vals, (J * S_SLAB,), torch.float32),
+            "dists_h": (ops.dists_h, (J * S_SLAB, n_pad), torch.float32),
+            "dists_t": (ops.dists_t, (J * S_SLAB, n_pad), torch.float32),
+            "vr_h": (ops.vr_h, (n_pad, 256), torch.bfloat16),
+            "vr_t": (ops.vr_t, (n_pad, 256), torch.bfloat16),
+            "bc": (ops.bc, (n_pad, 3), torch.float32), "occ": (ops.occ, (T, J), torch.int32)})
         if ops.act not in ("relu", "softplus"):
             raise ValueError(f"unknown density activation {ops.act!r}")
-        lib = self._load()
-        w_h, b_h = _weight_blobs(ops.packed_h, "head")
-        w_t, b_t = _weight_blobs(ops.packed_t, "torso")
-        for blob, size in zip((w_h, b_h, w_t, b_t), self._layout[:4]):
-            if blob.numel() != size or blob.device != dev:
-                raise ValueError(f"weight blob of {blob.numel()} on {blob.device}, kernel "
-                                 f"expects {size} on {dev}")
+        w_h, b_h = self.blobs(ops.packed_h, "head", dev)
+        w_t, b_t = self.blobs(ops.packed_t, "torso", dev)
         freq, phase = _slot_tables(dev)
         out_h = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
         out_c = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
         slabs = torch.empty((T,), dtype=torch.int32, device=dev)
-        args = [ops.rays_o, ops.rays_d, ops.rays_o_t, ops.rays_d_t, ops.z_vals, ops.dists_h,
-                ops.dists_t, ops.vr_h, ops.vr_t, ops.bc, freq, phase, ops.occ, w_h, b_h, w_t,
-                b_t, out_h, out_c, slabs]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.render_rays_launch(
-                *[x.data_ptr() for x in args], T, J, ops.ert_eps,
-                int(ops.act == "softplus"), stream)
-        if err != 0:
-            raise RuntimeError(f"render_rays kernel launch failed with cudaError {err}")
-        self.launches += 1
+        self.launch("render_rays_launch", dev, ops.rays_o, ops.rays_d, ops.rays_o_t, ops.rays_d_t,
+                    ops.z_vals, ops.dists_h, ops.dists_t, ops.vr_h, ops.vr_t, ops.bc, freq, phase,
+                    ops.occ, w_h, b_h, w_t, b_t, out_h, out_c, slabs, T, J, ops.ert_eps,
+                    int(ops.act == "softplus"))
         return out_h, out_c, slabs
 
 

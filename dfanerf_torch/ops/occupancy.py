@@ -24,7 +24,7 @@ grid step (``SUPERSAMPLE``) and bf16 trunk products.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from dfanerf_torch.core.posenc import sincos_posenc
 from dfanerf_torch.core.rays import linspace
 from dfanerf_torch.ops.fused_render import (
-    PE_PAD, R_T, S_SLAB, TILE, _deform, _mm_cast, _trunk, density_act,
+    PE_PAD, R_T, S_SLAB, TILE, _deform, _mm_cast, _trunk, density_act, sigma_only,
 )
 
 SUPERSAMPLE = 2  # fine density nodes per grid step along each axis
@@ -46,9 +46,7 @@ def packed_sigma_xla(pw: Dict[str, torch.Tensor], pts: torch.Tensor, branch: str
     pe = torch.cat([pe, pe.new_zeros((pe.shape[0], PE_PAD - pe.shape[1]))], dim=-1)
     mm = _mm_cast(torch.bfloat16)
     x = _deform(pw, pe, mm) if branch == "torso" else pe
-    # the fused output layer's sigma column only
-    sigma_only = dict(pw, w_sf=pw["w_sf"][:, :1], b_sf=pw["b_sf"][:1])
-    return _trunk(sigma_only, x, mm)[:, 0]
+    return _trunk(sigma_only(pw), x, mm)[:, 0]
 
 
 def node_density(pw, branch: str, lo: torch.Tensor, span: torch.Tensor, grid_res: int,
@@ -108,8 +106,11 @@ def tile_corner_rays(rays: torch.Tensor) -> torch.Tensor:
     n = rays.shape[0]
     if n % R_T:
         raise ValueError(f"{n} rays do not make whole {TILE}x{TILE} tiles")
-    corners = torch.tensor([0, TILE - 1, (TILE - 1) * TILE, TILE * TILE - 1], device=rays.device)
-    return rays.reshape(n // R_T, R_T, 3)[:, corners]
+    # rows and columns 0 and TILE - 1 of each tile: rays 0, TILE - 1,
+    # (TILE - 1) * TILE and TILE * TILE - 1, by slicing (an index tensor
+    # would be a host-to-device copy, which synchronizes a steady frame)
+    corners = rays.reshape(n // R_T, TILE, TILE, 3)[:, ::TILE - 1, ::TILE - 1]
+    return corners.reshape(n // R_T, 4, 3)
 
 
 Box = Tuple[torch.Tensor, torch.Tensor]
@@ -129,21 +130,25 @@ def occupancy_boxes(rays_o, rays_d, rays_o_t, rays_d_t, z_vals: torch.Tensor,
         return o_c[:, None, None] + d_c[:, None, None] * z_ends[None, :, :, None, None]
 
     pts = [corner_pts(rays_o, rays_d), corner_pts(rays_o_t, rays_d_t)]
-    allp = torch.cat([p.reshape(-1, 3) for p in pts])
+    lo, span = _grid_extent(torch.cat([p.reshape(-1, 3) for p in pts]))
+    return lo, span, [_node_box(p, lo, span, grid_res) for p in pts]
+
+
+def _grid_extent(allp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, span) of the node grid spanning the points allp [N, 3]."""
     lo = allp.amin(0)
-    span = torch.clamp_min(allp.amax(0) - lo, 1e-6)
+    return lo, torch.clamp_min(allp.amax(0) - lo, 1e-6)
+
+
+def _node_box(pts: torch.Tensor, lo: torch.Tensor, span: torch.Tensor, grid_res: int) -> Box:
+    """Inclusive node boxes [T, J, 3] (x, y, z) of the corner points pts
+    [T, J, 2, 4, 3] of each (tile, slab), in the reference's float32 order."""
     voxel = span / (grid_res - 1)
-
-    def box(p):
-        ab_lo = p.amin(dim=(2, 3))  # [T, J, 3]
-        ab_hi = p.amax(dim=(2, 3))
-        i_lo = torch.clamp(torch.ceil((ab_lo - lo) / voxel - 0.5).to(torch.int32),
-                           0, grid_res - 1)
-        i_hi = torch.clamp(torch.floor((ab_hi - lo) / voxel + 0.5).to(torch.int32),
-                           0, grid_res - 1)
-        return i_lo, i_hi
-
-    return lo, span, [box(p) for p in pts]
+    ab_lo = pts.amin(dim=(2, 3))  # [T, J, 3]
+    ab_hi = pts.amax(dim=(2, 3))
+    i_lo = torch.clamp(torch.ceil((ab_lo - lo) / voxel - 0.5).to(torch.int32), 0, grid_res - 1)
+    i_hi = torch.clamp(torch.floor((ab_hi - lo) / voxel + 0.5).to(torch.int32), 0, grid_res - 1)
+    return i_lo, i_hi
 
 
 @torch.no_grad()
@@ -158,3 +163,49 @@ def conservative_occupancy(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t,
                               > sigma_thresh * 0.25, *b)
              for pw, branch, b in ((pw_h, "head", boxes[0]), (pw_t, "torso", boxes[1]))]
     return torch.stack(flags).to(torch.int32)
+
+
+Sat = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.no_grad()
+def occupancy_flags_and_sat(pw, branch: str, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                            z_vals: torch.Tensor, sigma_thresh: float, grid_res: int = 64,
+                            sat_cache: Optional[Sat] = None,
+                            act: str = "relu") -> Tuple[torch.Tensor, Sat]:
+    """Per-(tile, slab) flags of one field for per-ray depths (reference
+    :499), the hierarchical render's: rays [n, 3] in spatial-tile order,
+    z_vals [n, S] sorted per ray. A slab's z extent is the min and max over
+    its tile's rays, so the 8 corner points of the tile's corner rays at
+    those depths bound every sample of the (tile, slab).
+
+    The node grid spans this field's corner points. ``sat_cache`` is the
+    (sat, lo, span) of an earlier call on the same field whose grid bounds
+    these points (the fine pass reuses the coarse pass's: its depths lie in
+    the same [near, far]); no grid is evaluated then. Returns flags [T, J]
+    int32 and the (sat, lo, span) used."""
+    n, S = z_vals.shape
+    if n % R_T or S % S_SLAB:
+        raise ValueError(f"{n} rays and {S} samples must make whole {R_T}-ray tiles and "
+                         f"{S_SLAB}-sample slabs")
+    T, J = n // R_T, S // S_SLAB
+    zt = z_vals.float().reshape(T, R_T, J, S_SLAB)
+    z_ends = torch.stack([zt.amin(dim=(1, 3)), zt.amax(dim=(1, 3))], dim=-1)  # [T, J, 2]
+    o_c, d_c = tile_corner_rays(rays_o.float()), tile_corner_rays(rays_d.float())
+    pts = o_c[:, None, None] + d_c[:, None, None] * z_ends[..., None, None]  # [T, J, 2, 4, 3]
+    if sat_cache is None:
+        lo, span = _grid_extent(pts.reshape(-1, 3))
+        sat = _occupancy_sat(node_density(pw, branch, lo, span, grid_res, act)
+                             > sigma_thresh * 0.25)
+    else:
+        sat, lo, span = sat_cache
+    flags = _sat_box_any(sat, *_node_box(pts, lo, span, grid_res)).to(torch.int32)
+    return flags, (sat, lo, span)
+
+
+def occupancy_flags_dynamic_z(pw, branch: str, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                              z_vals: torch.Tensor, sigma_thresh: float, grid_res: int = 64,
+                              sat_cache: Optional[Sat] = None, act: str = "relu") -> torch.Tensor:
+    """The flags of ``occupancy_flags_and_sat`` alone (reference :466)."""
+    return occupancy_flags_and_sat(pw, branch, rays_o, rays_d, z_vals, sigma_thresh, grid_res,
+                                   sat_cache, act)[0]

@@ -34,8 +34,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from dfanerf_torch.ops import _build
 from dfanerf_torch.ops.fused_render import (
-    PE_PAD, R_T, S_SLAB, _field_rows, _slot_tables, _weight_blobs, pe_replicate, view_bias,
+    PE_PAD, R_T, S_SLAB, _field_rows, _slot_tables, pe_replicate, view_bias,
 )
 
 _REF_PAIRS = 16  # pairs per group in the plain version (bounds its activation memory)
@@ -99,72 +100,32 @@ def pair_field_eval_reference(pw: Dict[str, torch.Tensor], branch: str, rays_o: 
     return bufs
 
 
-class PairFieldKernel:
-    """ctypes binding of csrc/pair_field.cu; builds and loads the library at
-    its first launch. ``launches`` counts the kernel launches."""
+class PairFieldKernel(_build.Binding):
+    """ctypes binding of csrc/pair_field.cu."""
 
     def __init__(self):
-        self.launches = 0
-        self._lib = None
-        self._layout = None
-
-    def _library(self):
-        """Path of the built shared library (built on first use)."""
-        from dfanerf_torch.ops import _build
-
-        return _build.build(["pair_field"])["pair_field"]
-
-    def _load(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self._library()))
-            lib.pair_field_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.pair_field_layout.restype = ctypes.c_int
-            ptr = ctypes.c_void_p
-            lib.pair_field_launch.argtypes = (
-                [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 3 + [ptr])
-            lib.pair_field_launch.restype = ctypes.c_int
-            sizes = (ctypes.c_int * 5)()
-            lib.pair_field_layout(sizes)
-            self._layout = tuple(sizes)
-            self._lib = lib
-        return self._lib
+        ptr = ctypes.c_void_p
+        super().__init__("pair_field", {
+            "pair_field_launch": [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]})
 
     def __call__(self, pw, branch, rays_o, rays_d, vr, z_vals, t_idx, j_idx,
                  act: str = "relu") -> Buffers:
         """Launch on the current stream over the K >= 1 listed pairs."""
         _check_operands(branch, rays_o, rays_d, vr, z_vals, t_idx, j_idx, act)
-        dev = rays_o.device
-        if dev.type != "cuda":
-            raise ValueError(f"pair_field_kernel needs CUDA tensors, got {dev}")
-        n = rays_o.shape[0]
-        expect = {"rays_o": (rays_o, torch.float32), "rays_d": (rays_d, torch.float32),
-                  "vr": (vr, torch.bfloat16), "z_vals": (z_vals, torch.float32),
-                  "t_idx": (t_idx, torch.int32), "j_idx": (j_idx, torch.int32)}
-        for name, (x, dtype) in expect.items():
-            if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-                raise ValueError(f"{name}: expected contiguous {dtype} on {dev}, got "
-                                 f"{x.dtype} on {x.device}")
-        K = t_idx.shape[0]
+        n, S, K = rays_o.shape[0], z_vals.shape[0], t_idx.shape[0]
+        dev = _build.check_cuda_operands("pair_field_kernel", {
+            "rays_o": (rays_o, (n, 3), torch.float32), "rays_d": (rays_d, (n, 3), torch.float32),
+            "vr": (vr, (n, 256), torch.bfloat16), "z_vals": (z_vals, (S,), torch.float32),
+            "t_idx": (t_idx, (K,), torch.int32), "j_idx": (j_idx, (K,), torch.int32)})
         if K == 0:
             raise ValueError("pair_field_kernel needs at least one listed pair")
-        lib = self._load()
-        w, b = _weight_blobs(pw, branch)
-        torso = branch == "torso"
-        for blob, size in zip((w, b), self._layout[2:4] if torso else self._layout[0:2]):
-            if blob.numel() != size or blob.device != dev:
-                raise ValueError(f"weight blob of {blob.numel()} on {blob.device}, kernel "
-                                 f"expects {size} on {dev}")
+        w, b = self.blobs(pw, branch, dev)
         T = n // R_T
-        bufs = _empty_buffers(z_vals.shape[0] // S_SLAB, (T + 1) * R_T, dev)
+        bufs = _empty_buffers(S // S_SLAB, (T + 1) * R_T, dev)
         freq, phase = _slot_tables(dev)
-        args = [rays_o, rays_d, z_vals, vr, freq, phase, t_idx, j_idx, w, b, *bufs]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.pair_field_launch(int(torso), *[x.data_ptr() for x in args], K,
-                                        (T + 1) * R_T, int(act == "softplus"), stream)
-        if err != 0:
-            raise RuntimeError(f"pair_field kernel launch failed with cudaError {err}")
-        self.launches += 1
+        self.launch("pair_field_launch", dev, int(branch == "torso"), rays_o, rays_d, z_vals, vr,
+                    freq, phase, t_idx, j_idx, w, b, *bufs, K, (T + 1) * R_T,
+                    int(act == "softplus"))
         return bufs
 
 

@@ -11,7 +11,8 @@ from dfanerf_torch.ops import _build
 
 
 def test_sources_list_every_kernel():
-    assert _build.SOURCES == ("render_rays", "pair_field", "far_eval")
+    assert _build.SOURCES == ("render_rays", "pair_field", "far_eval", "sigma_head",
+                              "render_head", "pair_hier")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
 

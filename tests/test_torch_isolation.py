@@ -2,8 +2,9 @@
 and without the reference package, and nothing in them (nor in the port's
 perf/ tools) imports either;
 without a CUDA device the entry points refuse to fall back to the CPU
-silently, and the kernel wrapper refuses tensors it cannot serve."""
+silently, and the kernel wrappers refuse tensors they cannot serve."""
 
+import dataclasses
 import os
 import pathlib
 import re
@@ -55,7 +56,9 @@ def test_no_silent_cpu_fallback():
     renderer, the seeded state and the state converted from the reference."""
     from dfanerf_torch.compat.from_jax import state_from_jax
     from dfanerf_torch.config import ExperimentConfig, RenderConfig
-    from dfanerf_torch.render.renderer import make_frame_renderer
+    from dfanerf_torch.render.renderer import (
+        make_frame_renderer, make_head_hierarchical_renderer,
+    )
     from dfanerf_torch.train.state import init_train_state
 
     if torch.cuda.is_available():
@@ -68,6 +71,9 @@ def test_no_silent_cpu_fallback():
     for cfg in (dense, pairs):
         with pytest.raises(RuntimeError, match="CUDA"):
             make_frame_renderer(cfg, hw, 0.3, 0.9)
+        hier = ExperimentConfig(render=dataclasses.replace(cfg.render, n_importance=16))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_head_hierarchical_renderer(hier, hw, 0.3, 0.9)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_train_state(dense)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -95,3 +101,28 @@ def test_kernel_wrapper_refuses_what_it_cannot_serve():
         fused_render_rays(pw, pw, *rays, z, torch.zeros(8, 3), bg_epilogue=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_render_rays(pw, pw, *rays, z, torch.zeros(8, 3), fields="head")
+
+
+def test_hierarchical_kernel_wrappers_refuse_cpu_tensors():
+    """Each kernel of the hierarchical render takes CUDA tensors only; CPU
+    tensors raise before anything is built or launched."""
+    from dfanerf_torch.ops.pair_hier import pair_field_perz_kernel, pair_sigma_kernel
+    from dfanerf_torch.ops.render_head import prepare_head_operands, render_head_kernel
+    from dfanerf_torch.ops.sigma_head import sigma_head_kernel
+
+    pw = {"w_view": torch.zeros(24, 256), "b_view": torch.zeros(256)}
+    rays = torch.zeros(256, 3)
+    z = torch.linspace(0.3, 0.9, 16)
+    one = torch.zeros(1, dtype=torch.int32)
+    calls = [
+        lambda: sigma_head_kernel(pw, rays, rays, z, torch.ones((1, 2), dtype=torch.int32)),
+        lambda: render_head_kernel(prepare_head_operands(pw, rays, rays, z, rays)),
+        lambda: pair_sigma_kernel(pw, rays, rays, z, one, one),
+        lambda: pair_field_perz_kernel(pw, rays, rays, torch.zeros(256, 256, dtype=torch.bfloat16),
+                                       torch.zeros(2, 8, 512), one, one),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    for k in (sigma_head_kernel, render_head_kernel, pair_sigma_kernel, pair_field_perz_kernel):
+        assert k.launches == 0 and k._lib is None
