@@ -37,7 +37,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (pair_sigma and pair_field_perz once per steady frame, no host sync);
    check the frames, the flags and lists, a frame of each kind against the
    plain versions; time the frames, each stage and each kernel;
-9. print the card's name and power limit, then one JSON line listing every
+9. hold the four render_rays instantiations (both fields with the
+   background in the kernel; the epilogue mode with both fields, the head
+   only, the torso only) and far_joint against their plain versions at a
+   450x450 frame's rays and 64 samples (flags with gaps, tiles without a
+   flag, a saturating field for ERT), far_joint also against far_head +
+   far_torso bit for bit;
+10. drive the shipped serving config (configs/obama_serve_tpu.json) through
+   encode_frame_signals and make_frame_renderer: its tile-class branch for
+   12 frames across three refreshes (one render_rays per non-empty class
+   segment in a steady frame, no host sync), then its plain occupancy branch
+   (tile compaction off) for 6 frames (one render_rays per steady frame);
+   check the classes, the flags, a refresh and a steady frame of each branch
+   against the plain versions; print each branch's error against the dense
+   no-skip frames; time the frames, each stage and each segment's kernel;
+11. the tile-class branch with its epilogue in its kernel form
+   (bg_epilogue_fused, one far_joint per epilogue) against the shipped
+   epilogue; far_joint's times;
+12. print the card's name and power limit, then one JSON line listing every
    ported kernel with its launches, error and times, and last a JSON status
    line.
 
@@ -58,6 +75,7 @@ import warnings
 
 import torch
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 H = W = 450
 N_SAMPLES = 64
 N_FRAMES = 5
@@ -185,7 +203,7 @@ def phase_build():
         log = _build.library_path(name).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Function properties" in line:
                     print(f"[build] {name}: {line.strip()}", flush=True)
 
 
@@ -506,23 +524,19 @@ SIGMA_SHIFT = -0.4593
 PAIR_FRACTION = (0.05, 0.95)  # each field's listed share of its T * J pairs
 
 
-def _pair_state(cfg):
-    from dfanerf_torch.train.state import init_train_state
-
-    state = init_train_state(cfg, seed=0, device="cuda")
-    with torch.no_grad():
-        state["params"].decoder.sigma_out.bias += SIGMA_SHIFT
-    return state
-
-
-def _pair_scene(cfg):
+def _pair_scene(cfg, shift=SIGMA_SHIFT, n_frames=PAIR_FRAMES, head_latent_scale=1.0):
     """(scene, args): the synthetic scene and args(i), frame i's arguments
-    to a frame renderer, with the shifted seeded weights."""
+    to a frame renderer, with the seeded weights' sigma_out bias shifted by
+    ``shift`` and the head's shape latent scaled by ``head_latent_scale``."""
     import dfanerf_torch.render.renderer as renderer
     from dfanerf_torch.data.synthetic import make_synthetic_scene
+    from dfanerf_torch.train.state import init_train_state
 
-    scene = make_synthetic_scene(n_frames=PAIR_FRAMES, H=H, W=W, seed=0)
-    state = _pair_state(cfg)
+    scene = make_synthetic_scene(n_frames=n_frames, H=H, W=W, seed=0)
+    state = init_train_state(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        state["params"].decoder.sigma_out.bias += shift
+    state["z_shape"][0] *= head_latent_scale
     params = state["params"]
     auds, exps, poses = (torch.from_numpy(x).cuda() for x in (scene.auds, scene.exps, scene.poses))
     bc_img = torch.from_numpy(scene.bc_img).cuda()
@@ -1458,6 +1472,537 @@ def phase_hier_pair_main_path(noskip_frames):
                    launches["pair_field_perz"], err_f, ms_f, plain_f, flops_f, bytes_f)]
 
 
+# The shipped serving configuration: the render section of
+# configs/obama_serve_tpu.json (occupancy threshold 0.5 on a grid of 48,
+# per-field tile classes, refresh every 4 frames, ERT 1e-4, 64 samples, bf16)
+# with its decoder (the default: hidden 256, 8 blocks, deformation field,
+# relu density). The tile-class branch renders SERVE_FRAMES frames
+# (refreshes at 0, 4 and 8), the plain occupancy branch (tile compaction
+# off) SERVE_PLAIN_FRAMES (refreshes at 0 and 4), and the tile-class branch
+# with the epilogue's kernel form (bg_epilogue_fused, far_joint)
+# SERVE_EPILOGUE_FRAMES.
+SERVE_CONFIG = "configs/obama_serve_tpu.json"
+SERVE_FRAMES = 12
+SERVE_PLAIN_FRAMES = 6
+SERVE_EPILOGUE_FRAMES = 4
+# Added to the seeded sigma_out bias, as SIGMA_SHIFT above, with the head's
+# shape latent z_shape[0] scaled by SERVE_HEAD_LATENT: relu of the
+# random-init densities lies below the node threshold 0.5 / 4 = 0.125
+# everywhere, and the flags go from none at a shift of +0.06 to all at
+# +0.12 (frames 0, 4 and 8). At +0.08 only the torso flags slabs; the
+# latent scale lifts the head's densities, so that every class is
+# non-empty: (both, head, torso, none) = (181, 366, 85, 209), (51, 349, 54,
+# 387) and (505, 125, 150, 61) of 841 tiles at frames 0, 4 and 8 (a search
+# over the shift and the scale on an H100; the main path prints the classes
+# of each refresh).
+SERVE_SHIFT = 0.08
+SERVE_HEAD_LATENT = 3.0
+# The kernel checks' saturating field: relu densities of ~30 end every ray's
+# transmittance below ert_eps = 1e-4 after about 4 of the 8 slabs.
+SATURATE_SHIFT = 30.0
+CLASS_VARIANTS = ("render_rays_epilogue", "render_rays_head", "render_rays_torso")
+
+
+def _serve_cfg(tile_compaction: bool = True):
+    from dfanerf_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_json(os.path.join(HERE, SERVE_CONFIG))
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, occ_tile_compaction=tile_compaction))
+
+
+def _class_sizes(occ):
+    """(both, head-only, torso-only, none) tile counts of per-field flags
+    [2, T, J]."""
+    th, tt = occ[0].amax(dim=1) > 0, occ[1].amax(dim=1) > 0
+    return tuple(int(x.sum()) for x in (th & tt, th & ~tt, tt & ~th, ~th & ~tt))
+
+
+def _check_epilogue(tag, got, ref, occ):
+    """render_rays in epilogue mode vs its plain version: the sums (TOL's
+    head bars; no background blend is in them), the transmittances (the
+    head's max bar), the slab counts (equal), and the tiles without a flag
+    (exactly acc 0 and t 1). Returns the largest error."""
+    acc_h, acc_c, slabs, t_h, t_c = got
+    r_h, r_c, slabs_r, rt_h, rt_c = ref
+    errs = [_errors(a, b) for a, b in ((acc_h, r_h), (acc_c, r_c), (t_h, rt_h), (t_c, rt_c))]
+    empty = (occ.amax(dim=1) == 0).repeat_interleave(256)
+    n_bad = int((acc_h[empty] != 0).sum() + (acc_c[empty] != 0).sum() + (t_h[empty] != 1).sum()
+                + (t_c[empty] != 1).sum())
+    same = torch.equal(slabs, slabs_r)
+    print(f"[{tag}] sums head max {errs[0][0]:.3e} mean {errs[0][1]:.3e}, com max {errs[1][0]:.3e} "
+          f"mean {errs[1][1]:.3e} (tol {TOL['head_max']:.0e}/{TOL['head_mean']:.0e}); t head max "
+          f"{errs[2][0]:.3e}, com max {errs[3][0]:.3e} (tol {TOL['head_max']:.0e}); slabs run "
+          f"{int(slabs.sum())} of {occ.numel()}, {'equal' if same else 'DIFFERENT'}; "
+          f"{int(empty.sum()) // 256} tiles without a flag, {n_bad} values there not exactly "
+          f"acc 0 / t 1", flush=True)
+    if not all(torch.isfinite(x).all() for x in got if x.is_floating_point()):
+        _fail(f"{tag}: non-finite output")
+    if (any(m > TOL["head_max"] for m, _ in errs) or any(a > TOL["head_mean"] for _, a in errs[:2])
+            or not same or n_bad):
+        _fail(f"{tag}: kernel disagrees with its plain version")
+    return max(m for m, _ in errs)
+
+
+def phase_serve_kernels_vs_plain():
+    """The four render_rays instantiations and far_joint against their plain
+    versions on the card, at a 450x450 frame's rays (frame 0 of the serving
+    path, with its seeded weights) and 64 samples: flags with gaps and tiles
+    without a flag, and a saturating field whose rays terminate early (ERT).
+    far_joint also against far_head + far_torso on the same rays (bit for
+    bit), and on a ragged ray count. Returns each kernel's largest error."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.ops.far_eval import (
+        far_eval_reference, far_head_kernel, far_joint_kernel, far_torso_kernel,
+    )
+    from dfanerf_torch.ops.fused_render import (
+        RENDER_VARIANTS, fused_render_rays_reference, prepare_render_operands, render_rays_kernel,
+        view_bias,
+    )
+
+    cfg = _serve_cfg()
+    rcfg = cfg.render
+    inputs = {}
+    for tag, shift in (("seeded", SERVE_SHIFT), ("saturating", SERVE_SHIFT + SATURATE_SHIFT)):
+        scene, args = _pair_scene(cfg, shift, 1, SERVE_HEAD_LATENT)
+        render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+        inputs[tag] = render.inputs_fn(*args(0))
+    pw_h, pw_t, ro, rd, ro_t, rd_t, bc = inputs["seeded"]
+    T, J = ro.shape[0] // 256, rcfg.n_samples // 8
+    z = linspace(scene.near, scene.far, rcfg.n_samples, device="cuda")
+    g = torch.Generator().manual_seed(4)
+    flags = (torch.rand((2, T, J), generator=g) < 0.5).to(torch.int32)
+    flags[:, ::5] = 0
+    flags = flags.cuda()
+    print(f"[serve kernels vs plain] {T} tiles x {J} slabs; flags head {int(flags[0].sum())}, "
+          f"torso {int(flags[1].sum())}, joint {int(flags.amax(dim=0).sum())} of {T * J}; every "
+          f"5th tile without a flag; ert_eps {rcfg.ert_eps}", flush=True)
+    cases = (("flags with gaps", inputs["seeded"][:2], flags),
+             (f"saturating field (bias +{SATURATE_SHIFT:g}), every flag", inputs["saturating"][:2],
+              None))
+    worst = {}
+    for (fields, epilogue), name in RENDER_VARIANTS.items():
+        for tag, (ph, pt), occ in cases:
+            ops = prepare_render_operands(ph, pt, ro, rd, ro_t, rd_t, z, bc, rcfg.last_dist,
+                                          rcfg.ert_eps, occ, "relu", epilogue, fields)
+            got = render_rays_kernel(ops)
+            torch.cuda.synchronize()
+            ref = fused_render_rays_reference(ops)
+            torch.cuda.synchronize()
+            tag = f"{name} vs plain, {tag}"
+            if epilogue:
+                err = _check_epilogue(tag, got, ref, ops.occ)
+            else:
+                err = _check_pair(tag, got[0], got[1], ref[0], ref[1], ref[3])
+                if not torch.equal(got[2], ref[2]):
+                    _fail(f"{tag}: slab counts differ from the plain version's")
+                print(f"[{tag}] slabs run {int(got[2].sum())} of {T * J}, equal", flush=True)
+            worst[name] = max(worst.get(name, 0.0), err)
+
+    far = float(z[-1])
+    vr_t = view_bias(pw_t, rd_t).to(torch.bfloat16).contiguous()
+    far_err = 0.0
+    for n, act in ((ro.shape[0], "relu"), (ro.shape[0], "softplus"), (4096 + 77, "relu")):
+        rays = [x[:n] for x in (ro, rd, ro_t, rd_t)]
+        sh, ct = far_joint_kernel(pw_h, pw_t, *rays, far, vr_t[:n], act)
+        sh_s = far_head_kernel(pw_h, rays[0], rays[1], far, act=act)
+        ct_s = far_torso_kernel(pw_t, rays[2], rays[3], far, vr_t[:n], act=act)
+        torch.cuda.synchronize()
+        sh_r, ct_r = far_eval_reference(pw_h, pw_t, *rays, far, vr_t[:n], act)
+        far_err = max(far_err, *_check_far(f"far_joint vs plain, {n} rays, {act}", sh, ct, sh_r,
+                                           ct_r))
+        same = torch.equal(sh, sh_s) and torch.equal(ct, ct_s)
+        print(f"[far_joint vs far_head + far_torso, {n} rays, {act}] "
+              f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            _fail("far_joint differs from far_head + far_torso on the same rays")
+    worst["far_joint"] = far_err
+    return worst
+
+
+@contextlib.contextmanager
+def _plain_render_kernel():
+    """fused_render_rays with its CUDA kernel swapped for the plain version
+    on the card (the wrapper's own epilogue and padding stay as shipped)."""
+    from dfanerf_torch.ops import fused_render
+
+    real = fused_render.render_rays_kernel
+    fused_render.render_rays_kernel = fused_render.fused_render_rays_reference
+    try:
+        yield
+    finally:
+        fused_render.render_rays_kernel = real
+
+
+def _far_sh(render, a, z_vals):
+    """The head's far-plane density sh per pixel [H, W] of frame args a,
+    as the background epilogue computes it (for _check_pair)."""
+    from dfanerf_torch.ops.fused_render import density_act, spatial_untile
+    from dfanerf_torch.ops.occupancy import packed_sigma_xla
+
+    pw_h, _, ro, rd, *_ = render.inputs_fn(*a)
+    sh = density_act(packed_sigma_xla(pw_h, ro + rd * z_vals[-1], "head", pw_h["w_blocks"].dtype))
+    return spatial_untile(sh[:, None], H, W)[..., 0]
+
+
+def _run_frames(render, args, n_frames, kernels, is_steady, on_refresh=None):
+    """Render frames 0 .. n_frames - 1, each between CUDA events, with host
+    syncs counted in the steady frames (is_steady(cache) before the frame).
+    kernels: name -> (binding, variant or None), launches counted per frame.
+    Returns frames, [(steady, ms, launches)], syncs."""
+    frames, marks, syncs = [], [], 0
+
+    def counts():
+        return {name: (k.launches if v is None else k.variant_launches.get(v, 0))
+                for name, (k, v) in kernels.items()}
+
+    for i in range(n_frames):
+        a = args(i)
+        steady = is_steady(render.cache)
+        before = counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if steady:
+                torch.cuda.set_sync_debug_mode("warn")
+            e0.record()
+            frames.append(render(*a))
+            e1.record()
+            torch.cuda.set_sync_debug_mode("default")
+        syncs += sum("synchroniz" in str(w.message) for w in caught) if steady else 0
+        after = counts()
+        marks.append((steady, e0, e1, {n: after[n] - before[n] for n in after if after[n] - before[n]}))
+        if not steady and on_refresh is not None:
+            on_refresh(i)
+    torch.cuda.synchronize()
+    return frames, [(st, e0.elapsed_time(e1), got) for st, e0, e1, got in marks], syncs
+
+
+def _frame_times(tag, marks, every):
+    steady = [ms for st, ms, _ in marks if st]
+    refresh = [ms for st, ms, _ in marks if not st]
+    s_ms, r_ms = sum(steady) / len(steady), sum(refresh) / len(refresh)
+    window = (r_ms + (every - 1) * s_ms) / every
+    print(f"[{tag}] {len(marks)} frames {H}x{W}, {N_SAMPLES} samples: {s_ms:.2f} ms per steady "
+          f"frame ({len(steady)} frames), {r_ms:.2f} ms per refresh frame ({len(refresh)} "
+          f"frames), {window:.2f} ms per frame over a refresh window of {every} (CUDA events, "
+          f"warm); per frame {', '.join(f'{ms:.2f}' for _, ms, _ in marks)}", flush=True)
+    return s_ms, r_ms, window
+
+
+def _noskip_errors(tag, frames, noskip):
+    """Each frame's max and mean error against the dense no-skip frame of
+    the same weights and pose: printed, not held (random weights set no
+    bar)."""
+    errs = [_errors(f[1], d[1]) for f, d in zip(frames, noskip)]
+    print(f"[{tag}] composite vs the dense no-skip frames (random weights set no bar): max "
+          f"{max(e[0] for e in errs):.4e}, mean {max(e[1] for e in errs):.4e} (frames "
+          f"{', '.join(f'{m:.2e}/{a:.1e}' for m, a in errs)})", flush=True)
+
+
+def _serve_noskip_frames(cfg, args, n_frames):
+    """The dense no-skip render (occupancy off, ERT off) of frames 0 ..
+    n_frames - 1 with the same weights, for the printed error."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.data.synthetic import make_synthetic_scene
+
+    scene = make_synthetic_scene(n_frames=1, H=H, W=W, seed=0)
+    dense = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, occ_sigma_thresh=0.0, ert_eps=0.0))
+    render = renderer.make_frame_renderer(dense, scene.hwfcxy, scene.near, scene.far)
+    return [render(*args(i)) for i in range(n_frames)]
+
+
+def phase_serve_main_path():
+    """The shipped serving config at full width through the entry points,
+    on its tile-class branch: SERVE_FRAMES frames over three refreshes;
+    class sizes, flags, launches per steady frame (one render_rays per
+    non-empty segment), host syncs, a refresh and a steady frame against
+    the plain versions; frame and stage times; each segment's kernel."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.ops.fused_render import (
+        R_T, fused_render_rays_reference, prepare_render_operands, render_flops_per_sample,
+        render_rays_kernel,
+    )
+    from dfanerf_torch.render.renderer import CLASS_FIELDS
+
+    cfg = _serve_cfg()
+    rcfg = cfg.render
+    scene, args = _pair_scene(cfg, SERVE_SHIFT, SERVE_FRAMES, SERVE_HEAD_LATENT)
+    warm = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    warm(*args(0))
+    warm(*args(1))
+    torch.cuda.synchronize()
+
+    render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    kernels = {name: (render_rays_kernel, name) for name in CLASS_VARIANTS}
+    render_rays_kernel.launches, render_rays_kernel.variant_launches = 0, {}
+    refreshes, flag_runs = [], []
+
+    def on_refresh(i):
+        c = render.cache
+        refreshes.append((i, c["ks"], c["order"].clone(), flag_runs[-1]))
+
+    with _spy("conservative_occupancy", flag_runs):
+        frames, marks, syncs = _run_frames(
+            render, args, SERVE_FRAMES, kernels,
+            lambda c: c["order"] is not None and c["age"] < rcfg.occ_refresh_every, on_refresh)
+    launches = {name: render_rays_kernel.variant_launches.get(name, 0) for name in CLASS_VARIANTS}
+    T = (-(-H // 16)) ** 2
+    for i, ks, _, (_, _, occ) in refreshes:
+        sizes = _class_sizes(occ)
+        print(f"[serve tile classes] refresh at frame {i}: classes both / head / torso / none "
+              f"{sizes} of {T} tiles; segments (bucketed) {ks}; flag density head "
+              f"{float(occ[0].float().mean()):.3f}, torso {float(occ[1].float().mean()):.3f}",
+              flush=True)
+        if not (sizes[0] and (sizes[1] or sizes[2]) and sizes[3]):
+            _fail(f"serve tile classes at frame {i}: both, a single-field class and none must "
+                  f"be non-empty, got {sizes}")
+    s_ms, r_ms, window = _frame_times("serve tile classes", marks, rcfg.occ_refresh_every)
+    print(f"[serve tile classes] launches {launches}; host syncs in steady frames {syncs}",
+          flush=True)
+    if len(refreshes) != 3:
+        _fail(f"{len(refreshes)} refresh frames in {SERVE_FRAMES}, expected 3")
+    ks_of = {}
+    for i, ks, _, _ in refreshes:
+        for f in range(i, SERVE_FRAMES):
+            ks_of[f] = ks
+    for i, (st, _, got) in enumerate(marks):
+        want = {CLASS_VARIANTS[c]: 1 for c in range(3) if ks_of[i][c]}
+        if st and got != want:
+            _fail(f"serve tile classes steady frame {i} launched {got}, expected {want}")
+    if syncs:
+        _fail(f"{syncs} host synchronizations in the serve tile-class steady frames")
+    for i, (head, com) in enumerate(frames):
+        _check_frame(f"serve tile classes frame {i}", head, com)
+    for i, _, _, (occ_args, occ_kw, flags) in refreshes:
+        _check_flags(f"serve tile classes refresh frame {i}, flags vs widened float32",
+                     occ_args, occ_kw, flags)
+
+    # a refresh frame (0, a fresh renderer whose classes must equal the
+    # kernels') and a steady frame (the last, composed from the stages under
+    # the kernels' classes) through the plain versions
+    z_vals = linspace(scene.near, scene.far, rcfg.n_samples, device="cuda")
+    st, c = render.stages, render.cache
+    last = args(SERVE_FRAMES - 1)
+    with _plain_render_kernel():
+        plain = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+        head_r, com_r = plain(*args(0))
+        same = (plain.cache["ks"] == refreshes[0][1]
+                and torch.equal(plain.cache["order"], refreshes[0][2]))
+        if not same:
+            _fail("serve tile classes: the plain run's classes differ from the kernels'")
+        err = _check_pair("serve tile classes refresh frame 0, kernels vs plain", frames[0][0],
+                          frames[0][1], head_r, com_r, _far_sh(render, args(0), z_vals))
+        pw_h, pw_t, *_ = inputs = render.inputs_fn(*last)
+        rays = st["gather"](inputs)
+        outs = [st["segment"](pw_h, pw_t, rays, ci) for ci in range(3) if c["ks"][ci]]
+        head_r, com_r = (st["untile"](x) for x in st["finish"](pw_h, pw_t, rays, outs))
+        torch.cuda.synchronize()
+        err = max(err, _check_pair(f"serve tile classes steady frame {SERVE_FRAMES - 1}, kernels "
+                                   f"vs plain", frames[-1][0], frames[-1][1], head_r, com_r,
+                                   _far_sh(render, last, z_vals)))
+    noskip = _serve_noskip_frames(cfg, args, SERVE_FRAMES)
+    _noskip_errors("serve tile classes", frames, noskip)
+
+    # the stages on the last steady frame's operands, each timed alone
+    times = {}
+    inputs, times["prep"] = _timed(render.inputs_fn, *last)
+    pw_h, pw_t = inputs[:2]
+    rays, times["gather"] = _timed(st["gather"], inputs)
+    outs, edges = [], [0]
+    for k in c["ks"]:
+        edges.append(edges[-1] + k * R_T)
+    for ci in range(3):
+        if c["ks"][ci]:
+            out, times[f"segment {CLASS_FIELDS[ci]} ({c['ks'][ci]} tiles: kernel, epilogue)"] = (
+                _timed(st["segment"], pw_h, pw_t, rays, ci))
+            outs.append(out)
+    tiled, times["none tiles' epilogue + scatter"] = _timed(st["finish"], pw_h, pw_t, rays, outs)
+    _, times["untile"] = _timed(lambda: [st["untile"](x) for x in tiled])
+    saved = dict(c)  # a refresh on these operands would replace the classes
+    occ, times["flags (refresh frames)"] = _timed(st["flags"], inputs)
+    _, times["host split (refresh frames)"] = _timed(lambda: st["refresh"](occ.cpu().numpy()))
+    c.update(saved)
+    print(_stage_line(f"serve tile classes steady frame {SERVE_FRAMES - 1}", times), flush=True)
+
+    # each segment's kernel at the main path's shapes (the classes of the
+    # last refresh)
+    ks, entries = c["ks"], []
+    rays = st["gather"](render.inputs_fn(*last))
+    for ci, name in enumerate(CLASS_VARIANTS):
+        k = ks[ci]
+        if not k:
+            continue
+        seg = [x[edges[ci]:edges[ci] + k * R_T] for x in rays]
+        ops = prepare_render_operands(pw_h, pw_t, *seg[:4], z_vals, seg[4], rcfg.last_dist,
+                                      rcfg.ert_eps, c["occs"][ci], "relu", True, CLASS_FIELDS[ci])
+        got = render_rays_kernel(ops)
+        ms = _cuda_ms(lambda: render_rays_kernel(ops), 3)
+        ref, plain_ms = _cuda_call(lambda: fused_render_rays_reference(ops))
+        err_k = _check_epilogue(f"serve segment {CLASS_FIELDS[ci]}, {name} vs plain", got, ref,
+                                ops.occ)
+        n_pad, S = k * R_T, rcfg.n_samples
+        flops = float(got[2].sum()) * 8 * R_T * render_flops_per_sample(CLASS_FIELDS[ci])
+        weights = sum(t.numel() * t.element_size() for pw in (pw_h, pw_t)
+                      for key, t in pw.items() if key not in ("w_view", "b_view"))
+        n_bytes = (4 * n_pad * 3 * 4 + S * 4 + 2 * S * n_pad * 4 + 2 * n_pad * 256 * 2
+                   + n_pad * 3 * 4 + k * (S // 8) * 4 + weights + 2 * n_pad * 3 * 4
+                   + 2 * n_pad * 4 + k * 4)
+        print(f"[serve segment {CLASS_FIELDS[ci]}] {name}: {k} tiles, slabs run "
+              f"{int(got[2].sum())} of {k * (S // 8)}; {ms:.3f} ms per launch; plain "
+              f"{plain_ms:.1f} ms; {flops / 1e12:.3f} TFLOP at live widths -> "
+              f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak "
+              f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB; SM time per "
+              f"slab run {ms * 132 / max(int(got[2].sum()), 1):.3f} ms (132 SMs)", flush=True)
+        entries.append(_entry(name, "render_rays.cu", "dfanerf_tpu/ops/fused_render.py:167",
+                              launches[name], err_k, ms, plain_ms, flops, n_bytes))
+    print(f"[serve tile classes] frame-level error vs plain {err:.3e}", flush=True)
+    return entries, args, noskip, (s_ms, r_ms, window)
+
+
+def phase_serve_plain_main_path(args, noskip):
+    """The shipped serving config with tile compaction off (the plain
+    occupancy branch): SERVE_PLAIN_FRAMES frames over two refreshes, one
+    render_rays launch (epilogue mode, joint flags) per steady frame, no
+    host sync; a refresh and a steady frame against the plain versions."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.data.synthetic import make_synthetic_scene
+    from dfanerf_torch.ops.fused_render import render_rays_kernel
+
+    cfg = _serve_cfg(tile_compaction=False)
+    rcfg = cfg.render
+    scene = make_synthetic_scene(n_frames=1, H=H, W=W, seed=0)
+    warm = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    warm(*args(0))
+    warm(*args(1))
+    torch.cuda.synchronize()
+    render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    name = "render_rays_epilogue"
+    render_rays_kernel.launches, render_rays_kernel.variant_launches = 0, {}
+    frames, marks, syncs = _run_frames(
+        render, args, SERVE_PLAIN_FRAMES, {name: (render_rays_kernel, name)},
+        lambda c: c["occ"] is not None and c["age"] < rcfg.occ_refresh_every)
+    launches = render_rays_kernel.variant_launches.get(name, 0)
+    times = _frame_times("serve plain occupancy", marks, rcfg.occ_refresh_every)
+    print(f"[serve plain occupancy] launches {render_rays_kernel.variant_launches}; host syncs in "
+          f"steady frames {syncs}; joint flags {int(render.cache['occ'].amax(dim=0).sum())} of "
+          f"{render.cache['occ'][0].numel()} slabs", flush=True)
+    if sum(not st for st, _, _ in marks) != 2:
+        _fail(f"serve plain occupancy: expected 2 refresh frames in {SERVE_PLAIN_FRAMES}")
+    for i, (st, _, got) in enumerate(marks):
+        if st and got != {name: 1}:
+            _fail(f"serve plain occupancy steady frame {i} launched {got}")
+    if syncs:
+        _fail(f"{syncs} host synchronizations in the serve plain occupancy steady frames")
+    for i, (head, com) in enumerate(frames):
+        _check_frame(f"serve plain occupancy frame {i}", head, com)
+    z_vals = linspace(scene.near, scene.far, rcfg.n_samples, device="cuda")
+    last = args(SERVE_PLAIN_FRAMES - 1)
+    with _plain_render_kernel():
+        plain = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+        head_r, com_r = plain(*args(0))
+        err = _check_pair("serve plain occupancy refresh frame 0, kernels vs plain", frames[0][0],
+                          frames[0][1], head_r, com_r, _far_sh(render, args(0), z_vals))
+        head_r, com_r = render(*last)  # a steady frame: the age stays below the refresh
+        err = max(err, _check_pair(f"serve plain occupancy steady frame "
+                                   f"{SERVE_PLAIN_FRAMES - 1}, kernels vs plain", frames[-1][0],
+                                   frames[-1][1], head_r, com_r, _far_sh(render, last, z_vals)))
+    _noskip_errors("serve plain occupancy", frames, noskip)
+    print(f"[serve plain occupancy] frame-level error vs plain {err:.3e}", flush=True)
+    return launches, times
+
+
+def phase_serve_epilogue_kernel_form(args):
+    """The tile-class branch with its background epilogue in its kernel
+    form, bg_epilogue_fused (far_joint), as a caller who swaps it in gets:
+    the decoder is relu, so the quirk of bg_epilogue_fused (always relu)
+    changes nothing. SERVE_EPILOGUE_FRAMES frames; far_joint launches once
+    per epilogue (each rendered segment and the none tiles) in a steady
+    frame; frames against the shipped epilogue's; far_joint and its plain
+    version timed on the frame's 215,296 rays."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.data.synthetic import make_synthetic_scene
+    from dfanerf_torch.ops import composite
+    from dfanerf_torch.ops.far_eval import (
+        bg_epilogue_fused, far_eval_reference, far_joint_kernel,
+    )
+    from dfanerf_torch.ops.fused_render import field_flops_per_sample, view_bias
+    from dfanerf_torch.ops._build import weight_blobs
+
+    cfg = _serve_cfg()
+    rcfg = cfg.render
+    if cfg.decoder.density_activation != "relu":
+        _fail("the epilogue's kernel form always uses relu; the config's decoder does not")
+    scene = make_synthetic_scene(n_frames=1, H=H, W=W, seed=0)
+
+    def fused(*a, act="relu"):
+        return bg_epilogue_fused(*a)
+
+    real = composite._bg_epilogue
+    shipped = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    ref, ref_marks, _ = _run_frames(shipped, args, SERVE_EPILOGUE_FRAMES, {}, lambda c: False)
+    composite._bg_epilogue = fused
+    try:
+        with _patched(_bg_epilogue=fused):
+            warm = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+            warm(*args(0))
+            torch.cuda.synchronize()
+            render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+            far_joint_kernel.launches = 0
+            frames, marks, _ = _run_frames(
+                render, args, SERVE_EPILOGUE_FRAMES, {"far_joint": (far_joint_kernel, None)},
+                lambda c: False)
+    finally:
+        composite._bg_epilogue = real
+    launches = far_joint_kernel.launches
+    ks = render.cache["ks"]
+    want = sum(1 for k in ks if k) + (sum(ks) < (-(-H // 16)) ** 2)
+    print(f"[serve epilogue kernel form] {SERVE_EPILOGUE_FRAMES} frames, far_joint launches "
+          f"{launches} ({[got for _, _, got in marks]}; {want} epilogues per frame under the "
+          f"classes {ks}); {sum(ms for _, ms, _ in marks[1:]) / (len(marks) - 1):.2f} ms per "
+          f"frame after the first, against {sum(ms for _, ms, _ in ref_marks[1:]) / (len(marks) - 1):.2f} "
+          f"with the shipped epilogue", flush=True)
+    if any(got.get("far_joint", 0) != want for _, _, got in marks[1:]):
+        _fail("the epilogue's kernel form did not launch far_joint once per epilogue")
+    z_vals = linspace(scene.near, scene.far, rcfg.n_samples, device="cuda")
+    err = 0.0
+    for i in range(SERVE_EPILOGUE_FRAMES):
+        err = max(err, _check_pair(f"serve epilogue kernel form frame {i} vs the shipped epilogue",
+                                   frames[i][0], frames[i][1], ref[i][0], ref[i][1],
+                                   _far_sh(render, args(i), z_vals)))
+
+    pw_h, pw_t, ro, rd, ro_t, rd_t, _ = render.inputs_fn(*args(SERVE_EPILOGUE_FRAMES - 1))
+    n, far = ro.shape[0], float(z_vals[-1])
+    vr_t = view_bias(pw_t, rd_t).to(torch.bfloat16).contiguous()
+    got = far_joint_kernel(pw_h, pw_t, ro, rd, ro_t, rd_t, far, vr_t)
+    ms = _cuda_ms(lambda: far_joint_kernel(pw_h, pw_t, ro, rd, ro_t, rd_t, far, vr_t), 5)
+    ref_far, plain_ms = _cuda_call(lambda: far_eval_reference(pw_h, pw_t, ro, rd, ro_t, rd_t,
+                                                               far, vr_t))
+    err_k = max(*_check_far(f"serve far_joint vs plain, {n} rays", *got, *ref_far))
+    acc = [ro.new_zeros((n, 3)), ro.new_zeros((n, 3)), ro.new_ones((n, 1)), ro.new_ones((n, 1))]
+    epi = (pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals, ro.new_zeros((n, 3)), rcfg.last_dist, *acc)
+    epi_ms = _cuda_ms(lambda: real(*epi), 5)
+    fused_ms = _cuda_ms(lambda: bg_epilogue_fused(*epi), 5)
+    flops = n * (field_flops_per_sample("head", color=False)
+                 + field_flops_per_sample("torso", sigma=False))
+    n_bytes = (4 * n * 3 * 4 + n * 256 * 2 + n * 4 + n * 3 * 4
+               + sum(x.numel() * x.element_size() for x in weight_blobs(pw_h, "head"))
+               + sum(x.numel() * x.element_size() for x in weight_blobs(pw_t, "torso")))
+    print(f"[serve epilogue kernel form] far_joint: {n} rays, {ms:.3f} ms per launch; plain "
+          f"{plain_ms:.1f} ms; {flops / 1e12:.3f} TFLOP at live widths -> "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s "
+          f"achieved); {n_bytes / 1e6:.1f} MB. The whole-frame epilogue: _bg_epilogue (plain "
+          f"PyTorch) {epi_ms:.3f} ms, bg_epilogue_fused {fused_ms:.3f} ms; frame-level error "
+          f"{err:.3e}", flush=True)
+    return _entry("far_joint", "far_eval.cu", "dfanerf_tpu/ops/fused_render.py:1381", launches,
+                  err_k, ms, plain_ms, flops, n_bytes)
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return {"name": name, "route": "cuda", "source": f"dfanerf_torch/ops/csrc/{source}",
@@ -1488,10 +2033,27 @@ def main() -> int:
     phase_hier_kernels_vs_plain()
     hier_dense, noskip_frames = phase_hier_dense_main_path()
     hier_pairs = phase_hier_pair_main_path(noskip_frames[:N_FRAMES])
+    del noskip_frames
+    serve_errs = phase_serve_kernels_vs_plain()
+    serve, serve_args, serve_noskip, _ = phase_serve_main_path()
+    plain_launches, _ = phase_serve_plain_main_path(serve_args, serve_noskip)
+    del serve_noskip
+    far_joint = phase_serve_epilogue_kernel_form(serve_args)
+    for entry in serve:
+        # the largest error of the variant's checks: on the main path's
+        # segment and in the kernel checks
+        entry["max_abs_err"] = max(entry["max_abs_err"], serve_errs[entry["name"]])
+        if entry["name"] == "render_rays_epilogue":
+            entry["launches"] += plain_launches
+    far_joint["max_abs_err"] = max(far_joint["max_abs_err"], serve_errs["far_joint"])
+    missing = set(CLASS_VARIANTS) - {e["name"] for e in serve}
+    if missing:
+        _fail(f"the serving path ran no segment of {sorted(missing)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    print(json.dumps({"kernels": [kernel] + pair_kernels + hier_dense + hier_pairs}), flush=True)
+    print(json.dumps({"kernels": [kernel] + pair_kernels + hier_dense + hier_pairs + serve
+                      + [far_joint]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -170,12 +170,14 @@ def check_cuda_operands(name: str, operands: Dict[str, Tuple]) -> torch.device:
 class Binding:
     """ctypes binding of kernel library ``name``, built and loaded at its
     first use (never at import). ``launches`` counts the launches of the
-    kernel the subclass wraps: ``launch`` raises it where the kernel is
-    launched, and nothing else does."""
+    kernel the subclass wraps, and ``variant_launches`` those of each
+    template instantiation a launch names: ``launch`` raises them where the
+    kernel is launched, and nothing else does."""
 
     def __init__(self, name: str, launchers: Dict[str, Sequence]):
         self.name = name
         self.launches = 0
+        self.variant_launches: Dict[str, int] = {}
         self._launchers = launchers
         self._lib = None
         self._layout = None
@@ -202,11 +204,11 @@ class Binding:
                                  f"{size} on {dev}")
         return w, b
 
-    def launch(self, fn: str, dev: torch.device, *args) -> None:
+    def launch(self, fn: str, dev: torch.device, *args, variant: str = None) -> None:
         """Call the library's launch function ``fn`` on the current stream of
         ``dev``: tensors pass as their data pointers, other arguments as
         they are, the stream last. Raises on a nonzero cudaError; counts the
-        launch."""
+        launch, and under ``variant`` when one is named."""
         lib = self._load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -215,3 +217,5 @@ class Binding:
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch {fn} failed with cudaError {err}")
         self.launches += 1
+        if variant is not None:
+            self.variant_launches[variant] = self.variant_launches.get(variant, 0) + 1

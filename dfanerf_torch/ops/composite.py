@@ -1,20 +1,25 @@
-"""Compositing of the pair-compacted renders (port of
-dfanerf_tpu/ops/fused_render.py deferred_composite :1698, bg_blend :1663
-and deferred_composite_head :2369).
+"""Compositing of the pair-compacted renders and the background catch-all
+(port of dfanerf_tpu/ops/fused_render.py deferred_composite :1698, bg_blend
+:1663, _bg_epilogue :805 and deferred_composite_head :2369).
 
 ``deferred_composite`` marches the head-only and composite stacks over the
 per-sample buffers that ops/pair_field.py writes, with the same per-sample
 math as the dense kernel in its background-epilogue mode (the final sample
 is the caller's ``bg_blend``). Reads are masked with ``torch.where(flag, x,
 0)``, never a multiply: blocks of unlisted pairs are never written and may
-hold NaN. Both are plain PyTorch, as the reference leaves them to XLA.
+hold NaN. ``_bg_epilogue`` closes the render kernel's epilogue mode: both
+fields at the far plane, then ``bg_blend``. All are plain PyTorch, as the
+reference leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dfanerf_torch.ops.fused_render import R_T, S_SLAB
+from dfanerf_torch.ops.fused_render import (
+    R_T, S_SLAB, density_act, packed_field, view_bias,
+)
+from dfanerf_torch.ops.occupancy import packed_sigma_xla
 
 
 def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
@@ -125,6 +130,23 @@ def bg_blend(sh, ct, rays_d, rays_d_t, bc_rgb, last_dist, acc_head, acc_com, t_h
     alpha_c = 1.0 - torch.exp(-(ssum + 1e-6) * dt_l)
     com = acc_com + (alpha_c * t_com) * c_mix
     return head, com
+
+
+def _bg_epilogue(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t, z_vals, bc_rgb, last_dist,
+                 acc_head, acc_com, t_head, t_com, act: str = "relu"):
+    """The background catch-all of the render kernel's epilogue mode as a
+    per-ray pass (reference :805): the head's density sh [n, 1] (after the
+    density activation) and the torso's colour ct [n, 3] at each ray's far
+    point o + d * z_vals[-1], through the packed fields with the sin/cos
+    PE, then ``bg_blend`` on the kernel's accumulators [n, 3] and
+    transmittances [n, 1]. Products round to the packed weights' dtype with
+    float32 accumulation, as the reference's dots."""
+    far = z_vals[-1]
+    dtype = pw_h["w_blocks"].dtype
+    sh = density_act(packed_sigma_xla(pw_h, rays_o + rays_d * far, "head", dtype), act)[:, None]
+    vb_t = view_bias(pw_t, rays_d_t).to(torch.bfloat16)
+    ct, _ = packed_field(pw_t, rays_o_t + rays_d_t * far, vb_t, "torso", dtype=dtype)
+    return bg_blend(sh, ct, rays_d, rays_d_t, bc_rgb, last_dist, acc_head, acc_com, t_head, t_com)
 
 
 def deferred_composite_head(buf, occ: torch.Tensor, dists: torch.Tensor,

@@ -1,9 +1,10 @@
-// Far-plane field kernels for Hopper (sm_90a): the two halves of the
-// pair-compacted render's background catch-all.
+// Far-plane field kernels for Hopper (sm_90a): the background catch-all's
+// two field evaluations, as two kernels or one.
 //
 // Replaces: dfanerf_tpu/ops/fused_render.py _far_head_kernel and
 // _far_torso_kernel (the Pallas TPU kernels behind
-// fused_far_eval_split_prepped). Their plain PyTorch version is
+// fused_far_eval_split_prepped), and _far_kernel (behind fused_far_eval,
+// their joint form). The plain PyTorch version of all three is
 // dfanerf_torch/ops/far_eval.py far_eval_reference.
 //
 // What they compute, for every ray at its far-plane point o + d * far:
@@ -14,6 +15,8 @@
 // - far_torso: the torso field's colour only: deform net, trunk, w_sf
 //   columns 128:384 plus the view bias, then the 3 live columns of w_out
 //   and a sigmoid. The sigma column is not computed.
+// - far_joint: far_head then far_torso on the same 128 rays in one block,
+//   through the same device code, so it equals the two bit for bit.
 // Outputs are sh [n] and ct [n][3] in fp32; the TPU kernels' [n, 8]
 // broadcast outputs were a lane layout, not part of the function.
 //
@@ -36,12 +39,17 @@ constexpr int SMEM_BYTES = SM_OUT + M * 3 * 4;
 struct Params {
   const float *o, *d;         // [n][3]
   float far;
-  const bf16* vr;             // [n][256] torso view bias (far_torso only)
+  const bf16* vr;             // [n][256] torso view bias (far_torso, far_joint)
   const float *freq, *phase;  // [64]
-  const bf16* w;              // weight blob of the field
-  const float* b;             // bias blob of the field
-  float* out;                 // far_head: sh [n]; far_torso: ct [n][3]
+  const bf16* w;              // weight blob of the field (far_joint: the head's)
+  const float* b;             // bias blob of the field (far_joint: the head's)
+  float* out;                 // far_head, far_joint: sh [n]; far_torso: ct [n][3]
   int n, softplus;
+  // far_joint only: the torso's rays [n][3], blobs and colour ct [n][3]
+  const float *o_t, *d_t;
+  const bf16* w_t;
+  const float* b_t;
+  float* out_t;
 };
 
 __global__ void __launch_bounds__(NTHR, 1) far_head_kernel(const Params p) {
@@ -83,8 +91,36 @@ __global__ void __launch_bounds__(NTHR, 1) far_torso_kernel(const Params p) {
   }
 }
 
-int launch(bool torso, const Params& p, void* stream) {
-  const auto kernel = torso ? far_torso_kernel : far_head_kernel;
+__global__ void __launch_bounds__(NTHR, 1) far_joint_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* X = reinterpret_cast<bf16*>(smem + SM_X);
+  bf16* Y = reinterpret_cast<bf16*>(smem + SM_Y);
+  bf16* P = reinterpret_cast<bf16*>(smem + SM_P);
+  float* res = reinterpret_cast<float*>(smem + SM_OUT);  // sigma [M], then rgb [M][3]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ray0 = blockIdx.x * M;
+
+  encode<true>(P, p.o, p.d, p.far, p.freq, p.phase, ray0, tid, p.n);
+  __syncthreads();
+  bf16* spare;
+  const bf16* h = trunk<PEW>(X, Y, P, p.w, p.b, warp, lane, spare);
+  sigma_head<PEW>(h, p.w, p.b, p.softplus, res, warp, lane);
+  __syncthreads();
+  if (tid < M && ray0 + tid < p.n) p.out[ray0 + tid] = res[tid];
+
+  // the torso pass rewrites P, X, Y and res only after the barriers below
+  encode<true>(P, p.o_t, p.d_t, p.far, p.freq, p.phase, ray0, tid, p.n);
+  __syncthreads();
+  deform(X, Y, P, p.w_t, p.b_t, warp, lane);
+  h = trunk<DEF>(X, Y, P, p.w_t, p.b_t, warp, lane, spare);
+  color_head<DEF, true>(h, spare, p.w_t, p.b_t, p.vr, ray0, res, warp, lane, p.n);
+  __syncthreads();
+  for (int idx = tid; idx < M * 3; idx += NTHR) {
+    if (ray0 + idx / 3 < p.n) p.out_t[ray0 * 3 + idx] = res[idx];
+  }
+}
+
+int launch(void (*kernel)(const Params), const Params& p, void* stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -113,7 +149,7 @@ int far_eval_layout(int* sizes) {
 int far_eval_launch(int torso, const float* o, const float* d, float far, const void* vr,
                     const float* freq, const float* phase, const void* w, const float* b,
                     float* out, int n, int softplus, void* stream) {
-  Params p;
+  Params p = {};
   p.o = o;
   p.d = d;
   p.far = far;
@@ -125,7 +161,34 @@ int far_eval_launch(int torso, const float* o, const float* d, float far, const 
   p.out = out;
   p.n = n;
   p.softplus = softplus;
-  return launch(torso != 0, p, stream);
+  return launch(torso ? far_torso_kernel : far_head_kernel, p, stream);
+}
+
+// far_joint on `stream`: sh [n] of the head rays (o, d) and ct [n][3] of the
+// torso rays (o_t, d_t, torso view bias vr); returns the cudaError_t of the
+// launch.
+int far_joint_launch(const float* o, const float* d, const float* o_t, const float* d_t,
+                     float far, const void* vr, const float* freq, const float* phase,
+                     const void* w_h, const float* b_h, const void* w_t, const float* b_t,
+                     float* sh, float* ct, int n, int softplus, void* stream) {
+  Params p = {};
+  p.o = o;
+  p.d = d;
+  p.o_t = o_t;
+  p.d_t = d_t;
+  p.far = far;
+  p.vr = static_cast<const bf16*>(vr);
+  p.freq = freq;
+  p.phase = phase;
+  p.w = static_cast<const bf16*>(w_h);
+  p.b = b_h;
+  p.w_t = static_cast<const bf16*>(w_t);
+  p.b_t = b_t;
+  p.out = sh;
+  p.out_t = ct;
+  p.n = n;
+  p.softplus = softplus;
+  return launch(far_joint_kernel, p, stream);
 }
 
 }  // extern "C"

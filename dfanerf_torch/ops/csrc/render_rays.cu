@@ -1,8 +1,7 @@
 // Dense head+torso volume-render kernel for Hopper (sm_90a).
 //
 // Replaces: dfanerf_tpu/ops/fused_render.py _render_kernel (the Pallas TPU
-// kernel behind fused_render_rays), for fields="both" with the background
-// concat in the kernel. Its plain PyTorch version is
+// kernel behind fused_render_rays). Its plain PyTorch version is
 // dfanerf_torch/ops/fused_render.py fused_render_rays_reference.
 //
 // What it computes. For every ray of a 256-ray tile and every sample z of
@@ -13,10 +12,21 @@
 //          256 -> 384 output (sigma col 0, view feature cols 128:384);
 //   colour: sigmoid(W_out . relu(feature + view_bias)), only cols 0:3.
 // Then the head-only stack and the composite stack are composited in fp32,
-// sample by sample, with the reference's bg-concat rules at the final
-// sample. A slab is skipped when the tile's max transmittance over both
-// stacks is <= ert_eps (early ray termination) or its occupancy flag is 0;
-// the last slab always runs.
+// sample by sample. A slab is skipped when the tile's max transmittance over
+// both stacks is <= ert_eps (early ray termination) or its occupancy flag is
+// 0.
+//
+// Four instantiations of render_rays_kernel<EVAL_H, EVAL_T, BG_IN_KERNEL>,
+// as the TPU kernel's static eval_head / eval_torso / bg_in_kernel:
+// - <true, true, true>: both fields, the reference's bg-concat rules at the
+//   final sample, the last slab always run (fields="both");
+// - <true, true, false>, <true, false, false>, <false, true, false>: the
+//   epilogue mode of the occupancy serving paths (bg_epilogue=True): no
+//   sample gets the bg rules and the last slab is not forced (the caller's
+//   dists make the final sample a no-op), and the per-ray transmittances are
+//   written beside the sums for the caller's epilogue. A field left out
+//   (fields="head" or "torso", the per-field tile classes) runs no MLP and
+//   counts as sigma 0, rgb 0 in both stacks.
 //
 // What bounds it on the H100. About 2.4 MFLOP of matrix products per
 // (ray, sample) for the two fields at their live widths (2.5 at the
@@ -87,8 +97,10 @@ struct Params {
   int* slabs;                          // [T] slabs evaluated per tile
   int n_tiles, n_slabs, softplus;
   float ert_eps;
+  float *t_out_h, *t_out_c;            // [n_pad] transmittances (epilogue mode)
 };
 
+template <bool EVAL_H, bool EVAL_T, bool BG_IN_KERNEL>
 __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* X = reinterpret_cast<bf16*>(smem + SM_X);
@@ -122,7 +134,7 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
     const bool is_last = j == J - 1;
     __syncthreads();
     const float mx = block_max(fmaxf(t_head[tid], t_com[tid]), red);
-    const bool alive = (mx > p.ert_eps && p.occ[tile * J + j] != 0) || is_last;
+    const bool alive = (mx > p.ert_eps && p.occ[tile * J + j] != 0) || (BG_IN_KERNEL && is_last);
     __syncthreads();
     if (!alive) continue;
     ++n_run;
@@ -136,25 +148,29 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
       const float zs = p.z[sg];
 
       // head field
-      encode(P, p.o_h, p.d_h, zs, p.freq, p.phase, ray0, tid);
-      __syncthreads();
-      trunk_and_heads<PEW>(X, Y, P, p.w_h, p.b_h, p.vr_h, ray0, p.softplus, sig_h, rgb_h, warp,
-                           lane);
+      if constexpr (EVAL_H) {
+        encode(P, p.o_h, p.d_h, zs, p.freq, p.phase, ray0, tid);
+        __syncthreads();
+        trunk_and_heads<PEW>(X, Y, P, p.w_h, p.b_h, p.vr_h, ray0, p.softplus, sig_h, rgb_h, warp,
+                             lane);
+      }
 
       // torso field: deform, then the trunk on p' = deform + sig_pad + pe
-      encode(P, p.o_t, p.d_t, zs, p.freq, p.phase, ray0, tid);
-      __syncthreads();
-      deform(X, Y, P, p.w_t, p.b_t, warp, lane);
-      trunk_and_heads<DEF>(X, Y, P, p.w_t, p.b_t, p.vr_t, ray0, p.softplus, sig_t, rgb_t, warp,
-                           lane);
+      if constexpr (EVAL_T) {
+        encode(P, p.o_t, p.d_t, zs, p.freq, p.phase, ray0, tid);
+        __syncthreads();
+        deform(X, Y, P, p.w_t, p.b_t, warp, lane);
+        trunk_and_heads<DEF>(X, Y, P, p.w_t, p.b_t, p.vr_t, ray0, p.softplus, sig_t, rgb_t, warp,
+                             lane);
+      }
       __syncthreads();
 
       // composite sample s of rays r0 .. r0 + 128
       if (tid < M) {
         const int r = r0 + tid;
         const int gr = tile * RT + r;
-        const float lastf = (is_last && s == SS - 1) ? 1.f : 0.f;
-        const float sh = sig_h[tid], st = sig_t[tid];
+        const float lastf = (BG_IN_KERNEL && is_last && s == SS - 1) ? 1.f : 0.f;
+        const float sh = EVAL_H ? sig_h[tid] : 0.f, st = EVAL_T ? sig_t[tid] : 0.f;
         const float dh = p.dists_h[sg * n_pad + gr], dt = p.dists_t[sg * n_pad + gr];
         const float sh_head = sh + 1e-6f * lastf;
         const float st_com = st * (1.f - lastf) + 1e-6f * lastf;
@@ -165,8 +181,9 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
         const float alpha_c = 1.f - expf(-(ssum + 1e-6f) * dt);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          const float ch = rgb_h[tid * 3 + k] * (1.f - lastf) + p.bc[gr * 3 + k] * lastf;
-          const float ct = rgb_t[tid * 3 + k];
+          const float ch =
+              (EVAL_H ? rgb_h[tid * 3 + k] : 0.f) * (1.f - lastf) + p.bc[gr * 3 + k] * lastf;
+          const float ct = EVAL_T ? rgb_t[tid * 3 + k] : 0.f;
           acc_h[r * 3 + k] = acc_h[r * 3 + k] + (alpha_h * th) * ch;
           const float c_mix = (sh * ch + st_com * ct) / denom;
           acc_c[r * 3 + k] = acc_c[r * 3 + k] + (alpha_c * tc) * c_mix;
@@ -184,7 +201,21 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
     p.out_h[gr * 3 + k] = acc_h[tid * 3 + k];
     p.out_c[gr * 3 + k] = acc_c[tid * 3 + k];
   }
+  if constexpr (!BG_IN_KERNEL) {
+    p.t_out_h[gr] = t_head[tid];
+    p.t_out_c[gr] = t_com[tid];
+  }
   if (tid == 0) p.slabs[tile] = n_run;
+}
+
+template <bool EVAL_H, bool EVAL_T, bool BG_IN_KERNEL>
+int launch(const Params& p, void* stream) {
+  const auto kernel = render_rays_kernel<EVAL_H, EVAL_T, BG_IN_KERNEL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.n_tiles, NTHR, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -202,17 +233,18 @@ int render_rays_layout(int* sizes) {
   return 0;
 }
 
-// Launches the kernel on `stream`; returns the cudaError_t of the launch.
+// Launches the instantiation <eval_h, eval_t, bg_in_kernel> on `stream`;
+// returns the cudaError_t of the launch (cudaErrorInvalidValue for a
+// combination that is not instantiated). t_h and t_c [n_pad] take the
+// transmittances without bg_in_kernel and are not read with it.
 int render_rays_launch(const float* o_h, const float* d_h, const float* o_t, const float* d_t,
                        const float* z, const float* dists_h, const float* dists_t,
                        const void* vr_h, const void* vr_t, const float* bc, const float* freq,
                        const float* phase, const int* occ, const void* w_h, const float* b_h,
                        const void* w_t, const float* b_t, float* out_h, float* out_c,
-                       int* slabs, int n_tiles, int n_slabs, float ert_eps, int softplus,
+                       int* slabs, float* t_h, float* t_c, int n_tiles, int n_slabs,
+                       float ert_eps, int softplus, int eval_h, int eval_t, int bg_in_kernel,
                        void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      render_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
   p.o_h = o_h;
   p.d_h = d_h;
@@ -238,8 +270,18 @@ int render_rays_launch(const float* o_h, const float* d_h, const float* o_t, con
   p.n_slabs = n_slabs;
   p.softplus = softplus;
   p.ert_eps = ert_eps;
-  render_rays_kernel<<<n_tiles, NTHR, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.t_out_h = t_h;
+  p.t_out_c = t_c;
+  if (bg_in_kernel) {
+    if (eval_h && eval_t) return launch<true, true, true>(p, stream);
+  } else if (eval_h && eval_t) {
+    return launch<true, true, false>(p, stream);
+  } else if (eval_h) {
+    return launch<true, false, false>(p, stream);
+  } else if (eval_t) {
+    return launch<false, true, false>(p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

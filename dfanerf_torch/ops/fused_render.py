@@ -1,12 +1,15 @@
-"""Fused head+torso volume render (port of the dense path of
-dfanerf_tpu/ops/fused_render.py).
+"""Fused head+torso volume render (port of fused_render_rays and
+_render_kernel of dfanerf_tpu/ops/fused_render.py :167-346, :610-802).
 
 ``fused_render_rays`` renders n rays through both frame-folded fields
-(ops/pack.py) and composites the head-only and composite stacks in fp32,
-with the reference's background-concat rules at the final sample, early ray
-termination on the 256-ray tile's max transmittance (``ert_eps``) and
-per-(tile, slab) occupancy flags. Matrix inputs are bf16 with fp32
-accumulation; PE phases, densities, alphas and transmittances stay fp32.
+(ops/pack.py), or one of them (``fields``), and composites the head-only and
+composite stacks in fp32, with early ray termination on the 256-ray tile's
+max transmittance (``ert_eps``) and per-(tile, slab) occupancy flags. The
+background concat at the final sample runs in the kernel, or, with
+``bg_epilogue``, in a per-ray epilogue (``composite._bg_epilogue``) after a
+kernel that returns its accumulators and transmittances. Matrix inputs are
+bf16 with fp32 accumulation; PE phases, densities, alphas and transmittances
+stay fp32.
 
 Two implementations of one function, over the same prepared operands
 (``prepare_render_operands``):
@@ -19,11 +22,10 @@ Two implementations of one function, over the same prepared operands
   recurrences.
 
 ``fused_render_rays`` takes the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.
-
-Not ported yet (ROADMAP.md queue 2), each raising NotImplementedError in the
-wrapper: ``fields='head'|'torso'`` and ``bg_epilogue=True``. The occupancy
-flags are ops/occupancy.py's.
+for CUDA tensors it launches the kernel or raises. A single field with the
+background in the kernel (``fields != 'both'`` without ``bg_epilogue``), which
+no renderer runs, raises NotImplementedError. The occupancy flags are
+ops/occupancy.py's.
 """
 
 from __future__ import annotations
@@ -191,8 +193,8 @@ class RenderOperands:
     rays_o_t: torch.Tensor   # [n_pad, 3] f32, torso camera
     rays_d_t: torch.Tensor
     z_vals: torch.Tensor     # [S] f32
-    dists_h: torch.Tensor    # [S, n_pad] f32: diff(z) * |d| (last: last_dist * |d|)
-    dists_t: torch.Tensor
+    dists_h: torch.Tensor    # [S, n_pad] f32: diff(z) * |d| (last: last_dist * |d|, 0 in
+    dists_t: torch.Tensor    # epilogue mode)
     vr_h: torch.Tensor       # [n_pad, 256] bf16 view bias
     vr_t: torch.Tensor
     bc: torch.Tensor         # [n_pad, 3] f32 background pixel
@@ -201,6 +203,8 @@ class RenderOperands:
     packed_t: Dict[str, torch.Tensor]
     ert_eps: float
     act: str
+    bg_epilogue: bool = False  # the final sample is the caller's per-ray epilogue
+    fields: str = "both"       # "both", "head" or "torso": the fields evaluated
 
     @property
     def n_tiles(self) -> int:
@@ -211,17 +215,26 @@ class RenderOperands:
         return self.occ.shape[1]
 
 
+FIELDS = ("both", "head", "torso")
+
+
 def prepare_render_operands(
     packed_h, packed_t, rays_o, rays_d, rays_o_t, rays_d_t, z_vals, bc_rgb,
     last_dist: float = 1e10, ert_eps: float = 0.0,
     occupancy: Optional[torch.Tensor] = None, act: str = "relu",
+    bg_epilogue: bool = False, fields: str = "both",
 ) -> RenderOperands:
     """Pad the rays to whole tiles and build the per-ray operands: sample
-    distances, view biases (bf16) and the joint occupancy flags."""
+    distances, view biases (bf16) and the joint occupancy flags. With
+    ``bg_epilogue`` the last interval's distance is 0 (reference
+    ``dists_for`` :687), so the final sample in the kernel is an exact no-op:
+    alpha = 1 - exp(0) = 0."""
     n = rays_o.shape[0]
     S = z_vals.shape[0]
     if S % S_SLAB:
         raise ValueError(f"n_samples={S} must be a multiple of {S_SLAB}")
+    if fields not in FIELDS:
+        raise ValueError(f"fields must be one of {FIELDS}, got {fields!r}")
     n_slabs = S // S_SLAB
     n_tiles = -(-n // R_T)
     n_pad = n_tiles * R_T
@@ -235,7 +248,8 @@ def prepare_render_operands(
     rays_o_t, rays_d_t = padded(rays_o_t), padded(rays_d_t)
     bc = padded(bc_rgb)
     z = z_vals.to(device=dev, dtype=torch.float32)
-    diffs = torch.cat([z[1:] - z[:-1], z.new_tensor([last_dist])])
+    # new_full, not new_tensor: a host-to-device copy would synchronize the frame
+    diffs = torch.cat([z[1:] - z[:-1], z.new_full((1,), 0.0 if bg_epilogue else last_dist)])
 
     def dists_for(rd):
         return (diffs[None, :] * torch.linalg.norm(rd, dim=-1, keepdim=True)).t().contiguous()
@@ -257,7 +271,7 @@ def prepare_render_operands(
         vr_h=view_bias(packed_h, rays_d).to(torch.bfloat16).contiguous(),
         vr_t=view_bias(packed_t, rays_d_t).to(torch.bfloat16).contiguous(),
         bc=bc, occ=occ, packed_h=packed_h, packed_t=packed_t,
-        ert_eps=float(ert_eps), act=act,
+        ert_eps=float(ert_eps), act=act, bg_epilogue=bool(bg_epilogue), fields=fields,
     )
 
 
@@ -318,20 +332,32 @@ def _field_rows(pw, x_bf16, vr_rows, branch, act):
 
 
 @torch.no_grad()
-def fused_render_rays_reference(
-    ops: RenderOperands,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the CUDA kernel over the same operands.
 
-    Returns rgb_head [n_pad, 3], rgb_com [n_pad, 3] (fp32), the number of
-    slabs evaluated per tile [n_tiles] (int32) and the head density at the
-    final sample [n_pad] (fp32). That density conditions the composite's
-    last-sample blend (sh * bc + 1e-6 * ct) / (sh + 1e-6): where it is near
-    zero, a tiny change of it swings the pixel between background and torso
-    colour."""
+    With the background concat in the kernel, returns rgb_head [n_pad, 3],
+    rgb_com [n_pad, 3] (fp32), the number of slabs evaluated per tile
+    [n_tiles] (int32) and the head density at the final sample [n_pad]
+    (fp32). That density conditions the composite's last-sample blend (sh *
+    bc + 1e-6 * ct) / (sh + 1e-6): where it is near zero, a tiny change of it
+    swings the pixel between background and torso colour.
+
+    In epilogue mode (``ops.bg_epilogue``) the last slab is not forced and no
+    sample gets the background rules (reference :246-247, :306-308); returns
+    the accumulators acc_head, acc_com [n_pad, 3], the slab counts and the
+    transmittances t_head, t_com [n_pad] that the epilogue closes (the TPU
+    kernel packs these into lane 3 of its outputs, :341-346). A tile whose
+    flags are all zero runs no slab: acc 0, t 1, count 0.
+
+    A field left out by ``ops.fields`` contributes sigma 0 and rgb 0 to both
+    stacks, and the composite still runs on it (:291-294): its +1e-6 density
+    bump still decays the transmittance, and ERT still takes the max over
+    both stacks."""
     T, J = ops.n_tiles, ops.n_slabs
     dev = ops.rays_o.device
     freq, phase = _slot_tables(dev)
+    eval_h, eval_t = ops.fields in ("both", "head"), ops.fields in ("both", "torso")
+    bg_in_kernel = not ops.bg_epilogue
 
     def rep(r):  # [n_pad, 3] -> [T, R_T, 64]
         return pe_replicate(r).reshape(T, R_T, PE_PAD)
@@ -354,7 +380,7 @@ def fused_render_rays_reference(
         is_last = j == J - 1
         alive = ((torch.maximum(t_head.amax(dim=(1, 2)), t_com.amax(dim=(1, 2))) > ops.ert_eps)
                  & (ops.occ[:, j] != 0))
-        if is_last:
+        if is_last and bg_in_kernel:
             alive = torch.ones_like(alive)
         tiles = alive.nonzero()[:, 0]
         slabs[tiles] += 1
@@ -363,14 +389,17 @@ def fused_render_rays_reference(
             idx = tiles[start:start + _REF_TILES]
             c = idx.numel()
 
-            def field(o, d, vr, pw, branch):
+            def field(o, d, vr, pw, branch, on):
+                if not on:  # a left-out field: sigma 0, rgb 0
+                    return (torch.zeros((c, S_SLAB, R_T, 1), device=dev),
+                            torch.zeros((c, S_SLAB, R_T, 3), device=dev))
                 x = _encode(o[idx], d[idx], z, freq, phase).reshape(-1, PE_PAD)
                 vr_rows = vr[idx][:, None].expand(c, S_SLAB, R_T, 256).reshape(-1, 256)
                 sigma, rgb = _field_rows(pw, x, vr_rows, branch, ops.act)
                 return sigma.reshape(c, S_SLAB, R_T, 1), rgb.reshape(c, S_SLAB, R_T, 3)
 
-            sigma_h, rgb_h = field(o_h, d_h, vr_h, ops.packed_h, "head")
-            sigma_t, rgb_t = field(o_t, d_t, vr_t, ops.packed_t, "torso")
+            sigma_h, rgb_h = field(o_h, d_h, vr_h, ops.packed_h, "head", eval_h)
+            sigma_t, rgb_t = field(o_t, d_t, vr_t, ops.packed_t, "torso", eval_t)
             th, tc = t_head[idx], t_com[idx]
             ah, ac = acc_head[idx], acc_com[idx]
             bc_c = bc[idx]
@@ -379,7 +408,7 @@ def fused_render_rays_reference(
                 ch, ct = rgb_h[:, s], rgb_t[:, s]
                 dh_s = dists_h[j, s, idx][..., None]
                 dt_s = dists_t[j, s, idx][..., None]
-                lastf = 1.0 if (is_last and s == S_SLAB - 1) else 0.0
+                lastf = 1.0 if (bg_in_kernel and is_last and s == S_SLAB - 1) else 0.0
                 # bg-concat: the head colour at the last sample is the bg
                 # pixel; head stack +1e-6 on the last head density;
                 # composite stack: torso last density := 0, then +1e-6
@@ -401,6 +430,9 @@ def fused_render_rays_reference(
             acc_head[idx], acc_com[idx] = ah, ac
             if is_last:
                 sigma_last[idx] = sigma_h[:, S_SLAB - 1]
+    if ops.bg_epilogue:
+        return (acc_head.reshape(-1, 3), acc_com.reshape(-1, 3), slabs, t_head.reshape(-1),
+                t_com.reshape(-1))
     return acc_head.reshape(-1, 3), acc_com.reshape(-1, 3), slabs, sigma_last.reshape(-1)
 
 
@@ -409,17 +441,29 @@ def fused_render_rays_reference(
 # ---------------------------------------------------------------------------
 
 
+# The kernel's instantiations, by (fields, bg_epilogue): the name each one's
+# launches are counted under (RenderRaysKernel.variant_launches).
+RENDER_VARIANTS = {("both", False): "render_rays", ("both", True): "render_rays_epilogue",
+                   ("head", True): "render_rays_head", ("torso", True): "render_rays_torso"}
+
+
 class RenderRaysKernel(_build.Binding):
     """ctypes binding of csrc/render_rays.cu."""
 
     def __init__(self):
         ptr = ctypes.c_void_p
-        super().__init__("render_rays", {"render_rays_launch": [ptr] * 20 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ptr]})
+        super().__init__("render_rays", {"render_rays_launch": [ptr] * 22 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + [ptr]})
 
-    def __call__(self, ops: RenderOperands) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Launch on the current stream. Returns rgb_head [n_pad, 3],
-        rgb_com [n_pad, 3] and slabs evaluated per tile [n_tiles] (int32)."""
+    def __call__(self, ops: RenderOperands) -> Tuple[torch.Tensor, ...]:
+        """Launch the instantiation that ``ops.fields`` and ``ops.bg_epilogue``
+        select on the current stream. Returns rgb_head [n_pad, 3], rgb_com
+        [n_pad, 3] and slabs evaluated per tile [n_tiles] (int32); in
+        epilogue mode the accumulators, the slab counts and the
+        transmittances t_head, t_com [n_pad], as the plain version."""
+        variant = RENDER_VARIANTS.get((ops.fields, ops.bg_epilogue))
+        if variant is None:
+            raise ValueError("render_rays_kernel runs a single field only in epilogue mode")
         T, J = ops.n_tiles, ops.n_slabs
         n_pad = T * R_T
         dev = _build.check_cuda_operands("render_rays_kernel", {
@@ -441,10 +485,17 @@ class RenderRaysKernel(_build.Binding):
         out_h = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
         out_c = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
         slabs = torch.empty((T,), dtype=torch.int32, device=dev)
+        trans = (torch.empty((2, n_pad), dtype=torch.float32, device=dev) if ops.bg_epilogue
+                 else None)
         self.launch("render_rays_launch", dev, ops.rays_o, ops.rays_d, ops.rays_o_t, ops.rays_d_t,
                     ops.z_vals, ops.dists_h, ops.dists_t, ops.vr_h, ops.vr_t, ops.bc, freq, phase,
-                    ops.occ, w_h, b_h, w_t, b_t, out_h, out_c, slabs, T, J, ops.ert_eps,
-                    int(ops.act == "softplus"))
+                    ops.occ, w_h, b_h, w_t, b_t, out_h, out_c, slabs,
+                    *((trans[0], trans[1]) if ops.bg_epilogue else (None, None)), T, J,
+                    ops.ert_eps, int(ops.act == "softplus"), int(ops.fields in ("both", "head")),
+                    int(ops.fields in ("both", "torso")), int(not ops.bg_epilogue),
+                    variant=variant)
+        if ops.bg_epilogue:
+            return out_h, out_c, slabs, trans[0], trans[1]
         return out_h, out_c, slabs
 
 
@@ -472,29 +523,38 @@ def fused_render_rays(
     fields: str = "both",
     act: str = "relu",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Render n rays through both packed fields.
+    """Render n rays through the packed fields.
 
     rays_* [n, 3]; z_vals [S] shared by all rays; bc_rgb [n, 3] background
     pixels; occupancy [T, J] or per-field [2, T, J] flags (all ones when
-    None). Returns rgb_head [n, 3], rgb_com [n, 3] (fp32). CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
-    if bg_epilogue:
+    None; per-field flags are joined: a slab runs where either field is
+    occupied). ``bg_epilogue``: the background catch-all runs after the
+    kernel as ``composite._bg_epilogue`` on the unpadded rays (padding rays
+    have zero directions, whose view bias is NaN), so the last slab is not
+    forced. ``fields``: "head" or "torso" evaluate one field, the other
+    counting as sigma 0, rgb 0 in both stacks (epilogue mode only). Returns
+    rgb_head [n, 3], rgb_com [n, 3] (fp32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if fields != "both" and not bg_epilogue:
         raise NotImplementedError(
-            "bg_epilogue=True is not ported yet (ROADMAP.md queue 2, _render_kernel variants)")
-    if fields != "both":
-        raise NotImplementedError(
-            f"fields={fields!r} is not ported yet (ROADMAP.md queue 2, _render_kernel variants)")
+            f"fields={fields!r} with the background in the kernel is not ported (no renderer "
+            "runs it; ROADMAP.md queue 1, item 8)")
     n = rays_o.shape[0]
     dev = rays_o.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_render_rays runs on cpu or cuda tensors, got {dev}")
     ops = prepare_render_operands(packed_h, packed_t, rays_o, rays_d, rays_o_t, rays_d_t,
-                                  z_vals, bc_rgb, last_dist, ert_eps, occupancy, act)
-    if dev.type == "cuda":
-        head, com, _ = render_rays_kernel(ops)
-    else:
-        head, com, _, _ = fused_render_rays_reference(ops)
-    return head[:n], com[:n]
+                                  z_vals, bc_rgb, last_dist, ert_eps, occupancy, act, bg_epilogue,
+                                  fields)
+    out = render_rays_kernel(ops) if dev.type == "cuda" else fused_render_rays_reference(ops)
+    if not bg_epilogue:
+        return out[0][:n], out[1][:n]
+    from dfanerf_torch.ops.composite import _bg_epilogue  # composite imports this module
+
+    acc_h, acc_c, _, t_h, t_c = out
+    return _bg_epilogue(packed_h, packed_t, ops.rays_o[:n], ops.rays_d[:n], ops.rays_o_t[:n],
+                        ops.rays_d_t[:n], ops.z_vals, ops.bc[:n], last_dist, acc_h[:n], acc_c[:n],
+                        t_h[:n, None], t_c[:n, None], act=act)
 
 
 # Live widths of the default decoder, for the FLOP counts below.
@@ -530,7 +590,8 @@ def field_flops_per_sample(branch: str, sigma: bool = True, color: bool = True) 
     return 2 * macs
 
 
-def render_flops_per_sample() -> int:
-    """Both fields with both heads at one (ray, sample): the dense render
-    kernel's work (see field_flops_per_sample)."""
-    return field_flops_per_sample("head") + field_flops_per_sample("torso")
+def render_flops_per_sample(fields: str = "both") -> int:
+    """The render kernel's work at one (ray, sample) of a slab it runs: the
+    fields it evaluates, each with both heads (see field_flops_per_sample)."""
+    return sum(field_flops_per_sample(branch) for branch in ("head", "torso")
+               if fields in ("both", branch))

@@ -19,7 +19,7 @@ distance of ``sigma_thresh * 0.25`` can flip.
 
 The reference's knobs that its renderer never sets are constants here: 16x16
 tiles (``TILE``, the layout of ``spatial_tile_permutation``), 2 fine nodes per
-grid step (``SUPERSAMPLE``) and bf16 trunk products.
+grid step (``SUPERSAMPLE``) and bf16 trunk products for the grid.
 """
 
 from __future__ import annotations
@@ -38,13 +38,15 @@ from dfanerf_torch.ops.fused_render import (
 SUPERSAMPLE = 2  # fine density nodes per grid step along each axis
 
 
-def packed_sigma_xla(pw: Dict[str, torch.Tensor], pts: torch.Tensor, branch: str) -> torch.Tensor:
+def packed_sigma_xla(pw: Dict[str, torch.Tensor], pts: torch.Tensor, branch: str,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Density-only packed forward (reference :374): pts [N, 3] -> [N] raw
     sigma (before the density activation). Matrix inputs are rounded to
-    bf16 with float32 accumulation, as the reference's dots."""
+    ``dtype`` (the grid's bf16; the background epilogue's follows the packed
+    weights) with float32 accumulation, as the reference's dots."""
     pe = sincos_posenc(pts.float(), 10, 2.0)
     pe = torch.cat([pe, pe.new_zeros((pe.shape[0], PE_PAD - pe.shape[1]))], dim=-1)
-    mm = _mm_cast(torch.bfloat16)
+    mm = _mm_cast(dtype)
     x = _deform(pw, pe, mm) if branch == "torso" else pe
     return _trunk(sigma_only(pw), x, mm)[:, 0]
 

@@ -9,9 +9,18 @@ pose_torso, signal, signal_torso, bc_img) -> (rgb_head, rgb_com), each
 
 - dense (``occ_sigma_thresh == 0``): ``fused_render_rays`` renders every
   (tile, slab) of both fields and the renderer untiles;
-- pair-compacted (``occ_sigma_thresh > 0`` with ``occ_pair_compaction``,
-  the serving path): each field is evaluated only on its occupied (tile,
-  slab) pairs (``pair_field_eval``), the far plane once per ray
+- occupancy (``occ_sigma_thresh > 0``, no pair compaction): per-field flags
+  from ``conservative_occupancy``, rebuilt every ``occ_refresh_every``
+  frames, skip the empty slabs of ``fused_render_rays`` in its epilogue mode
+  (the background catch-all per ray, ``_bg_epilogue``). Without
+  ``occ_tile_compaction`` one call covers every tile under the joint flags
+  (``_make_occupancy_renderer``); with it, the shipped serving
+  configuration (configs/obama_serve_tpu.json), the tiles are split into
+  per-field classes, each rendered by its kernel variant
+  (``_make_tile_class_renderer``, ``tile_classes``);
+- pair-compacted (``occ_sigma_thresh > 0`` with ``occ_pair_compaction``):
+  each field is evaluated only on its occupied (tile, slab) pairs
+  (``pair_field_eval``), the far plane once per ray
   (``fused_far_eval_split``), and ``deferred_composite`` + ``bg_blend``
   composite the union-occupied tiles and the background catch-all. Flags
   are rebuilt every ``occ_refresh_every`` frames (see
@@ -21,9 +30,8 @@ Kernels run on a CUDA device, their plain versions on the CPU. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA a
 call with no device raises. Not ported yet, each raising
 NotImplementedError: the unfused ``render_ray_batch`` path
-(``use_fused_kernel=False``), the occupancy paths without pair compaction
-(tile classes, tile compaction) and the pair path's further levers (listed
-in ``_refuse_unported``).
+(``use_fused_kernel=False``) and the pair path's further levers (listed in
+``_refuse_unported``).
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ from dfanerf_torch.core.compositing import calc_volume_weights
 from dfanerf_torch.core.rays import get_rays, linspace
 from dfanerf_torch.core.sampling import hierarchical_z_vals
 from dfanerf_torch.device import resolve_device
-from dfanerf_torch.ops.composite import bg_blend, deferred_composite, deferred_composite_head
+from dfanerf_torch.ops.composite import (
+    _bg_epilogue, bg_blend, deferred_composite, deferred_composite_head,
+)
 from dfanerf_torch.ops.far_eval import fused_far_eval_split
 from dfanerf_torch.ops.fused_render import (
     R_T, S_SLAB, fused_render_rays, spatial_tile_permutation, spatial_untile,
@@ -53,8 +63,10 @@ from dfanerf_torch.train.signals import encode_signal, encode_signal_torso
 
 
 def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, device=None):
-    """Build the fused frame renderer on ``device`` (default CUDA): dense,
-    or pair-compacted when ``occ_sigma_thresh > 0``."""
+    """Build the fused frame renderer on ``device`` (default CUDA): dense;
+    with ``occ_sigma_thresh > 0`` the occupancy path, its per-field tile
+    classes (``occ_tile_compaction``) or the pair-compacted path
+    (``occ_pair_compaction``), dispatched as the reference does (:184-205)."""
     dev = resolve_device(device)
     H, W, focal, cx, cy = hwfcxy
     H, W = int(H), int(W)
@@ -63,13 +75,9 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         raise NotImplementedError(
             "use_fused_kernel=False (the render_ray_batch path) is not ported yet "
             "(ROADMAP.md queue 1, items 4 and 8)")
-    if rcfg.occ_sigma_thresh > 0 and not rcfg.occ_pair_compaction:
-        raise NotImplementedError(
-            "occ_sigma_thresh > 0 without occ_pair_compaction (the occupancy, tile-class and "
-            "tile-compaction paths) is not ported yet (ROADMAP.md queue 1, item 8; queue 2)")
     if not rcfg.concate_bg or rcfg.n_samples % S_SLAB:
         raise ValueError("the fused renderer needs concate_bg and n_samples % 8 == 0")
-    if rcfg.occ_sigma_thresh > 0:
+    if rcfg.occ_sigma_thresh > 0 and rcfg.occ_pair_compaction:
         _refuse_unported(rcfg)
 
     act = dcfg.density_activation
@@ -109,8 +117,13 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         return pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p
 
     if rcfg.occ_sigma_thresh > 0:
-        return _make_pair_compaction_renderer(
-            rcfg, act, len(perm) // R_T, z_vals_c, float(np.float32(far)), frame_inputs, untile)
+        T = len(perm) // R_T
+        if rcfg.occ_pair_compaction:
+            return _make_pair_compaction_renderer(
+                rcfg, act, T, z_vals_c, float(np.float32(far)), frame_inputs, untile)
+        if rcfg.occ_tile_compaction:
+            return _make_tile_class_renderer(rcfg, act, T, z_vals_c, frame_inputs, untile)
+        return _make_occupancy_renderer(rcfg, act, z_vals_c, frame_inputs, untile)
 
     @torch.no_grad()
     def render_frame(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
@@ -312,6 +325,192 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     render.run_fast = run_fast
     render.refresh_union = refresh_union
     render.precompile_headroom = precompile_headroom
+    return render
+
+
+def _make_occupancy_renderer(rcfg: RenderConfig, act: str, z_vals_c, frame_inputs, untile):
+    """The occupancy serving path without tile classes (reference
+    :205-249): per-field flags from ``conservative_occupancy`` on the first
+    frame and then every ``occ_refresh_every`` frames, kept on the device;
+    each frame one ``fused_render_rays`` in epilogue mode over every tile
+    under the joint flags. Nothing is copied to the host. ``render.cache``
+    holds ``occ`` ([2, T, J] int32) and ``age``."""
+    cache = {"occ": None, "age": 0}
+
+    @torch.no_grad()
+    def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+        pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = frame_inputs(
+            params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img)
+        if cache["occ"] is None or cache["age"] >= max(rcfg.occ_refresh_every, 1):
+            cache["occ"] = conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
+                                                  rcfg.occ_sigma_thresh,
+                                                  grid_res=rcfg.occ_grid_res, act=act)
+            cache["age"] = 0
+        cache["age"] += 1
+        head, com = fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc_p,
+                                      last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps,
+                                      occupancy=cache["occ"], bg_epilogue=True, act=act)
+        return untile(head), untile(com)
+
+    render.cache = cache
+    render.inputs_fn = frame_inputs
+    return render
+
+
+BUCKETS = (0, 64, 128, 256, 384, 512, 768)  # segment sizes in tiles, below T (reference :354)
+CLASS_FIELDS = ("both", "head", "torso")     # the kernel variant of each rendered class
+
+
+def tile_classes(occ_np: np.ndarray):
+    """The per-field tile classes of host flags [2, T, J] (reference
+    refresh_flags :362-428, exactly). Tiles with head and torso flags form
+    the "both" segment, head-only and torso-only tiles the "head" and
+    "torso" segments, the rest "none". Each segment is padded to the next
+    rung of ``BUCKETS`` + [T]: "both" borrows tiles from the head, torso and
+    none pools in that order, each by ``pop()`` (from its end), and keeps
+    their joint flags, so the two-field kernel also evaluates a borrowed
+    tile's other field wherever its joint flags are set; "head" and "torso"
+    borrow from the none pool with zero flags (they run no slab). The
+    padding decides pixels, so it is kept.
+
+    Returns (order [T] int64: the segments' tiles in order, "none" last;
+    ks = (k_both, k_head, k_torso) tile counts; occs: the [k, J] int32 flags
+    each segment's kernel runs under, joint for "both", the field's own for
+    "head" and "torso", None where k is 0)."""
+    occ_np = np.asarray(occ_np, dtype=np.int32)
+    T, J = occ_np.shape[1:]
+    rungs = [k for k in BUCKETS if k < T] + [T]
+
+    def bucket(n):
+        return next(k for k in rungs if k >= n)
+
+    th = occ_np[0].max(axis=1) > 0
+    tt = occ_np[1].max(axis=1) > 0
+    seg_b = list(np.nonzero(th & tt)[0])
+    pool = [list(np.nonzero(th & ~tt)[0]), list(np.nonzero(tt & ~th)[0]),
+            list(np.nonzero(~th & ~tt)[0])]
+    kb = bucket(len(seg_b))
+    borrowed = []
+    for p in pool:
+        while len(seg_b) + len(borrowed) < kb and p:
+            borrowed.append(p.pop())
+    seg_h, seg_t, none = pool
+
+    def pad_from_none(seg):
+        pad = []
+        while len(seg) + len(pad) < bucket(len(seg)) and none:
+            pad.append(none.pop())
+        return pad
+
+    pad_h = pad_from_none(seg_h)
+    pad_t = pad_from_none(seg_t)
+
+    def flags(main, n_pad, fl):
+        f = np.zeros((len(main) + n_pad, J), np.int32)
+        f[:len(main)] = fl[np.array(main, np.int64)]
+        return f
+
+    segs = (seg_b + borrowed, seg_h + pad_h, seg_t + pad_t)
+    occs = (flags(segs[0], 0, occ_np.max(axis=0)), flags(seg_h, len(pad_h), occ_np[0]),
+            flags(seg_t, len(pad_t), occ_np[1]))
+    order = np.array(segs[0] + segs[1] + segs[2] + none, np.int64)
+    ks = tuple(len(seg) for seg in segs)
+    return order, ks, tuple(o if k else None for o, k in zip(occs, ks))
+
+
+def _make_tile_class_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, frame_inputs,
+                              untile):
+    """The occupancy serving path with per-field tile classes (reference
+    :251-457; ``occ_tile_compaction``, the shipped serving configuration).
+
+    A refresh frame (the first, then every ``occ_refresh_every``-th) copies
+    the per-field flags [2, T, J] to the host (~54 KB at 450x450, 64
+    samples) and splits the tiles into classes (``tile_classes``). Every
+    frame gathers the rays in class order, runs ``fused_render_rays`` in
+    epilogue mode once per non-empty segment with its variant ("both",
+    "head", "torso") and flags, closes the "none" tiles with the background
+    epilogue alone (accumulators 0, transmittances 1), scatters the tiles
+    back and untiles. A steady frame makes no host sync: the segment sizes
+    are host ints of the last refresh and the gathers index with device
+    tensors. (The reference runs the gather, each kernel and the epilogue
+    with the scatter as separate programs to avoid a fault of its TPU
+    runtime; one program of PyTorch calls needs no such split.)
+
+    ``render.cache`` holds ``order`` (int64 device tensor), ``ks``, ``occs``
+    (int32 device tensors or None) and ``age`` with the reference's
+    meanings; ``render.inputs_fn`` is the frame-input builder;
+    ``render.stages`` the stage functions (``flags``, ``refresh``,
+    ``gather``, ``segment``, ``finish``, ``untile``) whose composition is a
+    frame."""
+    dev = z_vals_c.device
+    cache = {"order": None, "ks": None, "occs": None, "age": 0}
+
+    def flags(inputs):
+        pw_h, pw_t, ro, rd, ro_t, rd_t, _ = inputs
+        return conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
+                                      rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res, act=act)
+
+    def refresh(occ_np):
+        """The classes of host flags [2, T, J] into the cache."""
+        order, ks, occs = tile_classes(occ_np)
+        cache.update(order=torch.from_numpy(order).to(dev), ks=ks, age=0,
+                     occs=tuple(None if o is None else torch.from_numpy(o).to(dev) for o in occs))
+
+    def gather(inputs):
+        """Rays and background pixels (ro, rd, ro_t, rd_t, bc) in class
+        order, each [T * 256, 3]: segment c is a contiguous run of tiles."""
+        sel = cache["order"]
+        return [x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
+                for x in inputs[2:]]
+
+    def bounds():
+        """(first ray, end ray) of the segments both, head, torso, none."""
+        edges = np.cumsum((0,) + tuple(cache["ks"]) + (T - sum(cache["ks"]),)) * R_T
+        return list(zip(edges[:-1].tolist(), edges[1:].tolist()))
+
+    def segment(pw_h, pw_t, rays, c):
+        """Class c's kernel on its rays: (head, com) [k * 256, 3]."""
+        (a, b), occ = bounds()[c], cache["occs"][c]
+        ro, rd, ro_t, rd_t, bc = (x[a:b] for x in rays)
+        return fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc,
+                                 last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps, occupancy=occ,
+                                 bg_epilogue=True, fields=CLASS_FIELDS[c], act=act)
+
+    def finish(pw_h, pw_t, rays, outs):
+        """The none tiles' epilogue and the scatter back to tile order: outs
+        are the rendered segments' (head, com) in order; returns (head, com)
+        [T * 256, 3] in tile order."""
+        a, b = bounds()[3]
+        if b > a:
+            ro, rd, ro_t, rd_t, bc = (x[a:b] for x in rays)
+            zeros, ones = ro.new_zeros((b - a, 3)), ro.new_ones((b - a, 1))
+            outs = outs + [_bg_epilogue(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc,
+                                        rcfg.last_dist, zeros, zeros, ones, ones, act=act)]
+        order = cache["order"]
+
+        def scatter(parts):
+            v = torch.cat(parts).reshape(T, R_T, 3)
+            return torch.empty_like(v).index_copy_(0, order, v).reshape(-1, 3)
+
+        return scatter([h for h, _ in outs]), scatter([c for _, c in outs])
+
+    @torch.no_grad()
+    def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+        inputs = frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
+                              bc_img)
+        if cache["order"] is None or cache["age"] >= max(rcfg.occ_refresh_every, 1):
+            refresh(flags(inputs).cpu().numpy())  # the host sync of a refresh frame
+        cache["age"] += 1
+        pw_h, pw_t = inputs[:2]
+        rays = gather(inputs)
+        outs = [segment(pw_h, pw_t, rays, c) for c in range(3) if cache["ks"][c]]
+        head, com = finish(pw_h, pw_t, rays, outs)
+        return untile(head), untile(com)
+
+    render.cache = cache
+    render.inputs_fn = frame_inputs
+    render.stages = {"flags": flags, "refresh": refresh, "gather": gather, "segment": segment,
+                     "finish": finish, "untile": untile}
     return render
 
 

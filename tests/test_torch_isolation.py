@@ -97,8 +97,13 @@ def test_kernel_wrapper_refuses_what_it_cannot_serve():
     meta = [r.to("meta") for r in rays]
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_render_rays(pw, pw, *meta, z, torch.zeros(8, 3, device="meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_render_rays(pw, pw, *rays, z, torch.zeros(8, 3), bg_epilogue=True)
+    # the epilogue-mode and single-field variants take CUDA tensors only too
+    for fields in ("both", "head", "torso"):
+        ops = prepare_render_operands(pw, pw, *rays, z, torch.zeros(8, 3), bg_epilogue=True,
+                                      fields=fields)
+        with pytest.raises(ValueError, match="CUDA"):
+            render_rays_kernel(ops)
+    assert render_rays_kernel.launches == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_render_rays(pw, pw, *rays, z, torch.zeros(8, 3), fields="head")
 

@@ -101,7 +101,7 @@ def test_unported_levers_raise():
     levers = [{"occ_prune_budget": 1e-3}, {"occ_budget_color": True}, {"occ_budget_iters": 2},
               {"occ_prune_carry": 1}, {"occ_prune_hist_decay": 0.8}, {"occ_live_keys": True},
               {"occ_async_refresh": True}, {"far_skip_tol": 1e-3}, {"far_subsample": 2},
-              {"occ_pack2": True}, {"occ_pair_compaction": False}]
+              {"occ_pack2": True}, {"use_fused_kernel": False}]
     for kw in levers:
         cfg = dataclasses.replace(base, render=dataclasses.replace(base.render, **kw))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
