@@ -25,25 +25,40 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (pair_field 2, far_head 1, far_torso 1); time the frames and each stage;
 6. the pair path after a contribution prune that drops tiles from the union
    and every pair of one field: a steady frame against the plain versions;
-7. hold the hierarchical head render's kernels (sigma_head, render_head,
+7. hold pair_field at 4 samples per slab and pair2_field (two half-slab
+   pairs per block, occ_pack2) against their plain versions at a 450x450
+   frame's rays and 64 samples (head and torso, relu and softplus, a list
+   with gaps and an odd K, K = 1, K = 0), and pair2's A and B outputs
+   against pair_field's on the A and B lists bit for bit;
+8. drive the pair path with occ_pack2 (the recipe, scene and weights of 5)
+   for 16 frames across two refreshes: flags [2, 841, 16] against widened
+   float32 ones, the A/B flag partitions, launches per frame (steady:
+   pair2_field 2, far_head 1, far_torso 1; refresh: pair_field at sp=4 2),
+   no host sync in a steady frame, a refresh and a steady frame against the
+   plain versions; frame times beside 5's, listed samples, the error of
+   both paths against the dense no-skip frames; each kernel's time;
+9. refresh_union with occ_pack2 over a window of 4 frames: the pinned union,
+   then per-frame slots (render(..., window_slot=i)), with prep seconds, ms
+   per frame and every slot frame against the plain versions;
+10. hold the hierarchical head render's kernels (sigma_head, render_head,
    pair_sigma, pair_field_perz) against their plain versions at a 450x450
    frame's rays and 64 + 128 samples, with ERT slab counts, exact zeros in
    clear slabs, pair lists with gaps and empty ones; cross-check the pair
    kernels with every pair listed against the dense kernels;
-8. drive the hierarchical render (BASELINE config 2) through
+11. drive the hierarchical render (BASELINE config 2) through
    encode_frame_signals and make_head_hierarchical_renderer: no-skip for 5
    frames (sigma_head and render_head once per frame), then the
    pair-compacted serving recipe for 12 frames across three refreshes
    (pair_sigma and pair_field_perz once per steady frame, no host sync);
    check the frames, the flags and lists, a frame of each kind against the
    plain versions; time the frames, each stage and each kernel;
-9. hold the four render_rays instantiations (both fields with the
+12. hold the four render_rays instantiations (both fields with the
    background in the kernel; the epilogue mode with both fields, the head
    only, the torso only) and far_joint against their plain versions at a
    450x450 frame's rays and 64 samples (flags with gaps, tiles without a
    flag, a saturating field for ERT), far_joint also against far_head +
    far_torso bit for bit;
-10. drive the shipped serving config (configs/obama_serve_tpu.json) through
+13. drive the shipped serving config (configs/obama_serve_tpu.json) through
    encode_frame_signals and make_frame_renderer: its tile-class branch for
    12 frames across three refreshes (one render_rays per non-empty class
    segment in a steady frame, no host sync), then its plain occupancy branch
@@ -51,10 +66,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    check the classes, the flags, a refresh and a steady frame of each branch
    against the plain versions; print each branch's error against the dense
    no-skip frames; time the frames, each stage and each segment's kernel;
-11. the tile-class branch with its epilogue in its kernel form
+14. the tile-class branch with its epilogue in its kernel form
    (bg_epilogue_fused, one far_joint per epilogue) against the shipped
    epilogue; far_joint's times;
-12. print the card's name and power limit, then one JSON line listing every
+15. print the card's name and power limit, then one JSON line listing every
    ported kernel with its launches, error and times, and last a JSON status
    line.
 
@@ -127,6 +142,16 @@ def _fail(msg: str) -> None:
 def _errors(a, b):
     d = (a - b).abs()
     return float(d.max()), float(d.mean())
+
+
+def _pair_bytes(k_u, K, sp, weights):
+    """Bytes a pair kernel must move over K listed pairs of k_u gathered
+    tiles (256 rays each) at sp samples per slab: the rays and view bias,
+    the depths, the pair list, the weight and bias blobs, and the listed
+    blocks of the four output buffers."""
+    w, b = weights
+    return (2 * k_u * 256 * 3 * 4 + k_u * 256 * 256 * 2 + N_SAMPLES * 4 + 2 * K * 4
+            + w.numel() * 2 + b.numel() * 4 + K * sp * 256 * (4 + 3 * 2))
 
 
 def _check_pair(tag, head, com, head_ref, com_ref, sh_last):
@@ -368,11 +393,11 @@ def _bf16_ulps(got, ref):
     return (got.float() - ref.float()).abs() / step
 
 
-def _listed_mask(J, n_tiles, t_idx, j_idx, device):
-    """[J, 8, (n_tiles + 1) * 256] bool: the buffer blocks the pairs list."""
-    m = torch.zeros((J, 8, n_tiles + 1, 256), dtype=torch.bool, device=device)
+def _listed_mask(J, n_tiles, t_idx, j_idx, device, sp=8):
+    """[J, sp, (n_tiles + 1) * 256] bool: the buffer blocks the pairs list."""
+    m = torch.zeros((J, sp, n_tiles + 1, 256), dtype=torch.bool, device=device)
     m[j_idx.long(), :, t_idx.long(), :] = True
-    return m.reshape(J, 8, -1)
+    return m.reshape(J, sp, -1)
 
 
 def _check_buffers(tag, got, ref, listed):
@@ -578,13 +603,22 @@ def _plain_pair_path(captured):
     import dfanerf_torch.render.renderer as renderer
     from dfanerf_torch.ops.far_eval import far_head_reference, far_torso_reference
     from dfanerf_torch.ops.fused_render import view_bias
-    from dfanerf_torch.ops.pair_field import pair_field_eval_prepped, pair_field_eval_reference
+    from dfanerf_torch.ops.pair_field import (
+        pair2_field_eval_prepped, pair2_field_eval_reference, pair_field_eval_prepped,
+        pair_field_eval_reference,
+    )
 
-    def plain_pair(pw, branch, o, d, z, t_idx, j_idx, act):
+    def plain_pair(pw, branch, o, d, z, t_idx, j_idx, act, s_slab=None):
         vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
         if t_idx.numel() == 0:
-            return pair_field_eval_prepped(pw, branch, o, d, vr, z, t_idx, j_idx, act)
-        return pair_field_eval_reference(pw, branch, o, d, vr, z, t_idx, j_idx, act)
+            return pair_field_eval_prepped(pw, branch, o, d, vr, z, t_idx, j_idx, act, s_slab)
+        return pair_field_eval_reference(pw, branch, o, d, vr, z, t_idx, j_idx, act, s_slab)
+
+    def plain_pair2(pw, branch, o, d, z, ta, ja, tb, jb, act, s_slab=4):
+        vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
+        if ta.numel() == 0:
+            return pair2_field_eval_prepped(pw, branch, o, d, vr, z, ta, ja, tb, jb, act, s_slab)
+        return pair2_field_eval_reference(pw, branch, o, d, vr, z, ta, ja, tb, jb, act, s_slab)
 
     def plain_far(pw_h, pw_t, o, d, o_t, d_t, far, act):
         vr_t = view_bias(pw_t, d_t).to(torch.bfloat16).contiguous()
@@ -592,12 +626,15 @@ def _plain_pair_path(captured):
         captured["sh"] = renderer.spatial_untile(sh, H, W)[..., 0]
         return sh, far_torso_reference(pw_t, o_t, d_t, far, vr_t, act)
 
-    real = renderer.pair_field_eval, renderer.fused_far_eval_split
-    renderer.pair_field_eval, renderer.fused_far_eval_split = plain_pair, plain_far
+    names = ("pair_field_eval", "pair2_field_eval", "fused_far_eval_split")
+    real = {name: getattr(renderer, name) for name in names}
+    for name, fn in zip(names, (plain_pair, plain_pair2, plain_far)):
+        setattr(renderer, name, fn)
     try:
         yield
     finally:
-        renderer.pair_field_eval, renderer.fused_far_eval_split = real
+        for name, fn in real.items():
+            setattr(renderer, name, fn)
 
 
 def _check_flags(tag, occ_args, occ_kw, flags):
@@ -611,7 +648,8 @@ def _check_flags(tag, occ_args, occ_kw, flags):
         _fail("TF32 float32 products are on: the widened flags need exact float32 products")
     pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals, sigma_thresh = occ_args
     grid_res, act = occ_kw["grid_res"], occ_kw["act"]
-    lo, span, boxes = occupancy.occupancy_boxes(ro, rd, ro_t, rd_t, z_vals, grid_res)
+    lo, span, boxes = occupancy.occupancy_boxes(ro, rd, ro_t, rd_t, z_vals, grid_res,
+                                                occ_kw.get("s_slab") or 8)
     thr = sigma_thresh * 0.25
     for f, (pw, branch) in enumerate(((pw_h, "head"), (pw_t, "torso"))):
         sig = occupancy.node_density(pw, branch, lo, span, grid_res, act)
@@ -698,11 +736,14 @@ def phase_pair_main_path():
             if not PAIR_FRACTION[0] <= k / (T * J) <= PAIR_FRACTION[1]:
                 _fail(f"{name} lists {k} of {T * J} pairs at frame {i}, outside "
                       f"{PAIR_FRACTION[0]:.0%}-{PAIR_FRACTION[1]:.0%}")
+    s_ms, r_ms = sum(steady_ms) / len(steady_ms), sum(refresh_ms) / len(refresh_ms)
+    every = rcfg.occ_refresh_every
+    window = (r_ms + (every - 1) * s_ms) / every
     print(f"[pair path] {PAIR_FRAMES} frames {H}x{W}, {N_SAMPLES} samples: "
-          f"{sum(steady_ms) / len(steady_ms):.2f} ms per steady frame ({len(steady_ms)} frames), "
-          f"{sum(refresh_ms) / len(refresh_ms):.2f} ms per refresh frame ({len(refresh_ms)} "
-          f"frames) (CUDA events, warm); launches {launches}; host syncs in steady frames "
-          f"{syncs}", flush=True)
+          f"{s_ms:.2f} ms per steady frame ({len(steady_ms)} frames), "
+          f"{r_ms:.2f} ms per refresh frame ({len(refresh_ms)} "
+          f"frames), {window:.2f} ms per frame over a refresh window of {every} (CUDA events, "
+          f"warm); launches {launches}; host syncs in steady frames {syncs}", flush=True)
     if len(refresh_ms) != 2:
         _fail(f"{len(refresh_ms)} refresh frames in {PAIR_FRAMES}, expected 2")
     for i, (st, _, _, got) in enumerate(marks):
@@ -769,9 +810,7 @@ def phase_pair_main_path():
             _listed_mask(J, k_u, ti, ji, "cuda")))
         K = ti.numel()
         flops = K * 8 * R_T * field_flops_per_sample(branch)
-        w, b = weight_blobs(pw, branch)
-        n_bytes = (2 * k_u * R_T * 3 * 4 + k_u * R_T * 256 * 2 + N_SAMPLES * 4 + 2 * K * 4
-                   + w.numel() * 2 + b.numel() * 4 + K * 8 * R_T * (4 + 3 * 2))
+        n_bytes = _pair_bytes(k_u, K, 8, weight_blobs(pw, branch))
         print(f"[pair path] pair_field {branch}: {K} pairs, {ms:.3f} ms per launch; plain "
               f"{plain_ms:.1f} ms; {flops / 1e12:.3f} TFLOP at live widths -> "
               f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak "
@@ -819,7 +858,8 @@ def phase_pair_main_path():
     print("[pair path] library_ms is null for pair_field, far_head and far_torso: no single "
           "PyTorch call computes a packed NeRF field on listed (tile, slab) pairs or at the far "
           "plane", flush=True)
-    return entries
+    return entries, {"frames": frames, "times": (s_ms, r_ms, window),
+                     "lists": [(i, k_h, k_t) for i, k_h, k_t, *_ in refreshes]}
 
 
 # A contribution prune that drops pairs on the card (the main path's
@@ -876,6 +916,371 @@ def phase_pair_prune():
     torch.cuda.synchronize()
     _check_pair("pair prune steady frame 1, kernels vs plain", head, com, head_r, com_r,
                 captured["sh"])
+
+
+# The half-slab pair path (occ_pack2): 4-sample slabs, two pairs per block.
+PAIR2_FRACTION = 0.2  # share of a frame's (tile, half-slab) pairs listed in the kernel checks
+PACK2_RENDER = dict(PAIR_RENDER, occ_pack2=True)
+UNION_WINDOW = 4
+
+
+def _split(t_idx, j_idx):
+    """The packed-2 split of a tile-major pair list: A the even pairs, B the
+    odd ones (the renderer's lists2)."""
+    return tuple(x.contiguous() for x in (t_idx[0::2], j_idx[0::2], t_idx[1::2], j_idx[1::2]))
+
+
+def _quartets_equal(got, want, listed):
+    return all(torch.equal(g[listed], w[listed]) for g, w in zip(got, want))
+
+
+def phase_pair2_kernels_vs_plain():
+    """pair_field at 4 samples per slab and pair2_field against their plain
+    versions at a 450x450 frame's rays and 64 samples (16 half-slabs): head
+    and torso, relu and softplus, a list with gaps and an odd K, and K = 1;
+    pair2's A and B quartets against pair_field's on the A and B lists, bit
+    for bit; K = 0 returns zeros without a launch. Returns the largest
+    absolute difference from the plain version of each kernel."""
+    from dfanerf_torch.models import Decoder, DecoderConfig
+    from dfanerf_torch.models.layers import init_uniform_
+    from dfanerf_torch.ops.fused_render import view_bias
+    from dfanerf_torch.ops.pack import pack_field_weights
+    from dfanerf_torch.ops.pair_field import (
+        pair2_field_eval_prepped, pair2_field_eval_reference, pair2_field_kernel,
+        pair_field_eval_reference, pair_field_kernel,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    dec = init_uniform_(Decoder(DecoderConfig()), g).cuda()
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g).cuda()
+
+    vecs = [rn(96), rn(42), rn(256), rn(256)]
+    sp, T = 4, (-(-H // 16)) ** 2
+    J = N_SAMPLES // sp
+    z = torch.linspace(0.3, 0.9, N_SAMPLES).cuda()
+    flags = torch.rand((T, J), generator=g) < PAIR2_FRACTION
+    t_all, j_all = (x.to(torch.int32).cuda() for x in flags.nonzero(as_tuple=True))
+    if t_all.numel() % 2 == 0:  # an odd K: the last block has no B pair
+        t_all, j_all = t_all[:-1].contiguous(), j_all[:-1].contiguous()
+    cases = {f"K = {t_all.numel()} with gaps": (t_all, j_all),
+             "K = 1": (t_all[:1].contiguous(), j_all[:1].contiguous())}
+    worst = {"pair_field_sp4": 0.0, "pair2_field": 0.0}
+    packs = {}
+    for branch, sig in (("head", vecs[0]), ("torso", vecs[1])):
+        pw = packs[branch] = pack_field_weights(dec, sig, vecs[2], vecs[3], branch)
+        o = (rn(T * 256, 3) * 0.05).contiguous()
+        d = (rn(T * 256, 3) * 0.2 + torch.tensor([0.0, 0.0, -1.0]).cuda()).contiguous()
+        vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
+        for act in ("relu", "softplus"):
+            for tag, (t_i, j_i) in cases.items():
+                ta, ja, tb, jb = _split(t_i, j_i)
+                one = pair_field_kernel(pw, branch, o, d, vr, z, t_i, j_i, act, sp)
+                two = pair2_field_kernel(pw, branch, o, d, vr, z, ta, ja, tb, jb, act)
+                one_a = pair_field_kernel(pw, branch, o, d, vr, z, ta, ja, act, sp)
+                one_b = (pair_field_kernel(pw, branch, o, d, vr, z, tb, jb, act, sp)
+                         if tb.numel() else None)
+                torch.cuda.synchronize()
+                ref = pair_field_eval_reference(pw, branch, o, d, vr, z, t_i, j_i, act, sp)
+                ref2 = pair2_field_eval_reference(pw, branch, o, d, vr, z, ta, ja, tb, jb, act)
+                lists = {"": (t_i, j_i), " A": (ta, ja), " B": (tb, jb)}
+                masks = {k: _listed_mask(J, T, t, j, "cuda", sp) for k, (t, j) in lists.items()}
+                label = f"{branch}, {act}, {tag}"
+                worst["pair_field_sp4"] = max(worst["pair_field_sp4"], _check_buffers(
+                    f"pair_field sp=4 vs plain, {label}", one, ref, masks[""]))
+                for q, quartet, key in ((0, two[0], " A"), (1, two[1], " B")):
+                    if lists[key][0].numel():
+                        worst["pair2_field"] = max(worst["pair2_field"], _check_buffers(
+                            f"pair2_field vs plain, {label},{key}", quartet, ref2[q], masks[key]))
+                same_a = _quartets_equal(two[0], one_a, masks[" A"])
+                same_b = one_b is None or _quartets_equal(two[1], one_b, masks[" B"])
+                print(f"[pair2_field vs pair_field sp=4, {label}] A ({ta.numel()} pairs) "
+                      f"bit-equal {same_a}, B ({tb.numel()} pairs) bit-equal {same_b}", flush=True)
+                if not (same_a and same_b):
+                    _fail(f"pair2_field's quartets differ from pair_field's at sp=4, {label}")
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    before = pair2_field_kernel.launches
+    o = torch.zeros((T * 256, 3), device="cuda")
+    vr = torch.zeros((T * 256, 256), dtype=torch.bfloat16, device="cuda")
+    quartets = pair2_field_eval_prepped(packs["head"], "head", o, o, vr, z, empty, empty, empty,
+                                        empty)
+    if pair2_field_kernel.launches != before or any(bool(b.float().any())
+                                                    for q in quartets for b in q):
+        _fail("pair2_field with no pairs: a launch or non-zero buffers")
+    print("[pair2_field vs plain, no pairs] zero quartets, no launch", flush=True)
+    return worst
+
+
+def phase_pack2_main_path(sp8):
+    """The pair-compacted serving path with occ_pack2 at full width through
+    the entry points: phase_pair_main_path's recipe, scene and weights, 16
+    frames across two refreshes. sp8 holds that phase's frames, frame times
+    and list sizes, printed beside this path's."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.core.rays import linspace
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops._build import weight_blobs
+    from dfanerf_torch.ops.composite import deferred_composite
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.fused_render import R_T, field_flops_per_sample, view_bias
+    from dfanerf_torch.ops.occupancy import conservative_occupancy
+    from dfanerf_torch.ops.pair_field import (
+        pair2_field_eval_reference, pair2_field_kernel, pair_field_eval_reference,
+        pair_field_kernel,
+    )
+
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**PACK2_RENDER))
+    rcfg = cfg.render
+    sp, every = 4, rcfg.occ_refresh_every
+    scene, args = _pair_scene(cfg)
+    warm = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    warm(*args(0))
+    warm(*args(1))
+    torch.cuda.synchronize()
+
+    render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    kernels = {"pair2_field": (pair2_field_kernel, None), "pair_field": (pair_field_kernel, None),
+               "far_head": (far_head_kernel, None), "far_torso": (far_torso_kernel, None)}
+    for k, _ in kernels.values():
+        k.launches, k.variant_launches = 0, {}
+    refreshes, flag_runs = [], []
+
+    def on_refresh(i):
+        c = render.cache
+        refreshes.append((i, [t.numel() for t, _ in c["lists"]],
+                          [(l2[0].numel(), l2[2].numel()) for l2 in c["lists2"]],
+                          len(c["tiles_u"]), c["occ_sub"], c["occ_sub_a"], c["occ_sub_b"]))
+
+    with _spy("conservative_occupancy", flag_runs):
+        frames, marks, syncs = _run_frames(
+            render, args, PAIR_FRAMES, kernels,
+            lambda c: c["lists"] is not None and c["age"] < every, on_refresh)
+    launches = {"pair2_field": pair2_field_kernel.launches,
+                "pair_field_sp4": pair_field_kernel.variant_launches.get("sp4", 0),
+                "pair_field_sp8": pair_field_kernel.variant_launches.get("sp8", 0)}
+    s_ms, r_ms, window = _frame_times("pack2 path", marks, every)
+    s8, r8, w8 = sp8["times"]
+    print(f"[pack2 path] against the sp=8 pair path on the same weights and frames (this run): "
+          f"steady {s_ms:.2f} vs {s8:.2f} ms, refresh {r_ms:.2f} vs {r8:.2f} ms, per frame over "
+          f"a window of {every} {window:.2f} vs {w8:.2f} ms; launches {launches}; host syncs in "
+          f"steady frames {syncs}", flush=True)
+    if len(refreshes) != 2:
+        _fail(f"{len(refreshes)} refresh frames in {PAIR_FRAMES}, expected 2")
+    T = (-(-H // 16)) ** 2
+    J = N_SAMPLES // sp
+    for (i, ks, ks2, k_u, occ_sub, occ_a, occ_b), (i8, k8_h, k8_t) in zip(refreshes,
+                                                                           sp8["lists"]):
+        for name, k, k8 in (("head", ks[0], k8_h), ("torso", ks[1], k8_t)):
+            print(f"[pack2 path] refresh at frame {i}: {name} lists {k} of {T * J} half-slabs "
+                  f"({k / (T * J):.1%}), {k * sp * R_T} samples, against {k8} of {T * J // 2} "
+                  f"slabs, {k8 * 8 * R_T} samples, at sp=8 (frame {i8}); {k_u} of {T} tiles in "
+                  f"the union", flush=True)
+            if not PAIR_FRACTION[0] <= k / (T * J) <= PAIR_FRACTION[1]:
+                _fail(f"{name} lists {k} of {T * J} half-slabs at frame {i}")
+        a, b, u = occ_a.bool(), occ_b.bool(), occ_sub.bool()
+        if (a & b).any() or not torch.equal(a | b, u):
+            _fail(f"refresh {i}: the A and B flag partitions are not a partition of the flags")
+        if ks2 != [((k + 1) // 2, k // 2) for k in ks]:
+            _fail(f"refresh {i}: packed-2 list lengths {ks2} for lists of {ks}")
+        print(f"[pack2 path] refresh at frame {i}: packed-2 lists (A, B) {ks2}; the A and B "
+              f"flag partitions are disjoint and cover the flags in force", flush=True)
+    for i, (st, _, got) in enumerate(marks):
+        want = ({"pair2_field": 2, "far_head": 1, "far_torso": 1} if st
+                else {"pair_field": 2, "far_head": 1, "far_torso": 1})
+        if got != want:
+            _fail(f"pack2 {'steady' if st else 'refresh'} frame {i} launched {got}, expected "
+                  f"{want}")
+    if launches["pair_field_sp8"] or launches["pair_field_sp4"] != 4:
+        _fail(f"pack2 path: pair_field launches by slab size {pair_field_kernel.variant_launches}")
+    if syncs:
+        _fail(f"{syncs} host synchronizations in the pack2 steady frames")
+    for i, (head, com) in enumerate(frames):
+        _check_frame(f"pack2 frame {i}", head, com)
+    for (i, *_), (occ_args, occ_kw, flags) in zip(refreshes, flag_runs, strict=True):
+        if tuple(flags.shape) != (2, T, J):
+            _fail(f"pack2 flags of shape {tuple(flags.shape)}, expected {(2, T, J)}")
+        _check_flags(f"pack2 path refresh frame {i}, flags vs widened float32", occ_args, occ_kw,
+                     flags)
+
+    captured = {}
+    last = args(PAIR_FRAMES - 1)
+    with _plain_pair_path(captured):
+        plain_render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+        head_r, com_r = plain_render(*args(0))
+        torch.cuda.synchronize()
+        err = _check_pair("pack2 path refresh frame 0, kernels vs plain", frames[0][0],
+                          frames[0][1], head_r, com_r, captured["sh"])
+        head_r, com_r = render.run_fast(*last)
+        torch.cuda.synchronize()
+        err = max(err, _check_pair(f"pack2 path steady frame {PAIR_FRAMES - 1}, kernels vs "
+                                   f"plain", frames[-1][0], frames[-1][1], head_r, com_r,
+                                   captured["sh"]))
+    noskip = _serve_noskip_frames(cfg, args, PAIR_FRAMES)
+    _noskip_errors("pair path, sp=8", sp8["frames"], noskip)
+    _noskip_errors("pack2 path", frames, noskip)
+    del noskip
+
+    # each kernel and the composite on the last steady frame's operands
+    pw_h, pw_t, ro, rd, ro_t, rd_t, _ = render.inputs_fn(*last)
+    c = render.cache
+    sel = c["tiles_sel"]
+
+    def gather(x):
+        return x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
+
+    ro_g, rd_g, ro_t_g, rd_t_g = (gather(x) for x in (ro, rd, ro_t, rd_t))
+    z_vals = linspace(scene.near, scene.far, N_SAMPLES, device="cuda")
+    act = cfg.decoder.density_activation
+    k_u = len(c["tiles_u"])
+    fields = {"head": (pw_h, ro_g, rd_g, c["lists"][0], c["lists2"][0]),
+              "torso": (pw_t, ro_t_g, rd_t_g, c["lists"][1], c["lists2"][1])}
+    occ_ms = _cuda_ms(lambda: conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals,
+                                                     rcfg.occ_sigma_thresh, rcfg.occ_grid_res,
+                                                     act, s_slab=sp), 2)
+    res = {name: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "flops": 0.0, "bytes": 0.0}
+           for name in ("pair2_field", "pair_field_sp4")}
+    bufs = {}
+    for branch, (pw, o, d, (ti, ji), l2) in fields.items():
+        vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
+        K = ti.numel()
+        flops = K * sp * R_T * field_flops_per_sample(branch)
+        n_bytes = _pair_bytes(k_u, K, sp, weight_blobs(pw, branch))
+        runs = {
+            "pair2_field": (lambda: pair2_field_kernel(pw, branch, o, d, vr, z_vals, *l2, act),
+                            lambda: pair2_field_eval_reference(pw, branch, o, d, vr, z_vals, *l2,
+                                                               act)),
+            "pair_field_sp4": (lambda: pair_field_kernel(pw, branch, o, d, vr, z_vals, ti, ji,
+                                                         act, sp),
+                               lambda: pair_field_eval_reference(pw, branch, o, d, vr, z_vals,
+                                                                 ti, ji, act, sp)),
+        }
+        for name, (kernel, plain) in runs.items():
+            got = kernel()
+            ms = _cuda_ms(kernel, 3)
+            ref, plain_ms = _cuda_call(plain)
+            if name == "pair2_field":
+                bufs[branch] = got
+                err_k = max(_check_buffers(f"pack2 path, {name} {branch} {half} vs plain", q, r,
+                                           _listed_mask(J, k_u, t, j, "cuda", sp))
+                            for half, q, r, t, j in (("A", got[0], ref[0], l2[0], l2[1]),
+                                                     ("B", got[1], ref[1], l2[2], l2[3])))
+            else:
+                err_k = _check_buffers(f"pack2 path, {name} {branch} vs plain", got, ref,
+                                       _listed_mask(J, k_u, ti, ji, "cuda", sp))
+            blocks = l2[0].numel() if name == "pair2_field" else K
+            print(f"[pack2 path] {name} {branch}: {K} half-slab pairs in {blocks} blocks, "
+                  f"{ms:.3f} ms per launch; plain {plain_ms:.1f} ms; "
+                  f"{flops / 1e12:.3f} TFLOP at live widths -> "
+                  f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB", flush=True)
+            r = res[name]
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["err"] = max(r["err"], err_k)
+            r["flops"] += flops
+            r["bytes"] += n_bytes
+    comp_ms = _cuda_ms(lambda: deferred_composite(
+        bufs["head"][0], bufs["torso"][0], c["occ_sub_a"], rd_g, rd_t_g, z_vals,
+        with_diagnostics=False, buf_h2=bufs["head"][1], buf_t2=bufs["torso"][1],
+        occ2=c["occ_sub_b"], s_slab=sp), 5)
+    print(f"[pack2 path] stages on frame {PAIR_FRAMES - 1}'s operands: occupancy at sp=4 "
+          f"{occ_ms:.2f} ms (refresh frames only), pair2_field head+torso "
+          f"{res['pair2_field']['ms']:.2f} ms, pair_field sp=4 head+torso (refresh frames) "
+          f"{res['pair_field_sp4']['ms']:.2f} ms, deferred_composite A+B {comp_ms:.2f} ms; "
+          f"frame-level error vs plain {err:.3e}; library_ms is null for both kernels (no single "
+          f"PyTorch call computes a packed NeRF field on listed pairs)", flush=True)
+    entries = [
+        _entry("pair2_field", "pair_field.cu", "dfanerf_tpu/ops/fused_render.py:1195",
+               launches["pair2_field"], *(res["pair2_field"][k]
+                                          for k in ("err", "ms", "plain_ms", "flops", "bytes"))),
+        _entry("pair_field_sp4", "pair_field.cu", "dfanerf_tpu/ops/fused_render.py:974",
+               launches["pair_field_sp4"], *(res["pair_field_sp4"][k]
+                                             for k in ("err", "ms", "plain_ms", "flops",
+                                                       "bytes"))),
+    ]
+    return entries, (s_ms, r_ms, window)
+
+
+def phase_refresh_union():
+    """render.refresh_union with occ_pack2 over a window of 4 prepped frames
+    of the pack2 recipe: the pinned union (frames render under it without a
+    refresh), then per-frame slots (render(..., window_slot=i)); prep
+    seconds and ms per frame; a union frame and every slot frame against
+    the plain versions."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.pair_field import pair2_field_kernel, pair_field_kernel
+
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**PACK2_RENDER))
+    scene, args = _pair_scene(cfg)
+    render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    window = [render.inputs_fn(*args(i)) for i in range(UNION_WINDOW)]
+    c = render.cache
+    kernels = {"pair2_field": (pair2_field_kernel, None), "pair_field": (pair_field_kernel, None),
+               "far_head": (far_head_kernel, None), "far_torso": (far_torso_kernel, None)}
+
+    def prep(per_slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render.refresh_union(window, per_slot=per_slot)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def counts(st):
+        return [t.numel() for t, _ in st["lists"]]
+
+    union_s = prep(False)
+    if not c["pinned"] or c["slots"]:
+        _fail("refresh_union did not pin the union state")
+    union = counts(c)
+    frames, marks, syncs = _run_frames(render, args, UNION_WINDOW, kernels, lambda _: True)
+    if any(got != {"pair2_field": 2, "far_head": 1, "far_torso": 1} for _, _, got in marks):
+        _fail(f"frames under the pinned union launched {[got for _, _, got in marks]}")
+    if syncs or counts(c) != union:
+        _fail(f"frames under the pinned union: {syncs} host syncs, lists {counts(c)} vs {union}")
+    for i, (head, com) in enumerate(frames):
+        _check_frame(f"union frame {i}", head, com)
+    union_ms = sum(ms for _, ms, _ in marks) / len(marks)
+
+    slot_s = prep(True)
+    slots = [counts(st) for st in c["slots"]]
+    if len(slots) != UNION_WINDOW or counts(c) != union:
+        _fail(f"refresh_union(per_slot=True): {len(slots)} slots, union lists {counts(c)}")
+    slot_frames, slot_ms = [], []
+    for i in range(UNION_WINDOW):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        slot_frames.append(render(*args(i), window_slot=i))
+        e1.record()
+        torch.cuda.synchronize()
+        slot_ms.append(e0.elapsed_time(e1))
+    print(f"[refresh_union] pack2, window of {UNION_WINDOW} frames: union prep {union_s:.3f} s, "
+          f"lists (head, torso) {union}; {union_ms:.2f} ms per frame under the pinned union "
+          f"(CUDA events); per-slot prep {slot_s:.3f} s, slot lists {slots}; "
+          f"{sum(slot_ms) / len(slot_ms):.2f} ms per slot frame "
+          f"({', '.join(f'{m:.2f}' for m in slot_ms)})", flush=True)
+    for f in range(2):
+        if union[f] < max(s[f] for s in slots):
+            _fail("the union lists fewer pairs than a slot")
+    captured = {}
+    with _plain_pair_path(captured):
+        head_r, com_r = render(*args(0))
+        torch.cuda.synchronize()
+        err = _check_pair("refresh_union frame 0 under the union, kernels vs plain",
+                          frames[0][0], frames[0][1], head_r, com_r, captured["sh"])
+        for i, (head, com) in enumerate(slot_frames):
+            _check_frame(f"slot frame {i}", head, com)
+            head_r, com_r = render(*args(i), window_slot=i)
+            torch.cuda.synchronize()
+            err = max(err, _check_pair(f"refresh_union frame {i} under slot {i}, kernels vs plain",
+                                       head, com, head_r, com_r, captured["sh"]))
+    print(f"[refresh_union] frame-level error vs plain {err:.3e}", flush=True)
 
 
 # Hierarchical head render, BASELINE config 2 (benchmarks/serve_trained.py:
@@ -2028,8 +2433,15 @@ def main() -> int:
     kernel, dense_ops = phase_main_path()
     phase_pair_vs_dense(dense_ops)
     del dense_ops
-    pair_kernels = phase_pair_main_path()
+    pair_kernels, sp8 = phase_pair_main_path()
     phase_pair_prune()
+    pair2_errs = phase_pair2_kernels_vs_plain()
+    pack2, _ = phase_pack2_main_path(sp8)
+    del sp8
+    for entry in pack2:
+        # the largest error of the kernel's checks: on the main path and alone
+        entry["max_abs_err"] = max(entry["max_abs_err"], pair2_errs[entry["name"]])
+    phase_refresh_union()
     phase_hier_kernels_vs_plain()
     hier_dense, noskip_frames = phase_hier_dense_main_path()
     hier_pairs = phase_hier_pair_main_path(noskip_frames[:N_FRAMES])
@@ -2052,8 +2464,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    print(json.dumps({"kernels": [kernel] + pair_kernels + hier_dense + hier_pairs + serve
-                      + [far_joint]}), flush=True)
+    print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + hier_dense + hier_pairs
+                      + serve + [far_joint]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -29,20 +29,23 @@ def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
                        with_keys: bool = False):
     """Composite two pair_field_eval buffers.
 
-    buf_h/buf_t: (sigma, r, g, b), each [J, 8, NT]; occ [2, T, J] masks
-    every (tile, slab) the pair lists may have skipped; rays [T * 256, 3].
-    Returns (acc_head [n, 3], acc_com [n, 3], t_head [n, 1], t_com [n, 1])
-    and, with ``with_diagnostics``, the per-(tile, slab) maxima over each
-    tile's rays of the slab-start transmittances (tile_trans_head,
-    tile_trans_com [T, J]) and of each field's summed compositing weight
-    over both stacks (contrib_head, contrib_torso [T, J]).
+    buf_h/buf_t: (sigma, r, g, b), each [J, sp, NT] at ``s_slab`` = sp
+    samples per slab (8 by default, 4 for the half-slabs of occ_pack2); occ
+    [2, T, J] masks every (tile, slab) the pair lists may have skipped; rays
+    [T * 256, 3]. Returns (acc_head [n, 3], acc_com [n, 3], t_head [n, 1],
+    t_com [n, 1]) and, with ``with_diagnostics``, the per-(tile, slab)
+    maxima over each tile's rays of the slab-start transmittances
+    (tile_trans_head, tile_trans_com [T, J]) and of each field's summed
+    compositing weight over both stacks (contrib_head, contrib_torso [T, J]).
 
-    The packed-2 buffers (``buf_h2``/``occ2``), per-ray diagnostics
-    (``with_ray_diag``, ``ray_err_bc``) and live prune keys (``with_keys``)
-    serve levers that are not ported yet and raise."""
-    if buf_h2 is not None or buf_t2 is not None or occ2 is not None or s_slab not in (None, S_SLAB):
-        raise NotImplementedError(
-            "the packed-2 buffers (occ_pack2) are not ported yet (ROADMAP.md queue 1, item 8)")
+    The packed-2 kernel's second quartets ``buf_h2``/``buf_t2`` come with
+    their flag partition ``occ2`` (disjoint from ``occ``): each partition is
+    unpacked under its own flags and the two are summed (reference
+    :1767-1777). Per-ray diagnostics (``with_ray_diag``, ``ray_err_bc``) and
+    live prune keys (``with_keys``) serve levers that are not ported yet and
+    raise."""
+    if (buf_h2 is None) != (occ2 is None) or (buf_h2 is None) != (buf_t2 is None):
+        raise ValueError("buf_h2, buf_t2 and occ2 come together")
     if with_ray_diag or ray_err_bc is not None:
         raise NotImplementedError(
             "per-ray diagnostics (the budgeted prune) are not ported yet (ROADMAP.md queue 1, "
@@ -55,7 +58,9 @@ def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
     n = rays_d.shape[0]
     S = z_vals.shape[0]
     T = n // R_T
-    sp = S_SLAB
+    sp = S_SLAB if s_slab is None else s_slab
+    if J * sp != S:
+        raise ValueError(f"buffers of {J} slabs of {sp} samples for {S} samples")
 
     def unpack(bufs, occ_f):
         # [S, n] per channel; flag [T, J] -> [J, 1, T, 1]
@@ -69,6 +74,13 @@ def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
 
     sig_h, rgb_h = unpack(buf_h, occ[0])
     sig_t, rgb_t = unpack(buf_t, occ[1])
+    if buf_h2 is not None:
+        # the partitions are disjoint, so the masked sums merge them exactly
+        s_h2, r_h2 = unpack(buf_h2, occ2[0])
+        s_t2, r_t2 = unpack(buf_t2, occ2[1])
+        sig_h, sig_t = sig_h + s_h2, sig_t + s_t2
+        rgb_h = tuple(a + b for a, b in zip(rgb_h, r_h2))
+        rgb_t = tuple(a + b for a, b in zip(rgb_t, r_t2))
 
     # background-epilogue dists: tail 0 (the final sample is bg_blend's)
     z = z_vals.float()

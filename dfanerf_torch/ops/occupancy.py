@@ -118,13 +118,14 @@ def tile_corner_rays(rays: torch.Tensor) -> torch.Tensor:
 Box = Tuple[torch.Tensor, torch.Tensor]
 
 
-def occupancy_boxes(rays_o, rays_d, rays_o_t, rays_d_t, z_vals: torch.Tensor,
-                    grid_res: int) -> Tuple[torch.Tensor, torch.Tensor, List[Box]]:
+def occupancy_boxes(rays_o, rays_d, rays_o_t, rays_d_t, z_vals: torch.Tensor, grid_res: int,
+                    s_slab: int = S_SLAB) -> Tuple[torch.Tensor, torch.Tensor, List[Box]]:
     """The node grid both fields share and each field's (tile, slab) boxes
-    on it (reference :545-592): (lo, span, [(i_lo, i_hi) head, (i_lo, i_hi)
-    torso]), boxes [T, J, 3] int32 inclusive node indices in (x, y, z)."""
-    n_slabs = z_vals.shape[0] // S_SLAB
-    zs = z_vals.float().reshape(n_slabs, S_SLAB)
+    on it (reference :545-592), at ``s_slab`` samples per slab: (lo, span,
+    [(i_lo, i_hi) head, (i_lo, i_hi) torso]), boxes [T, J, 3] int32
+    inclusive node indices in (x, y, z)."""
+    n_slabs = z_vals.shape[0] // s_slab
+    zs = z_vals.float().reshape(n_slabs, s_slab)
     z_ends = torch.stack([zs[:, 0], zs[:, -1]], dim=1)  # [J, 2]
 
     def corner_pts(ro, rd):  # [T, J, 2, 4, 3]
@@ -156,11 +157,14 @@ def _node_box(pts: torch.Tensor, lo: torch.Tensor, span: torch.Tensor, grid_res:
 @torch.no_grad()
 def conservative_occupancy(pw_h, pw_t, rays_o, rays_d, rays_o_t, rays_d_t,
                            z_vals: torch.Tensor, sigma_thresh: float, grid_res: int = 64,
-                           act: str = "relu") -> torch.Tensor:
+                           act: str = "relu", s_slab: Optional[int] = None) -> torch.Tensor:
     """Per-(field, tile, slab) occupancy flags for the pair kernels
-    (reference :534). Rays in spatial-tile order; z_vals [S]. Returns
-    [2, n_tiles, n_slabs] int32 (0 = head, 1 = torso)."""
-    lo, span, boxes = occupancy_boxes(rays_o, rays_d, rays_o_t, rays_d_t, z_vals, grid_res)
+    (reference :534). Rays in spatial-tile order; z_vals [S]; ``s_slab``
+    samples per slab (8 by default, 4 for the half-slabs of occ_pack2; the
+    node grid spans the same points either way). Returns [2, n_tiles,
+    S / s_slab] int32 (0 = head, 1 = torso)."""
+    sp = S_SLAB if s_slab is None else s_slab
+    lo, span, boxes = occupancy_boxes(rays_o, rays_d, rays_o_t, rays_d_t, z_vals, grid_res, sp)
     flags = [flags_from_nodes(node_density(pw, branch, lo, span, grid_res, act)
                               > sigma_thresh * 0.25, *b)
              for pw, branch, b in ((pw_h, "head", boxes[0]), (pw_t, "torso", boxes[1]))]

@@ -20,11 +20,12 @@ pose_torso, signal, signal_torso, bc_img) -> (rgb_head, rgb_com), each
   (``_make_tile_class_renderer``, ``tile_classes``);
 - pair-compacted (``occ_sigma_thresh > 0`` with ``occ_pair_compaction``):
   each field is evaluated only on its occupied (tile, slab) pairs
-  (``pair_field_eval``), the far plane once per ray
+  (``pair_field_eval``; with ``occ_pack2`` on 4-sample half-slabs, two
+  pairs per block, ``pair2_field_eval``), the far plane once per ray
   (``fused_far_eval_split``), and ``deferred_composite`` + ``bg_blend``
   composite the union-occupied tiles and the background catch-all. Flags
-  are rebuilt every ``occ_refresh_every`` frames (see
-  ``_make_pair_compaction_renderer``).
+  are rebuilt every ``occ_refresh_every`` frames, or pinned over a window
+  by ``render.refresh_union`` (see ``_make_pair_compaction_renderer``).
 
 Kernels run on a CUDA device, their plain versions on the CPU. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA a
@@ -55,7 +56,7 @@ from dfanerf_torch.ops.fused_render import (
 )
 from dfanerf_torch.ops.occupancy import conservative_occupancy, occupancy_flags_and_sat
 from dfanerf_torch.ops.pack import pack_field_weights
-from dfanerf_torch.ops.pair_field import pair_field_eval
+from dfanerf_torch.ops.pair_field import pair2_field_eval, pair_field_eval
 from dfanerf_torch.ops.pair_hier import pair_field_eval_perz, pair_sigma_eval
 from dfanerf_torch.ops.render_head import fused_render_head
 from dfanerf_torch.ops.sigma_head import fused_sigma_head
@@ -171,12 +172,17 @@ def _refuse_unported(rcfg: RenderConfig) -> None:
         (rcfg.occ_async_refresh, "occ_async_refresh (the async refresh worker)"),
         (rcfg.far_skip_tol > 0, "far_skip_tol > 0"),
         (rcfg.far_subsample > 1, "far_subsample > 1"),
-        (rcfg.occ_pack2, "occ_pack2 (_pair2_field_kernel)"),
     ]
     for on, what in unported:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP.md queue 1, item 8)")
+
+
+# The flag state a per-window slot holds (reference _SLOT_KEYS :935, less the
+# keys of levers not ported yet: far_skip, far_cmix_err, tiles_scatter).
+SLOT_KEYS = ("lists", "occ", "tiles_u", "tiles_sel", "occ_sub", "lists2", "occ_sub_a",
+             "occ_sub_b")
 
 
 def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, far: float,
@@ -196,19 +202,38 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     far-plane kernels over every ray, composites the gathered tiles, scatters
     them back, blends the background catch-all and untiles.
 
+    With ``occ_pack2`` a slab is a 4-sample half-slab (sp = 4, J = S / 4):
+    the flags are built at that size and a refresh frame renders the full
+    per-field lists with ``pair_field_eval`` at sp = 4. A steady frame
+    renders their even/odd split (``lists2``: pairs 0, 2, 4, ... of the
+    tile-major list in A, 1, 3, 5, ... in B) with one ``pair2_field_eval``
+    per field and composites the A and B quartets under the matching flag
+    partitions ``occ_sub_a`` and ``occ_sub_b``.
+
     The reference pads pair lists and tile sets to bucket sizes so that XLA
     compiles few programs; its padding pairs write only a dummy tile row and
     its padding tiles carry zero flags, so the port launches exactly K pairs
-    and gathers exactly the union tiles and gets the same images.
+    (A ceil(K/2), B floor(K/2)) and gathers exactly the union tiles and gets
+    the same images.
 
     ``render.cache`` holds the flag state: ``lists`` (per field, the pair
     coordinates t_idx, j_idx as int32 device tensors, t in union-tile
     positions), ``tiles_u`` (the union tiles, host int64), ``occ`` ([2, T, J]
-    flags in force), ``occ_sub`` (their union-tile rows) and ``age``.
+    flags in force), ``occ_sub`` (their union-tile rows), with ``occ_pack2``
+    ``lists2`` (per field, tA, jA, tB, jB) and ``occ_sub_a``/``occ_sub_b``,
+    and ``age``. ``render.refresh_union(window_inputs, per_slot=False)``
+    pins flags built over a window of ``render.inputs_fn`` results (the
+    offline mode, reference :947): the union of the frames' flags, pruned
+    to every pair some frame's composite sees, after which ``render`` no
+    longer refreshes (``cache["pinned"]``); with ``per_slot`` it first
+    builds each frame's own pruned state into ``cache["slots"]``, and
+    ``render(..., window_slot=i)`` renders under slot ``i % len(slots)``.
     ``render.inputs_fn`` is the frame-input builder and ``render.run_fast``
     renders a frame under the current flags without advancing the cadence."""
     dev = z_vals_c.device
-    J = rcfg.n_samples // S_SLAB
+    pack2 = rcfg.occ_pack2
+    sp = 4 if pack2 else S_SLAB
+    J = rcfg.n_samples // sp
     prune_on = rcfg.occ_prune_trans > 0 or rcfg.occ_prune_contrib > 0
     cache = {"age": 0, "lists": None, "occ": None, "tiles_u": None, "tiles_sel": None,
              "occ_sub": None}
@@ -216,42 +241,67 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     def occ_fn(inputs):
         pw_h, pw_t, ro, rd, ro_t, rd_t, _ = inputs
         return conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
-                                      rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res, act=act)
+                                      rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res, act=act,
+                                      s_slab=sp)
 
-    def set_flags(occ_np):
-        """Pair lists and union tiles of host flags [2, T, J] (reference
-        set_flags :724, without padding). np.nonzero lists a field's pairs
-        tile-major, slabs ascending, so consecutive pairs of one tile read
-        the same rays."""
+    def to_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    def set_flags(occ_np, st=None):
+        """Pair lists and union tiles of host flags [2, T, J] into the state
+        ``st`` (default the cache; reference set_flags :724, without
+        padding). np.nonzero lists a field's pairs tile-major, slabs
+        ascending, so consecutive pairs of one tile read the same rays."""
+        st = cache if st is None else st
         occ_np = np.ascontiguousarray(occ_np, dtype=np.int32)
         tiles_u = np.nonzero(occ_np.max(axis=(0, 2)))[0]
         pos_of = np.zeros(T, np.int32)
         pos_of[tiles_u] = np.arange(len(tiles_u), dtype=np.int32)
-        lists = []
+        occ_sub = np.ascontiguousarray(occ_np[:, tiles_u])
+        occ_ab = np.zeros((2,) + occ_sub.shape, np.int32)  # [A/B, field, k_u, J]
+        lists, lists2 = [], []
         for f in range(2):
             t_i, j_i = np.nonzero(occ_np[f])
-            lists.append((torch.from_numpy(pos_of[t_i]).to(dev),
-                          torch.from_numpy(j_i.astype(np.int32)).to(dev)))
-        cache.update(age=0, lists=lists, occ=torch.from_numpy(occ_np).to(dev), tiles_u=tiles_u,
-                     tiles_sel=torch.from_numpy(tiles_u).to(dev),
-                     occ_sub=torch.from_numpy(np.ascontiguousarray(occ_np[:, tiles_u])).to(dev))
+            t_i = pos_of[t_i]
+            lists.append((to_dev(t_i), to_dev(j_i)))
+            if pack2:
+                halves = ((t_i[0::2], j_i[0::2]), (t_i[1::2], j_i[1::2]))
+                for h, (t_h, j_h) in enumerate(halves):
+                    occ_ab[h, f, t_h, j_h] = occ_sub[f, t_h, j_h]
+                lists2.append(tuple(to_dev(x) for half in halves for x in half))
+        st.update(age=0, lists=lists, occ=torch.from_numpy(occ_np).to(dev), tiles_u=tiles_u,
+                  tiles_sel=torch.from_numpy(tiles_u).to(dev),
+                  occ_sub=torch.from_numpy(occ_sub).to(dev))
+        if pack2:
+            st.update(lists2=lists2, occ_sub_a=torch.from_numpy(occ_ab[0]).to(dev),
+                      occ_sub_b=torch.from_numpy(occ_ab[1]).to(dev))
 
-    def run(inputs, diag: bool = False):
-        """One frame under the cached flags; with ``diag`` also the prune
+    def run(inputs, st, diag: bool = False, packed: bool = False):
+        """One frame under the flag state ``st``: its full pair lists, or
+        with ``packed`` its packed-2 lists; with ``diag`` also the prune
         diagnostics, in union-tile rows."""
         pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = inputs
-        sel = cache["tiles_sel"]
+        sel = st["tiles_sel"]
 
         def gather(x):
             return x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
 
         ro_g, rd_g, ro_t_g, rd_t_g = (gather(x) for x in (ro, rd, ro_t, rd_t))
-        (ti_h, ji_h), (ti_t, ji_t) = cache["lists"]
-        buf_h = pair_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, ti_h, ji_h, act)
-        buf_t = pair_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, ti_t, ji_t, act)
+        if packed:
+            lh, lt = st["lists2"]
+            (buf_h, buf_h2) = pair2_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, *lh, act, sp)
+            (buf_t, buf_t2) = pair2_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, *lt, act,
+                                               sp)
+            occ, second = st["occ_sub_a"], dict(buf_h2=buf_h2, buf_t2=buf_t2,
+                                                occ2=st["occ_sub_b"])
+        else:
+            (ti_h, ji_h), (ti_t, ji_t) = st["lists"]
+            buf_h = pair_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, ti_h, ji_h, act, sp)
+            buf_t = pair_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, ti_t, ji_t, act, sp)
+            occ, second = st["occ_sub"], {}
         sh, ct = fused_far_eval_split(pw_h, pw_t, ro, rd, ro_t, rd_t, far, act)
-        out = deferred_composite(buf_h, buf_t, cache["occ_sub"], rd_g, rd_t_g, z_vals_c,
-                                 with_diagnostics=diag)
+        out = deferred_composite(buf_h, buf_t, occ, rd_g, rd_t_g, z_vals_c, with_diagnostics=diag,
+                                 s_slab=sp, **second)
 
         def scatter(x, fill):
             full = x.new_full((T, R_T, x.shape[-1]), fill)
@@ -263,57 +313,93 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         imgs = (untile(head), untile(com))
         return (imgs, *out[4:]) if diag else imgs
 
-    def expand_tiles(x_sub):
+    def expand_tiles(x_sub, st):
         """[K_u, J] union-tile diagnostic -> [T, J] on the host, zero off
         the union (reference expand_tiles :831)."""
         full = np.zeros((T, J), np.float32)
-        full[cache["tiles_u"]] = x_sub.cpu().numpy()
+        full[st["tiles_u"]] = x_sub.cpu().numpy()
         return full
 
-    def prune_flags(tm_h, tm_c, cb_h, cb_t):
-        """Keep-masks [T, J] from one frame's composite diagnostics: the
-        transmittance prune and the contribution prune of the reference's
-        prune_flags (:878-883, :929-932)."""
+    def prune_flags(st, tm_h, tm_c, cb_h, cb_t):
+        """Keep-masks [T, J] from one frame's composite diagnostics under the
+        flag state ``st``: the transmittance prune and the contribution
+        prune of the reference's prune_flags (:878-883, :929-932)."""
         keep_h = np.ones((T, J), bool)
         keep_t = np.ones((T, J), bool)
         if rcfg.occ_prune_trans > 0:
             eps = rcfg.occ_prune_trans
-            tm_h_f, tm_c_f = expand_tiles(tm_h), expand_tiles(tm_c)
+            tm_h_f, tm_c_f = expand_tiles(tm_h, st), expand_tiles(tm_c, st)
             keep_h &= np.maximum(tm_h_f, tm_c_f) > eps
             keep_t &= tm_c_f > eps
         if rcfg.occ_prune_contrib > 0:
             eps = rcfg.occ_prune_contrib
-            keep_h &= expand_tiles(cb_h) > eps
-            keep_t &= expand_tiles(cb_t) > eps
+            keep_h &= expand_tiles(cb_h, st) > eps
+            keep_t &= expand_tiles(cb_t, st) > eps
         return keep_h, keep_t
 
+    def refresh(inputs, st=None):
+        """A refresh frame under fresh flags into ``st`` (default the
+        cache): the image under the unpruned lists, then the pruned state."""
+        st = cache if st is None else st
+        occ_np = occ_fn(inputs).cpu().numpy()
+        set_flags(occ_np, st)
+        if not prune_on:
+            return run(inputs, st)
+        imgs, *diags = run(inputs, st, diag=True)
+        keep_h, keep_t = prune_flags(st, *diags)
+        set_flags(np.stack([occ_np[0] * keep_h, occ_np[1] * keep_t]), st)
+        return imgs
+
     @torch.no_grad()
-    def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+    def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img,
+               window_slot=None):
         inputs = frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
                               bc_img)
-        if cache["lists"] is not None and cache["age"] < max(rcfg.occ_refresh_every, 1):
+        slots = cache.get("slots")
+        if window_slot is not None and slots:
+            # pinned per-slot serving: window frame i under its own lists
+            return run(inputs, slots[window_slot % len(slots)], packed=pack2)
+        if cache["lists"] is not None and (cache.get("pinned")
+                                           or cache["age"] < max(rcfg.occ_refresh_every, 1)):
             cache["age"] += 1
-            return run(inputs)
-        occ_np = occ_fn(inputs).cpu().numpy()
-        set_flags(occ_np)
-        if prune_on:
-            imgs, tm_h, tm_c, cb_h, cb_t = run(inputs, diag=True)
-            keep_h, keep_t = prune_flags(tm_h, tm_c, cb_h, cb_t)
-            set_flags(np.stack([occ_np[0] * keep_h, occ_np[1] * keep_t]))
-        else:
-            imgs = run(inputs)
+            return run(inputs, cache, packed=pack2)
+        imgs = refresh(inputs)
         cache["age"] = 1  # this frame consumed the refresh
         return imgs
 
     @torch.no_grad()
     def run_fast(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
         return run(frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
-                                bc_img))
+                                bc_img), cache, packed=pack2)
 
-    def refresh_union(*_, **__):
-        raise NotImplementedError(
-            "refresh_union (the offline per-window flags) is not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
+    @torch.no_grad()
+    def refresh_union(window_inputs, per_slot: bool = False):
+        """Flags for a window of prepped frames (each a ``render.inputs_fn``
+        result; reference refresh_union :947): with ``per_slot`` first each
+        frame's own pruned state as a slot, then the union of the frames'
+        flags, pruned to the pairs that some frame's composite under the
+        union keeps. Pins the union state: ``render`` no longer refreshes
+        until the next call."""
+        slots = []
+        if per_slot:
+            for inp in window_inputs:
+                st = {}
+                refresh(inp, st)
+                slots.append({k: st[k] for k in SLOT_KEYS if k in st})
+        occ = occ_fn(window_inputs[0])
+        for inp in window_inputs[1:]:
+            occ = torch.maximum(occ, occ_fn(inp))
+        occ_np = occ.cpu().numpy()
+        set_flags(occ_np)
+        if prune_on:
+            keeps = None
+            for inp in window_inputs:
+                _, *diags = run(inp, cache, diag=True)
+                kh, kt = prune_flags(cache, *diags)
+                keeps = (kh, kt) if keeps is None else (keeps[0] | kh, keeps[1] | kt)
+            set_flags(np.stack([occ_np[0] * keeps[0], occ_np[1] * keeps[1]]))
+        cache["pinned"] = True
+        cache["slots"] = slots
 
     def precompile_headroom(*_, **__):
         raise NotImplementedError(

@@ -10,7 +10,14 @@ of the sums over samples. Measured over these cases: largest difference
 down to 0.052), 1.2e-7 on the per-(tile, slab) diagnostics, 0 on the blend;
 the bar is 1e-6 on all of them. Unlisted
 blocks hold NaN (standing in for the kernel's unwritten memory) in one
-case: the masked reads must keep every output finite and equal."""
+case: the masked reads must keep every output finite and equal.
+
+The half-slab cases (4 samples per slab, occ_pack2) run the same bar on the
+reference's buffers at s_slab=4, read through one flag set or through the
+packed-2 partition (A: the even pairs of each field's tile-major list, B:
+the odd ones). The packed-2 composite must also equal the one-list
+composite of the port's own plain buffers within the reference's 3e-4
+(tests/test_ops.py:444-504)."""
 
 import jax
 import jax.numpy as jnp
@@ -23,10 +30,14 @@ from dfanerf_tpu.models import init_decoder
 from dfanerf_tpu.ops import fused_render as jf
 from dfanerf_tpu.ops.pack import pack_field_weights as j_pack
 from dfanerf_torch.ops.composite import bg_blend, deferred_composite
+from dfanerf_torch.ops.pair_field import pair2_field_eval, pair_field_eval
 
 j_pack = jax.jit(j_pack, static_argnums=(1, 5, 6))
 BAR = 1e-6
 N, S = 512, 16
+PACK2_BAR = 3e-4
+# [field, tile, half-slab] flags at 4 samples per slab: K = 6 and 5
+OCC4 = np.array([[[1, 1, 0, 1], [0, 1, 1, 1]], [[0, 1, 1, 0], [1, 1, 0, 1]]], np.int32)
 
 
 @pytest.fixture(scope="module")
@@ -51,15 +62,23 @@ def setup():
 
     sh_f, ct_f = jf.fused_far_eval_split(pw_h, pw_t, *(jnp.asarray(x) for x in (ro, rd, ro_t, rd_t)),
                                          z[-1], interpret=True)
+
+    def bufs4(pw, branch, o, d, flags):
+        t_i, j_i = (jnp.asarray(x, jnp.int32) for x in np.nonzero(flags))
+        return tuple(np.array(b.astype(jnp.float32)) for b in jf.pair_field_eval(
+            pw, branch, jnp.asarray(o), jnp.asarray(d), z, t_i, j_i, interpret=True, s_slab=4))
+
     return {"buf_h": bufs(pw_h, "head", ro, rd, occ[0]),
             "buf_t": bufs(pw_t, "torso", ro_t, rd_t, occ[1]), "occ": occ, "rd": rd,
             "rd_t": rd_t, "z": np.array(z), "sh": np.array(sh_f), "ct": np.array(ct_f),
-            "bc": rng.rand(N, 3).astype(np.float32)}
+            "bc": rng.rand(N, 3).astype(np.float32), "pw": (pw_h, pw_t), "ro": ro, "ro_t": ro_t,
+            "buf4_h": bufs4(pw_h, "head", ro, rd, OCC4[0]),
+            "buf4_t": bufs4(pw_t, "torso", ro_t, rd_t, OCC4[1])}
 
 
-def _with_nan(buf, flags):
+def _with_nan(buf, flags, sp=8):
     """The buffer with NaN in every block its flags clear."""
-    out = buf.copy().reshape(flags.shape[1], 8, flags.shape[0] + 1, 256)
+    out = buf.copy().reshape(flags.shape[1], sp, flags.shape[0] + 1, 256)
     for t in range(flags.shape[0]):
         for j in range(flags.shape[1]):
             if not flags[t, j]:
@@ -112,7 +131,74 @@ def test_bg_blend_matches(setup):
 
 def test_unported_options_raise(setup):
     args = (setup["buf_h"], setup["buf_t"], setup["occ"], setup["rd"], setup["rd_t"], setup["z"])
-    for kw in ({"buf_h2": setup["buf_h"]}, {"s_slab": 4}, {"with_ray_diag": True},
+    for kw in ({"with_ray_diag": True, "with_diagnostics": False},
+               {"with_ray_diag": True, "ray_err_bc": setup["bc"]}, {"with_ray_diag": True},
                {"ray_err_bc": setup["bc"]}, {"with_keys": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             deferred_composite(*args, **kw)
+
+
+def _partition(occ):
+    """The packed-2 flag partition of [2, T, J] flags: (A, B), the even and
+    odd pairs of each field's tile-major list."""
+    occ_a, occ_b = np.zeros_like(occ), np.zeros_like(occ)
+    for f in range(2):
+        t_i, j_i = np.nonzero(occ[f])
+        occ_a[f][t_i[0::2], j_i[0::2]] = 1
+        occ_b[f][t_i[1::2], j_i[1::2]] = 1
+    return occ_a, occ_b
+
+
+@pytest.mark.parametrize("with_diagnostics", [True, False], ids=["diagnostics", "serving"])
+@pytest.mark.parametrize("packed", [False, True], ids=["one-list", "packed-2"])
+def test_deferred_composite_half_slabs_match(setup, with_diagnostics, packed):
+    """s_slab=4 buffers, NaN in every block the flags they are read under
+    clear; packed-2: the A and B quartets each hold only their own blocks."""
+    flag_sets = _partition(OCC4) if packed else (OCC4,)
+    quartets = [[tuple(_with_nan(b, flags[f], sp=4) for b in setup[key])
+                 for f, key in enumerate(("buf4_h", "buf4_t"))] for flags in flag_sets]
+    args = (setup["rd"], setup["rd_t"], setup["z"])
+    kw = {"with_diagnostics": with_diagnostics, "s_slab": 4}
+    if packed:
+        kw_j = dict(kw, buf_h2=tuple(jnp.asarray(b) for b in quartets[1][0]),
+                    buf_t2=tuple(jnp.asarray(b) for b in quartets[1][1]),
+                    occ2=jnp.asarray(flag_sets[1]))
+        kw_t = dict(kw, buf_h2=tuple(torch.from_numpy(b) for b in quartets[1][0]),
+                    buf_t2=tuple(torch.from_numpy(b) for b in quartets[1][1]),
+                    occ2=torch.from_numpy(flag_sets[1]))
+    else:
+        kw_j = kw_t = kw
+    first = flag_sets[0]
+    ref = jf.deferred_composite(*(tuple(jnp.asarray(b) for b in q) for q in quartets[0]),
+                                jnp.asarray(first), *(jnp.asarray(x) for x in args), **kw_j)
+    got = deferred_composite(*(tuple(torch.from_numpy(b) for b in q) for q in quartets[0]),
+                             torch.from_numpy(first), *(torch.from_numpy(x) for x in args), **kw_t)
+    assert len(got) == len(ref) == (8 if with_diagnostics else 4)
+    shapes = [(N, 3), (N, 3), (N, 1), (N, 1)] + [(2, 4)] * 4
+    for g, r, shape in zip(got, ref, shapes):
+        assert tuple(g.shape) == np.asarray(r).shape == shape
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=BAR, rtol=0)
+
+
+def test_packed2_composite_equals_one_list(setup):
+    """The port's own plain buffers: the packed-2 evaluation composited
+    under the A/B partition against the one-list evaluation at s_slab=4."""
+    pw_h, pw_t = ({k: torch.tensor(np.asarray(v.astype(jnp.float32))).to(
+        torch.bfloat16 if v.dtype == jnp.bfloat16 else torch.float32) for k, v in pw.items()}
+        for pw in setup["pw"])
+    ro, rd, ro_t, rd_t, z = (torch.from_numpy(setup[k]) for k in ("ro", "rd", "ro_t", "rd_t", "z"))
+    occ = torch.from_numpy(OCC4)
+    occ_a, occ_b = (torch.from_numpy(x) for x in _partition(OCC4))
+    one, two = [], []
+    for f, (pw, branch, o, d) in enumerate(((pw_h, "head", ro, rd), (pw_t, "torso", ro_t, rd_t))):
+        t_i, j_i = (x.to(torch.int32) for x in torch.nonzero(occ[f], as_tuple=True))
+        one.append(pair_field_eval(pw, branch, o, d, z, t_i, j_i, s_slab=4))
+        two.append(pair2_field_eval(pw, branch, o, d, z, t_i[0::2], j_i[0::2], t_i[1::2],
+                                    j_i[1::2], s_slab=4))
+    ref = deferred_composite(one[0], one[1], occ, rd, rd_t, z, with_diagnostics=False, s_slab=4)
+    got = deferred_composite(two[0][0], two[1][0], occ_a, rd, rd_t, z, with_diagnostics=False,
+                             buf_h2=two[0][1], buf_t2=two[1][1], occ2=occ_b, s_slab=4)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=PACK2_BAR, rtol=0)

@@ -126,3 +126,34 @@ def test_conservative_occupancy_flags_equal(packs, H, thresh, act):
         on = (density_act(raw, act) > thresh * 0.25).numpy()
         on_ref = np.asarray(jf.density_act(raw_ref, act) > thresh * 0.25)
         np.testing.assert_array_equal(on, on_ref)
+
+
+@pytest.mark.parametrize("H, thresh, act", [(32, 0.13, "relu"), (32, 2.83, "softplus")])
+def test_conservative_occupancy_half_slab_flags_equal(packs, H, thresh, act):
+    """occ_pack2's flags: 4 samples per slab, [2, T, S / 4]. The node grid
+    spans the same points as at 8 samples per slab (the corner points'
+    extremes lie at the first and last sample), so the node-side check is
+    the 8-sample one."""
+    pw_h, pw_t = packs
+    ro, rd = _camera(H)
+    z = np.array(jnp.linspace(0.3, 0.9, 16))
+    ref = np.asarray(jf.conservative_occupancy(pw_h, pw_t, ro, rd, ro, rd, jnp.asarray(z),
+                                               thresh, grid_res=16, act=act, s_slab=4))
+    t_h, t_t = _to_torch(pw_h), _to_torch(pw_t)
+    rays = [torch.from_numpy(x) for x in (ro, rd, ro, rd)]
+    got = occ_mod.conservative_occupancy(t_h, t_t, *rays, torch.from_numpy(z), thresh,
+                                         grid_res=16, act=act, s_slab=4).numpy()
+    assert got.dtype == np.int32 and got.shape == ref.shape == (2, (-(-H // 16)) ** 2, 4)
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < got.mean() < 1, "the case should have both set and clear flags"
+    lo, span, _ = occ_mod.occupancy_boxes(*rays, torch.from_numpy(z), 16, s_slab=4)
+    lo8, span8, _ = occ_mod.occupancy_boxes(*rays, torch.from_numpy(z), 16)
+    assert torch.equal(lo, lo8) and torch.equal(span, span8)
+    nodes = _fine_nodes(rays[0], rays[1], torch.from_numpy(z), 16)
+    for pw, tw, branch in ((pw_h, t_h, "head"), (pw_t, t_t, "torso")):
+        raw = occ_mod.packed_sigma_xla(tw, nodes, branch)
+        raw_ref = jf.packed_sigma_xla(pw, jnp.asarray(nodes.numpy()), branch)
+        assert np.abs(raw.numpy() - np.asarray(raw_ref)).max() < NODE_DIFF
+        on = (density_act(raw, act) > thresh * 0.25).numpy()
+        on_ref = np.asarray(jf.density_act(raw_ref, act) > thresh * 0.25)
+        np.testing.assert_array_equal(on, on_ref)

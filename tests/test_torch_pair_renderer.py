@@ -101,15 +101,15 @@ def test_unported_levers_raise():
     levers = [{"occ_prune_budget": 1e-3}, {"occ_budget_color": True}, {"occ_budget_iters": 2},
               {"occ_prune_carry": 1}, {"occ_prune_hist_decay": 0.8}, {"occ_live_keys": True},
               {"occ_async_refresh": True}, {"far_skip_tol": 1e-3}, {"far_subsample": 2},
-              {"occ_pack2": True}, {"use_fused_kernel": False}]
+              {"occ_pack2": True, "occ_async_refresh": True}, {"use_fused_kernel": False}]
     for kw in levers:
         cfg = dataclasses.replace(base, render=dataclasses.replace(base.render, **kw))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_frame_renderer(cfg, hw, 0.3, 0.9, device="cpu")
     render = make_frame_renderer(base, hw, 0.3, 0.9, device="cpu")
-    for fn in (render.refresh_union, render.precompile_headroom):
+    for args in ((), (0, 1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+            render.precompile_headroom(*args)
 
 
 def test_flop_counts_per_field_and_kernel():
