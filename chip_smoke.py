@@ -4,7 +4,11 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 1. build every CUDA kernel of the port from the sources in this checkout
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once); print each library's ptxas lines
+   (registers, spills, stack), each kernel's HGMMA and HMMA count in its
+   SASS (cuobjdump) and any ptxas wgmma serialisation warning; fail if a
+   kernel of render_rays or pair_field (the wgmma core) holds no HGMMA or
+   ptxas serialised their wgmma;
 2. hold each kernel against its plain PyTorch version on the card, on
    seeded full-width inputs, within the stated tolerances: render_rays,
    then pair_field (head and torso, relu and softplus, a pair list with
@@ -196,6 +200,15 @@ def _check_frame(tag, head, com):
         _check_image(f"{tag} {name}", img)
 
 
+def _l2_rate(fields, chunks, ms) -> float:
+    """The L2 weight rate (TB/s) of a kernel of the wgmma core: the staged
+    weight bytes of its fields that its 128-row chunks stream, over its
+    time."""
+    from dfanerf_torch.ops._build import staged_weight_bytes
+
+    return sum(staged_weight_bytes(f) for f in fields) * chunks / (ms * 1e-3) / 1e12
+
+
 def _cuda_ms(fn, reps: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -217,6 +230,54 @@ def _cuda_call(fn):
     return out, start.elapsed_time(end)
 
 
+# The libraries whose kernels run the wgmma core (csrc/field_wgmma.cuh):
+# each of their kernels must hold HGMMA instructions, and ptxas must not
+# have serialised their wgmma.
+WGMMA_LIBRARIES = ("render_rays", "pair_field")
+WGMMA_KERNELS = ("render_rays_kernel", "pair_field_kernel", "pair2_field_kernel")
+
+
+def _cuobjdump():
+    """cuobjdump of the CUDA toolkit, or the copy Triton's package carries."""
+    import shutil
+
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "cuobjdump")):
+            return os.path.join(root, "bin", "cuobjdump")
+    if shutil.which("cuobjdump"):
+        return shutil.which("cuobjdump")
+    try:
+        import triton
+    except ImportError:
+        return None
+    path = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump")
+    return path if os.path.exists(path) else None
+
+
+def _sass_counts(tool, path):
+    """{kernel function (demangled where c++filt is found): [HGMMA, HMMA]}
+    counted in the library's SASS."""
+    import re
+    import shutil
+
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = [0, 0]
+        elif current is not None:
+            counts[current][0] += "HGMMA" in line
+            counts[current][1] += "HMMA" in line
+    if shutil.which("c++filt") and counts:
+        names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    return counts
+
+
 def phase_build():
     from dfanerf_torch.ops import _build
 
@@ -224,12 +285,26 @@ def phase_build():
     _build.build()
     seconds = time.perf_counter() - t0
     print(f"[build] {len(_build.SOURCES)} kernel(s) built in {seconds:.1f} s", flush=True)
+    tool = _cuobjdump()
+    if tool is None:
+        _fail("no cuobjdump (CUDA toolkit or Triton's copy) to read the kernels' SASS")
     for name in _build.SOURCES:
-        log = _build.library_path(name).with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "Function properties" in line:
-                    print(f"[build] {name}: {line.strip()}", flush=True)
+        path = _build.library_path(name)
+        log = path.with_suffix(".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        for line in lines:
+            if any(w in line for w in ("registers", "spill", "stack", "Function properties")):
+                print(f"[build] {name}: {line.strip()}", flush=True)
+        serialised = [line.strip() for line in lines
+                      if "wgmma" in line.lower() and "serializ" in line.lower()]
+        for line in serialised:
+            print(f"[build] {name}: wgmma serialisation: {line}", flush=True)
+        for fn, (hgmma, hmma) in _sass_counts(tool, path).items():
+            print(f"[build] {name}: {fn}: {hgmma} HGMMA, {hmma} HMMA", flush=True)
+            if name in WGMMA_LIBRARIES and any(k in fn for k in WGMMA_KERNELS) and hgmma == 0:
+                _fail(f"{name}: {fn} holds no HGMMA: it does not run the wgmma core")
+        if name in WGMMA_LIBRARIES and serialised:
+            _fail(f"{name}: ptxas serialised its wgmma")
 
 
 def phase_kernel_vs_plain():
@@ -370,7 +445,8 @@ def phase_main_path():
     print(f"[main path] render_rays {ms:.3f} ms per launch; plain version {plain_ms:.1f} ms; "
           f"slabs run {int(slabs.sum())} of {ops.n_tiles * ops.n_slabs}; {flops / 1e12:.2f} "
           f"TFLOP at live widths -> {t_ops:.3f} ms at bf16 peak ({flops / ms / 1e9:.1f} "
-          f"TFLOP/s achieved); {n_bytes / 1e6:.1f} MB -> {t_bytes:.3f} ms at HBM peak",
+          f"TFLOP/s achieved); {n_bytes / 1e6:.1f} MB -> {t_bytes:.3f} ms at HBM peak; L2 "
+          f"weight rate {_l2_rate(('head', 'torso'), float(slabs.sum()) * 16, ms):.3f} TB/s",
           flush=True)
     return {
         "name": "render_rays", "route": "cuda",
@@ -814,7 +890,8 @@ def phase_pair_main_path():
         print(f"[pair path] pair_field {branch}: {K} pairs, {ms:.3f} ms per launch; plain "
               f"{plain_ms:.1f} ms; {flops / 1e12:.3f} TFLOP at live widths -> "
               f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak "
-              f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB", flush=True)
+              f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB; L2 weight "
+              f"rate {_l2_rate((branch,), K * 16, ms):.3f} TB/s", flush=True)
         pair_ms, pair_plain_ms = pair_ms + ms, pair_plain_ms + plain_ms
         pair_flops, pair_bytes = pair_flops + flops, pair_bytes + n_bytes
     comp_ms = _cuda_ms(lambda: deferred_composite(bufs["head"], bufs["torso"], c["occ_sub"],
@@ -1175,7 +1252,8 @@ def phase_pack2_main_path(sp8):
                   f"{ms:.3f} ms per launch; plain {plain_ms:.1f} ms; "
                   f"{flops / 1e12:.3f} TFLOP at live widths -> "
                   f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB", flush=True)
+                  f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB; L2 "
+                  f"weight rate {_l2_rate((branch,), K * 2 * sp, ms):.3f} TB/s", flush=True)
             r = res[name]
             r["ms"] += ms
             r["plain_ms"] += plain_ms
@@ -2251,6 +2329,7 @@ def phase_serve_main_path():
                                 ops.occ)
         n_pad, S = k * R_T, rcfg.n_samples
         flops = float(got[2].sum()) * 8 * R_T * render_flops_per_sample(CLASS_FIELDS[ci])
+        fields = ("head", "torso") if CLASS_FIELDS[ci] == "both" else (CLASS_FIELDS[ci],)
         weights = sum(t.numel() * t.element_size() for pw in (pw_h, pw_t)
                       for key, t in pw.items() if key not in ("w_view", "b_view"))
         n_bytes = (4 * n_pad * 3 * 4 + S * 4 + 2 * S * n_pad * 4 + 2 * n_pad * 256 * 2
@@ -2261,7 +2340,9 @@ def phase_serve_main_path():
               f"{plain_ms:.1f} ms; {flops / 1e12:.3f} TFLOP at live widths -> "
               f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak "
               f"({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} MB; SM time per "
-              f"slab run {ms * 132 / max(int(got[2].sum()), 1):.3f} ms (132 SMs)", flush=True)
+              f"slab run {ms * 132 / max(int(got[2].sum()), 1):.3f} ms (132 SMs); L2 weight rate "
+              f"{_l2_rate(fields, float(got[2].sum()) * 16, ms):.3f} TB/s",
+              flush=True)
         entries.append(_entry(name, "render_rays.cu", "dfanerf_tpu/ops/fused_render.py:167",
                               launches[name], err_k, ms, plain_ms, flops, n_bytes))
     print(f"[serve tile classes] frame-level error vs plain {err:.3e}", flush=True)

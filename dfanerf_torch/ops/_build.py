@@ -6,7 +6,9 @@ includes (``#include "x.cuh"``, followed through headers) and the flags, so an
 edited source or header is rebuilt and a stale library is never loaded. Sources build
 in parallel, one nvcc process each. The wrappers load the libraries with
 ctypes through ``Binding``, which also lays out a field's weights for the
-kernels and launches them; nothing is built when a module is imported.
+kernels (``weight_blobs``; for the wgmma core of render_rays and pair_field,
+re-laid into its weight ring's slabs by ``ring_blob``) and launches them;
+nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -152,6 +154,74 @@ def weight_blobs(pw: Dict[str, torch.Tensor], branch: str) -> Tuple[torch.Tensor
             torch.cat([b.to(torch.float32) for b in biases]).contiguous())
 
 
+# The wgmma core's weight ring (csrc/field_wgmma.cuh): a stage holds SLAB
+# bf16 values, one k-slab of a layer's [out][in] matrix, [256][32] or
+# [128][64].
+SLAB = 8192
+HID, DEF, PEW = 256, 128, 64
+
+
+def _blob_offsets(k_in: int) -> Dict[str, int]:
+    """Element offsets of a field's matrices in its ``weight_blobs`` blob
+    (csrc/field_common.cuh WOff, and the torso's deform net after them)."""
+    o = {"in": 0, "blk": HID * k_in}
+    o["skip"] = o["blk"] + 7 * HID * HID
+    o["sf"] = o["skip"] + HID * k_in
+    o["out"] = o["sf"] + 384 * HID
+    o["end"] = o["out"] + 8 * HID
+    o["d_w1"] = o["end"]
+    o["d_wk"] = o["d_w1"] + DEF * PEW
+    o["d_wskip"] = o["d_wk"] + 4 * DEF * DEF
+    o["d_wout"] = o["d_wskip"] + DEF * PEW
+    o["torso_end"] = o["d_wout"] + DEF * DEF
+    return o
+
+
+def ring_layers(branch: str) -> List[Tuple[int, int, int]]:
+    """(offset into the ``weight_blobs`` blob, N out, K in) of each matrix a
+    128-row chunk of the field streams through the ring, in the order its
+    layers consume them: the torso's deform net (d_w1, d_wk 0-2, d_wskip,
+    d_wk 3, d_wout), then the trunk (input layer, blocks 0-3, skip, blocks
+    4-6, the view-feature rows 128:384 of w_sf)."""
+    k_in = PEW if branch == "head" else DEF
+    o = _blob_offsets(k_in)
+    layers = []
+    if branch == "torso":
+        wk = [(o["d_wk"] + i * DEF * DEF, DEF, DEF) for i in range(4)]
+        layers += [(o["d_w1"], DEF, PEW), *wk[:3], (o["d_wskip"], DEF, PEW), wk[3],
+                   (o["d_wout"], DEF, DEF)]
+    blocks = [(o["blk"] + i * HID * HID, HID, HID) for i in range(7)]
+    layers += [(o["in"], HID, k_in), *blocks[:4], (o["skip"], HID, k_in), *blocks[4:],
+               (o["sf"] + 128 * HID, HID, HID)]
+    return layers
+
+
+def stage_matrix(w: torch.Tensor) -> torch.Tensor:
+    """One [N][K] matrix as K / KS ring slabs of depth KS = SLAB / N, each in
+    wgmma's no-swizzle K-major canonical layout: value (n, k) of slab k // KS
+    at ((n // 8) * KS / 8 + (k % KS) // 8) * 64 + (n % 8) * 8 + k % 8."""
+    n, k = w.shape
+    ks = SLAB // n
+    return (w.reshape(n // 8, 8, k // ks, ks // 8, 8).permute(2, 0, 3, 1, 4).reshape(-1))
+
+
+def staged_weight_bytes(branch: str) -> int:
+    """Bytes of a field's staged weight blob (``ring_blob``): what one 128-row
+    chunk of the field streams from L2 in the wgmma core."""
+    return 2 * (sum(n * k for _, n, k in ring_layers(branch)) + 2 * 8 * HID)
+
+
+def ring_blob(w: torch.Tensor, branch: str) -> torch.Tensor:
+    """The wgmma core's staged weight blob of a field from its
+    ``weight_blobs`` blob ``w``: the ring slabs of ``ring_layers`` in order,
+    then the sigma rows 0:8 of w_sf and the rgb rows 0:8 of w_out, [8][256]
+    each (read by the narrow mma.sync heads straight from L2)."""
+    o = _blob_offsets(PEW if branch == "head" else DEF)
+    parts = [stage_matrix(w[off:off + n * k].reshape(n, k)) for off, n, k in ring_layers(branch)]
+    parts += [w[o["sf"]:o["sf"] + 8 * HID], w[o["out"]:o["out"] + 8 * HID]]
+    return torch.cat(parts).contiguous()
+
+
 def check_cuda_operands(name: str, operands: Dict[str, Tuple]) -> torch.device:
     """The CUDA device of a kernel's operands (name -> (tensor, shape,
     dtype)); raises unless each lies on it, contiguous, with that shape and
@@ -195,10 +265,15 @@ class Binding:
               dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
         """One field's weight and bias blobs (``weight_blobs``), checked
         against the sizes the library reports (its ``<name>_layout``: head
-        weight, head bias, torso weight, torso bias)."""
+        weight, head bias, torso weight, torso bias). A library of the wgmma
+        core reports the size of the staged weight blob, and gets the weights
+        re-laid by ``ring_blob``."""
         self._load()
         w, b = weight_blobs(pw, branch)
-        for blob, size in zip((w, b), self._layout[2:4] if branch == "torso" else self._layout[0:2]):
+        sizes = self._layout[2:4] if branch == "torso" else self._layout[0:2]
+        if w.numel() != sizes[0]:
+            w = ring_blob(w, branch)
+        for blob, size in zip((w, b), sizes):
             if blob.numel() != size or blob.device != dev:
                 raise ValueError(f"weight blob of {blob.numel()} on {blob.device}, kernel expects "
                                  f"{size} on {dev}")

@@ -25,35 +25,46 @@
 // What bounds them on the H100. The same ~1.2 MFLOP (head) or ~1.3 MFLOP
 // (torso, with the deform net) of matrix products per row as the dense
 // render kernel against a few hundred bytes of per-row input and output:
-// bound by operations (bf16 tensor-core rate), not by device memory.
+// bound by operations (bf16 tensor-core rate), not by device memory. The
+// field's weights (1.1 MB head, 1.4 MB torso as staged ring slabs) stream
+// from L2 once per 128-row chunk, so at the operation bound the L2 would
+// have to deliver ~7.5 TB/s: L2 bandwidth is this design's floor
+// (perf/probe_pair_field.py prints the rate reached).
 //
-// Design (simple and right first; the device code is render_rays.cu's,
-// shared through field_mlp.cuh):
-// - pair_field: one block of 8 warps per listed pair, so the grid is
-//   exactly K blocks and no padding pair runs. The block walks its pair in
-//   2 SP chunks of 128 rows (one sample, half the tile's rays), runs the
-//   field on each chunk with activations in shared memory and weights
-//   streamed from L2, and stores the chunk's 128 sigma and rgb values
-//   straight to the buffers.
+// Design (the device code is render_rays.cu's, shared through
+// field_wgmma.cuh, whose note says what bounded the mma.sync design and what
+// the wgmma core does about it):
+// - pair_field: one block per listed pair, so the grid is exactly K blocks
+//   and no padding pair runs. The block walks its pair in 2 SP chunks of
+//   128 rows (one sample, half the tile's rays). A producer warp streams
+//   the field's weight slabs for all of them through the shared-memory ring
+//   (it knows the count, 2 SP chunks x the field's slabs, from the start);
+//   the field's biases are staged into shared memory once per block; each
+//   of the two consumer warpgroups runs the field on its 64 rows of every
+//   chunk and stores their sigma and rgb straight to the buffers. No
+//   barrier spans the block after the ring's set-up.
 // - pair2: one block per A pair, so the grid is exactly ceil(K/2) blocks.
 //   Block k walks A pair k and then B pair k through the same device code
-//   (the last block skips its B half when the B list is one shorter). On
-//   the TPU two half-slab pairs filled the 2048-row MXU step; here every
-//   block already works in 128-row chunks, so the pairing changes only the
-//   block count and the wave shape, and each quartet equals pair_field's on
-//   the same list bit for bit.
+//   (the last block skips its B half when the B list is one shorter, a
+//   block-uniform branch; its producer streams one pair's slabs). On the
+//   TPU two half-slab pairs filled the 2048-row MXU step; here every block
+//   already works in 128-row chunks, so the pairing changes only the block
+//   count and the wave shape, and each quartet equals pair_field's on the
+//   same list bit for bit (the same eval_pair, the same sums in the same
+//   order).
 // - The sample's z comes from z_vals[SP j + s]; the PE, activations and
 //   output roundings are those of render_rays.cu, built with the same
-//   --fmad=false and accurate sinf/expf. SP is a template parameter, so the
-//   8-sample build is the code it was before the half-slabs existed.
+//   --fmad=false and accurate sinf/expf. SP is a template parameter.
 
-#include "field_mlp.cuh"
+#include "field_wgmma.cuh"
 
 namespace {
 
-constexpr int SM_SIG = SM_FIELD_END;      // sigma [M]
+constexpr int SM_BIAS = SMW_FIELD_END;    // the field's bias blob [B_END or TORSO_BEND]
+constexpr int SM_SIG = SM_BIAS + TORSO_BEND * 4;  // sigma [M]
 constexpr int SM_RGB = SM_SIG + M * 4;    // rgb [M][3]
 constexpr int SMEM_BYTES = SM_RGB + M * 3 * 4;
+static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 
 struct Params {
   const float *o, *d;          // [n_rows][3] rays in tile order
@@ -61,7 +72,7 @@ struct Params {
   const bf16* vr;              // [n_rows][256] view bias
   const float *freq, *phase;   // [64]
   const int *t_idx, *j_idx;    // [K] listed pairs
-  const bf16* w;               // weight blob
+  const bf16* w;               // staged weight blob
   const float* b;              // bias blob
   float* sig;                  // [J][SP][row_stride]
   bf16 *r, *g, *bl;            // [J][SP][row_stride]
@@ -78,55 +89,76 @@ struct Params2 {
   int n_b;
 };
 
-// The field on pair (t, j) at SP samples per slab, stored into p's quartet.
-// Ends after the stores of its last chunk; a following call rewrites
-// sig/rgb only after several barriers.
+// The field on pair (t, j) at SP samples per slab, stored into p's quartet,
+// for a consumer thread: its warpgroup's rows of each chunk, their weights
+// from the ring. A following call rewrites sig/rgb only after several of
+// the warpgroup's barriers.
 template <bool TORSO, int SP>
-__device__ __forceinline__ void eval_pair(const Params& p, int t, int j, unsigned char* smem) {
-  bf16* X = reinterpret_cast<bf16*>(smem + SM_X);
-  bf16* Y = reinterpret_cast<bf16*>(smem + SM_Y);
-  bf16* P = reinterpret_cast<bf16*>(smem + SM_P);
+__device__ __forceinline__ void eval_pair(const Params& p, int t, int j, unsigned char* smem,
+                                          Ring& ring) {
+  bf16* H = reinterpret_cast<bf16*>(smem + SMW_H);
+  bf16* P = reinterpret_cast<bf16*>(smem + SMW_P);
   float* sig = reinterpret_cast<float*>(smem + SM_SIG);
   float* rgb = reinterpret_cast<float*>(smem + SM_RGB);
+  const float* b = reinterpret_cast<const float*>(smem + SM_BIAS);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, tw = tid & 127, row0 = wg * WG_ROWS;
 
 #pragma unroll 1
   for (int c = 0; c < 2 * SP; ++c) {
     const int s = c >> 1;
     const int ray0 = t * RT + (c & 1) * M;
-    encode(P, p.o, p.d, p.z[j * SP + s], p.freq, p.phase, ray0, tid);
-    __syncthreads();
+    wg_encode(P, p.o, p.d, p.z[j * SP + s], p.freq, p.phase, ray0, row0, tw);
+    wg_sync(wg);
     if constexpr (TORSO) {
-      deform(X, Y, P, p.w, p.b, warp, lane);
-      trunk_and_heads<DEF>(X, Y, P, p.w, p.b, p.vr, ray0, p.softplus, sig, rgb, warp, lane);
+      wg_deform(H, P, b, ring, wg, warp & 3, lane);
+      wg_trunk_and_heads<DEF>(H, P, p.w, b, p.vr, ray0, p.softplus, sig, rgb, ring, wg,
+                              warp, lane);
     } else {
-      trunk_and_heads<PEW>(X, Y, P, p.w, p.b, p.vr, ray0, p.softplus, sig, rgb, warp, lane);
+      wg_trunk_and_heads<PEW>(H, P, p.w, b, p.vr, ray0, p.softplus, sig, rgb, ring, wg,
+                              warp, lane);
     }
-    __syncthreads();
-    if (tid < M) {
-      const int o = (j * SP + s) * p.row_stride + ray0 + tid;
-      p.sig[o] = sig[tid];
-      p.r[o] = __float2bfloat16_rn(rgb[tid * 3]);
-      p.g[o] = __float2bfloat16_rn(rgb[tid * 3 + 1]);
-      p.bl[o] = __float2bfloat16_rn(rgb[tid * 3 + 2]);
+    wg_sync(wg);
+    if (tw < WG_ROWS) {
+      const int row = row0 + tw;
+      const int o = (j * SP + s) * p.row_stride + ray0 + row;
+      p.sig[o] = sig[row];
+      p.r[o] = __float2bfloat16_rn(rgb[row * 3]);
+      p.g[o] = __float2bfloat16_rn(rgb[row * 3 + 1]);
+      p.bl[o] = __float2bfloat16_rn(rgb[row * 3 + 2]);
     }
-    // the next chunk rewrites sig/rgb only after several barriers
   }
 }
 
 template <bool TORSO, int SP>
-__global__ void __launch_bounds__(NTHR, 1) pair_field_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  eval_pair<TORSO, SP>(p, p.t_idx[blockIdx.x], p.j_idx[blockIdx.x], smem);
+__global__ void __launch_bounds__(NTHR_W, 1) pair_field_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  stage_biases(reinterpret_cast<float*>(smem + SM_BIAS), p.b, TORSO ? TORSO_BEND : B_END);
+  Ring ring;
+  ring.init(smem);
+  ring_init(smem);
+  if (threadIdx.x >= NCONS) {  // the producer warp
+    if (threadIdx.x == NCONS) ring.produce(p.w, TORSO ? NS_TORSO : NS_HEAD, 2 * SP);
+    return;
+  }
+  eval_pair<TORSO, SP>(p, p.t_idx[blockIdx.x], p.j_idx[blockIdx.x], smem, ring);
 }
 
 // Half-slabs only (SP = 4), the one slab size the packed-2 path runs. One
 // loop over the block's A and B pairs keeps a single copy of the field code.
 template <bool TORSO>
-__global__ void __launch_bounds__(NTHR, 1) pair2_field_kernel(const Params2 p2) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(NTHR_W, 1) pair2_field_kernel(const Params2 p2) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int k = blockIdx.x;
   const int pairs = k < p2.n_b ? 2 : 1;  // block-uniform: no B pair in the last block of odd K
+  stage_biases(reinterpret_cast<float*>(smem + SM_BIAS), p2.a.b, TORSO ? TORSO_BEND : B_END);
+  Ring ring;
+  ring.init(smem);
+  ring_init(smem);
+  if (threadIdx.x >= NCONS) {  // the producer warp
+    if (threadIdx.x == NCONS) ring.produce(p2.a.w, TORSO ? NS_TORSO : NS_HEAD, pairs * 2 * 4);
+    return;
+  }
 #pragma unroll 1
   for (int h = 0; h < pairs; ++h) {
     Params p = p2.a;
@@ -139,7 +171,7 @@ __global__ void __launch_bounds__(NTHR, 1) pair2_field_kernel(const Params2 p2) 
       t = p2.tb_idx[k];
       j = p2.jb_idx[k];
     }
-    eval_pair<TORSO, 4>(p, t, j, smem);
+    eval_pair<TORSO, 4>(p, t, j, smem, ring);
   }
 }
 
@@ -149,7 +181,7 @@ int launch(void (*kernel)(P), const P& p, int blocks, void* stream) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, NTHR, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<blocks, NTHR_W, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -181,13 +213,14 @@ Params common(const float* o, const float* d, const float* z, const void* vr, co
 
 extern "C" {
 
-// Sizes the Python wrapper checks its blobs against: head weight and bias
-// blob lengths, torso weight and bias blob lengths, dynamic shared memory
-// (the same for both kernels and both slab sizes).
+// Sizes the Python wrapper checks its blobs against: head staged weight and
+// bias blob lengths, torso staged weight and bias blob lengths (ops/_build.py
+// ring_blob), dynamic shared memory (the same for both kernels and both slab
+// sizes).
 int pair_field_layout(int* sizes) {
-  sizes[0] = WOff<PEW>::END;
+  sizes[0] = Staged<PEW>::END;
   sizes[1] = B_END;
-  sizes[2] = TORSO_WEND;
+  sizes[2] = Staged<DEF>::END;
   sizes[3] = TORSO_BEND;
   sizes[4] = SMEM_BYTES;
   return 0;

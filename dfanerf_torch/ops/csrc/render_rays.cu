@@ -34,35 +34,32 @@
 // input: the work is bound by operations (bf16 tensor-core rate), not by
 // device memory. The TPU kernel keeps all ~2.3 MB of packed weights resident
 // in VMEM; a Hopper block has 227 KB of shared memory, so the weights cannot
-// stay on chip and are streamed from L2 for every row chunk.
+// stay on chip and stream from L2 once per 128-row chunk: 2.49 MB a chunk
+// for both fields (the staged blobs' ring slabs), ~250 GB for a 450x450
+// frame of 64 samples, so at the 33 ms operation bound the L2 would have to
+// deliver ~7.5 TB/s. L2 bandwidth, not the tensor cores, is this design's
+// floor (perf/probe_render_rays.py prints the rate reached).
 //
-// Design (the simple, correct first version; the field's device code is
-// shared with the pair and far-plane kernels in field_mlp.cuh):
-// - One block of 8 warps per 256-ray tile. The TPU's sequential slab grid
-//   axis and its scratch carry become a loop over the slabs inside the block;
-//   the per-ray transmittances and rgb sums live in shared memory, and the
-//   ERT test at each slab start is a block-wide max over the 256 rays
-//   (field_mlp.cuh block_max), so the kernel skips exactly the slabs the
-//   TPU kernel skips.
+// Design (the field's device code is field_wgmma.cuh, shared with
+// pair_field.cu; its note says what bounded the mma.sync design and what the
+// wgmma core does about it):
+// - One block per 256-ray tile: two consumer warpgroups and a producer warp
+//   that streams both fields' weight slabs through a 5-stage shared-memory
+//   ring (cp.async.bulk, mbarriers); both fields' biases are staged into
+//   shared memory once per block. The TPU's sequential slab grid axis and
+//   its scratch carry become a loop over the slabs inside the block; the
+//   per-ray transmittances and rgb sums live in shared memory, and the ERT
+//   test at each slab start is a block-wide max over the 256 rays, the one
+//   block-wide step, so the kernel skips exactly the slabs the TPU kernel
+//   skips. The producer takes part in it and issues a slab's weights only
+//   once the slab is known to run, so no copy is left in flight at the end.
 // - A slab (8 samples x 256 rays = 2048 rows, sample-major) runs in chunks
-//   of 128 rows (one sample, half the rays). For each chunk the whole MLP
-//   chain of one field runs with activations in shared memory (two
-//   ping-pong [128 x 256] bf16 buffers plus a PE buffer); the chunk's
-//   sigma/rgb for both fields are composited straight away, since every
-//   chunk of sample s precedes every chunk of sample s + 1.
-// - Matrix products are mma.sync m16n8k16 bf16 x bf16 -> fp32. Each warp
-//   owns 32 output columns (16 in the 128-wide deform net) for all 128 rows;
-//   A fragments come from shared memory through ldmatrix, B fragments
-//   straight from global memory (L2-resident weights, stored [out][in] so a
-//   fragment pair is one 32-bit load), prefetched one k-step ahead. Every
-//   weight element is read from L2 once per chunk (~2.6 MB x 16 chunks x 8
-//   slabs per tile). Timing builds that drop one kind of work each
-//   (perf/probe_render_rays.py) measured that these loads are this design's
-//   largest cost (the kernel takes half the time without them), and that
-//   every warp reading the whole A operand through ldmatrix is a large part
-//   of the rest: the places a later version gains (weight tiles staged once
-//   per block in shared memory, warps tiled over rows as well as columns,
-//   wgmma).
+//   of 128 rows (one sample, half the rays). Each warpgroup owns 64 rows of
+//   the chunk and runs the whole MLP chain of each field on them (wgmma
+//   m64n256k16 / m64n128k16, A through ldmatrix from one activation buffer
+//   updated in place, B from the ring), separated by its own named
+//   barriers; then composites its 64 rays' sample straight away, since
+//   every chunk of sample s precedes every chunk of sample s + 1.
 // - Activations are rounded to bf16 exactly where the TPU kernel rounds
 //   them; sigma, alphas, transmittances and sums stay fp32.
 // - Built with --fmad=false: no mul+add is contracted into an FMA, so the
@@ -71,17 +68,20 @@
 //   the accurate library functions (never --use_fast_math).
 
 
-#include "field_mlp.cuh"
+#include "field_wgmma.cuh"
 
 namespace {
 
-// Shared memory (bytes): the field's buffers (field_mlp.cuh), then the
-// compositing state.
-constexpr int SM_STATE = SM_FIELD_END;              // t_head, t_com [RT]
+// Shared memory (bytes): the field's ring, buffers and barriers
+// (field_wgmma.cuh), both fields' biases, then the compositing state.
+constexpr int SM_BIAS_H = SMW_FIELD_END;            // head bias blob [B_END]
+constexpr int SM_BIAS_T = SM_BIAS_H + B_END * 4;    // torso bias blob [TORSO_BEND]
+constexpr int SM_STATE = SM_BIAS_T + TORSO_BEND * 4;  // t_head, t_com [RT]
 constexpr int SM_ACC = SM_STATE + 2 * RT * 4;      // acc_h, acc_c [RT][3]
 constexpr int SM_RES = SM_ACC + 2 * RT * 3 * 4;    // sig_h, sig_t [M]; rgb_h, rgb_t [M][3]
-constexpr int SM_RED = SM_RES + 2 * M * 4 * 4;     // 8 floats
-constexpr int SMEM_BYTES = SM_RED + 8 * 4;
+constexpr int SM_RED = SM_RES + 2 * M * 4 * 4;     // one float per consumer warp
+constexpr int SMEM_BYTES = SM_RED + NCONS / 32 * 4;
+static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 
 struct Params {
   const float *o_h, *d_h, *o_t, *d_t;  // [n_pad][3]
@@ -91,7 +91,7 @@ struct Params {
   const float* bc;                     // [n_pad][3]
   const float *freq, *phase;           // [64]
   const int* occ;                      // [T][J]
-  const bf16 *w_h, *w_t;               // weight blobs
+  const bf16 *w_h, *w_t;               // staged weight blobs
   const float *b_h, *b_t;              // bias blobs
   float *out_h, *out_c;                // [n_pad][3]
   int* slabs;                          // [T] slabs evaluated per tile
@@ -101,11 +101,10 @@ struct Params {
 };
 
 template <bool EVAL_H, bool EVAL_T, bool BG_IN_KERNEL>
-__global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem + SM_X);
-  bf16* Y = reinterpret_cast<bf16*>(smem + SM_Y);
-  bf16* P = reinterpret_cast<bf16*>(smem + SM_P);
+__global__ void __launch_bounds__(NTHR_W, 1) render_rays_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* H = reinterpret_cast<bf16*>(smem + SMW_H);
+  bf16* P = reinterpret_cast<bf16*>(smem + SMW_P);
   float* t_head = reinterpret_cast<float*>(smem + SM_STATE);
   float* t_com = t_head + RT;
   float* acc_h = reinterpret_cast<float*>(smem + SM_ACC);
@@ -115,29 +114,58 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
   float* rgb_h = sig_t + M;
   float* rgb_t = rgb_h + M * 3;
   float* red = reinterpret_cast<float*>(smem + SM_RED);
+  float* b_h = reinterpret_cast<float*>(smem + SM_BIAS_H);
+  float* b_t = reinterpret_cast<float*>(smem + SM_BIAS_T);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, t = tid & 127, row0 = wg * WG_ROWS;
   const int tile = blockIdx.x;
   const int J = p.n_slabs;
   const int n_pad = p.n_tiles * RT;
 
-  t_head[tid] = 1.f;
-  t_com[tid] = 1.f;
-  for (int c = 0; c < 3; ++c) {
-    acc_h[tid * 3 + c] = 0.f;
-    acc_c[tid * 3 + c] = 0.f;
+  if (tid < RT) {
+    t_head[tid] = 1.f;
+    t_com[tid] = 1.f;
+    for (int c = 0; c < 3; ++c) {
+      acc_h[tid * 3 + c] = 0.f;
+      acc_c[tid * 3 + c] = 0.f;
+    }
   }
+  if constexpr (EVAL_H) stage_biases(b_h, p.b_h, B_END);
+  if constexpr (EVAL_T) stage_biases(b_t, p.b_t, TORSO_BEND);
+  Ring ring;
+  ring.init(smem);
+  ring_init(smem);
   int n_run = 0;
 
 #pragma unroll 1
   for (int j = 0; j < J; ++j) {
     const bool is_last = j == J - 1;
     __syncthreads();
-    const float mx = block_max(fmaxf(t_head[tid], t_com[tid]), red);
-    const bool alive = (mx > p.ert_eps && p.occ[tile * J + j] != 0) || (BG_IN_KERNEL && is_last);
+    float m = tid < RT ? fmaxf(t_head[tid], t_com[tid]) : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0 && tid < NCONS) red[warp] = m;
     __syncthreads();
+    float mx = red[0];
+#pragma unroll
+    for (int w = 1; w < NCONS / 32; ++w) mx = fmaxf(mx, red[w]);
+    // red is written again only after the next slab's first barrier
+    const bool alive = (mx > p.ert_eps && p.occ[tile * J + j] != 0) || (BG_IN_KERNEL && is_last);
     if (!alive) continue;
     ++n_run;
+
+    if (tid >= NCONS) {  // the producer warp: this slab's chunks' weights
+      if (tid == NCONS) {
+#pragma unroll 1
+        for (int c = 0; c < 2 * SS; ++c) {
+          if constexpr (EVAL_H) ring.produce(p.w_h, NS_HEAD, 1);
+          if constexpr (EVAL_T) ring.produce(p.w_t, NS_TORSO, 1);
+        }
+      }
+      __syncwarp();
+      continue;
+    }
 
 #pragma unroll 1
     for (int c = 0; c < 2 * SS; ++c) {
@@ -149,28 +177,29 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
 
       // head field
       if constexpr (EVAL_H) {
-        encode(P, p.o_h, p.d_h, zs, p.freq, p.phase, ray0, tid);
-        __syncthreads();
-        trunk_and_heads<PEW>(X, Y, P, p.w_h, p.b_h, p.vr_h, ray0, p.softplus, sig_h, rgb_h, warp,
-                             lane);
+        wg_encode(P, p.o_h, p.d_h, zs, p.freq, p.phase, ray0, row0, t);
+        wg_sync(wg);
+        wg_trunk_and_heads<PEW>(H, P, p.w_h, b_h, p.vr_h, ray0, p.softplus, sig_h, rgb_h,
+                                ring, wg, warp, lane);
       }
 
       // torso field: deform, then the trunk on p' = deform + sig_pad + pe
       if constexpr (EVAL_T) {
-        encode(P, p.o_t, p.d_t, zs, p.freq, p.phase, ray0, tid);
-        __syncthreads();
-        deform(X, Y, P, p.w_t, p.b_t, warp, lane);
-        trunk_and_heads<DEF>(X, Y, P, p.w_t, p.b_t, p.vr_t, ray0, p.softplus, sig_t, rgb_t, warp,
-                             lane);
+        wg_encode(P, p.o_t, p.d_t, zs, p.freq, p.phase, ray0, row0, t);
+        wg_sync(wg);
+        wg_deform(H, P, b_t, ring, wg, warp & 3, lane);
+        wg_trunk_and_heads<DEF>(H, P, p.w_t, b_t, p.vr_t, ray0, p.softplus, sig_t, rgb_t,
+                                ring, wg, warp, lane);
       }
-      __syncthreads();
+      wg_sync(wg);
 
-      // composite sample s of rays r0 .. r0 + 128
-      if (tid < M) {
-        const int r = r0 + tid;
+      // composite sample s of the warpgroup's 64 rays
+      if (t < WG_ROWS) {
+        const int row = row0 + t;
+        const int r = r0 + row;
         const int gr = tile * RT + r;
         const float lastf = (BG_IN_KERNEL && is_last && s == SS - 1) ? 1.f : 0.f;
-        const float sh = EVAL_H ? sig_h[tid] : 0.f, st = EVAL_T ? sig_t[tid] : 0.f;
+        const float sh = EVAL_H ? sig_h[row] : 0.f, st = EVAL_T ? sig_t[row] : 0.f;
         const float dh = p.dists_h[sg * n_pad + gr], dt = p.dists_t[sg * n_pad + gr];
         const float sh_head = sh + 1e-6f * lastf;
         const float st_com = st * (1.f - lastf) + 1e-6f * lastf;
@@ -182,8 +211,8 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           const float ch =
-              (EVAL_H ? rgb_h[tid * 3 + k] : 0.f) * (1.f - lastf) + p.bc[gr * 3 + k] * lastf;
-          const float ct = EVAL_T ? rgb_t[tid * 3 + k] : 0.f;
+              (EVAL_H ? rgb_h[row * 3 + k] : 0.f) * (1.f - lastf) + p.bc[gr * 3 + k] * lastf;
+          const float ct = EVAL_T ? rgb_t[row * 3 + k] : 0.f;
           acc_h[r * 3 + k] = acc_h[r * 3 + k] + (alpha_h * th) * ch;
           const float c_mix = (sh * ch + st_com * ct) / denom;
           acc_c[r * 3 + k] = acc_c[r * 3 + k] + (alpha_c * tc) * c_mix;
@@ -191,19 +220,21 @@ __global__ void __launch_bounds__(NTHR, 1) render_rays_kernel(const Params p) {
         t_head[r] = th * (1.f - alpha_h + 1e-10f);
         t_com[r] = tc * (1.f - alpha_c + 1e-10f);
       }
-      // the next chunk's head pass rewrites sig/rgb only after several
-      // barriers; no barrier is needed here
+      // the next chunk's head pass rewrites the warpgroup's sig/rgb rows
+      // only after several of its barriers
     }
   }
   __syncthreads();
-  const int gr = tile * RT + tid;
-  for (int k = 0; k < 3; ++k) {
-    p.out_h[gr * 3 + k] = acc_h[tid * 3 + k];
-    p.out_c[gr * 3 + k] = acc_c[tid * 3 + k];
-  }
-  if constexpr (!BG_IN_KERNEL) {
-    p.t_out_h[gr] = t_head[tid];
-    p.t_out_c[gr] = t_com[tid];
+  if (tid < RT) {
+    const int gr = tile * RT + tid;
+    for (int k = 0; k < 3; ++k) {
+      p.out_h[gr * 3 + k] = acc_h[tid * 3 + k];
+      p.out_c[gr * 3 + k] = acc_c[tid * 3 + k];
+    }
+    if constexpr (!BG_IN_KERNEL) {
+      p.t_out_h[gr] = t_head[tid];
+      p.t_out_c[gr] = t_com[tid];
+    }
   }
   if (tid == 0) p.slabs[tile] = n_run;
 }
@@ -214,7 +245,7 @@ int launch(const Params& p, void* stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<p.n_tiles, NTHR, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<p.n_tiles, NTHR_W, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -222,12 +253,13 @@ int launch(const Params& p, void* stream) {
 
 extern "C" {
 
-// Sizes the Python wrapper checks its blobs against: head weight and bias
-// blob lengths, torso weight and bias blob lengths, dynamic shared memory.
+// Sizes the Python wrapper checks its blobs against: head staged weight and
+// bias blob lengths, torso staged weight and bias blob lengths (ops/_build.py
+// ring_blob), dynamic shared memory.
 int render_rays_layout(int* sizes) {
-  sizes[0] = WOff<PEW>::END;
+  sizes[0] = Staged<PEW>::END;
   sizes[1] = B_END;
-  sizes[2] = TORSO_WEND;
+  sizes[2] = Staged<DEF>::END;
   sizes[3] = TORSO_BEND;
   sizes[4] = SMEM_BYTES;
   return 0;

@@ -19,17 +19,47 @@ def test_sources_list_every_kernel():
         assert (_build.CSRC / f"{name}.cu").exists()
 
 
-@pytest.mark.parametrize("name", _build.SOURCES)
-def test_digest_covers_the_included_header(tmp_path, name):
+# The wgmma core (render_rays, pair_field) and the mma.sync core (the
+# others), each over the shared layout header.
+WGMMA = ("render_rays", "pair_field")
+HEADERS = {name: ["field_wgmma.cuh" if name in WGMMA else "field_mlp.cuh", "field_common.cuh"]
+           for name in _build.SOURCES}
+
+
+@pytest.mark.parametrize("name,header", [(n, h) for n in _build.SOURCES for h in HEADERS[n]])
+def test_digest_covers_the_included_header(tmp_path, name, header):
+    """A library's digest follows every csrc header its source includes,
+    directly or through another header."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    assert [h.name for h in _build.local_includes(csrc / f"{name}.cu")] == ["field_mlp.cuh"]
+    assert [h.name for h in _build.local_includes(csrc / f"{name}.cu")] == HEADERS[name]
     same = _build.library_path(name, csrc)
     assert same == _build.library_path(name)
-    header = csrc / "field_mlp.cuh"
-    header.write_text(header.read_text().replace("constexpr int M = 128;", "constexpr int M = 64;"))
+    path = csrc / header
+    text = path.read_text()
+    assert "constexpr int M = 128;" in text or header != "field_common.cuh"
+    path.write_text(text.replace("constexpr int M = 128;", "constexpr int M = 64;")
+                    if header == "field_common.cuh" else text + "\n// edited\n")
     edited = _build.library_path(name, csrc)
     assert edited != same and edited.parent == same.parent
+
+
+def test_wgmma_kernels_have_no_path_to_the_mma_sync_core():
+    """render_rays and pair_field include the wgmma core and never the
+    mma.sync one, which the other four kernels keep."""
+    for name in _build.SOURCES:
+        includes = [h.name for h in _build.local_includes(_build.CSRC / f"{name}.cu")]
+        assert ("field_mlp.cuh" in includes) == (name not in WGMMA)
+        assert ("field_wgmma.cuh" in includes) == (name in WGMMA)
+
+
+def test_flags_target_sm90a_without_fma_contraction():
+    """wgmma needs the sm_90a target; the numerics contract needs
+    --fmad=false (csrc/render_rays.cu note); -v reports ptxas lines."""
+    flags = _build.NVCC_FLAGS
+    assert flags[flags.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "--fmad=false" in flags and "--use_fast_math" not in flags
+    assert flags[flags.index("-Xptxas") + 1] == "-v"
 
 
 def _bindings():

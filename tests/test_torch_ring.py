@@ -1,0 +1,193 @@
+"""The host side of the wgmma core's weight ring (dfanerf_torch/ops/_build.py
+ring_blob, csrc/field_wgmma.cuh): the staged blob of render_rays and
+pair_field against the ``weight_blobs`` blob it is re-laid from, on packed
+weights of a seeded decoder. Nothing is compiled here: the tests read the
+staged blob as the kernel's wgmma descriptors address it (start address,
+leading byte offset 128 B along K, stride byte offset KS/8 x 128 B along N)
+and walk its slabs in the order the kernel's layers consume them."""
+
+import re
+
+import pytest
+import torch
+
+from dfanerf_torch.models import Decoder, DecoderConfig
+from dfanerf_torch.models.layers import init_uniform_
+from dfanerf_torch.ops import _build
+from dfanerf_torch.ops.fused_render import _field_rows, density_act
+from dfanerf_torch.ops.pack import pack_field_weights
+
+HEADER = (_build.CSRC / "field_wgmma.cuh").read_text()
+ROWS = 64
+
+
+def _const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", HEADER).group(1))
+
+
+@pytest.fixture(scope="module")
+def packed():
+    g = torch.Generator().manual_seed(1)
+    dec = init_uniform_(Decoder(DecoderConfig()), g)
+    vecs = [torch.randn(n, generator=g) for n in (96, 42, 256, 256)]
+    return {"head": pack_field_weights(dec, vecs[0], vecs[2], vecs[3], "head"),
+            "torso": pack_field_weights(dec, vecs[1], vecs[2], vecs[3], "torso")}
+
+
+def _k16_tile(slab, n, kk):
+    """The [n][16] B tile of k16 step kk of a staged slab, read as the
+    kernel's descriptor addresses it (offsets in bf16 elements: 8 per 16 B)."""
+    ks = _build.SLAB // n
+    start, lbo, sbo = kk * 128, 64, ks // 8 * 64
+    rows = torch.arange(n)[:, None]
+    cols = torch.arange(16)[None, :]
+    idx = start + (rows // 8) * sbo + (cols // 8) * lbo + (rows % 8) * 8 + cols % 8
+    return slab[idx]
+
+
+def _unstage(staged, pos, n, k):
+    """The [n][k] matrix whose k / KS slabs start at slab ``pos``."""
+    ks = _build.SLAB // n
+    tiles = []
+    for s in range(k // ks):
+        slab = staged[(pos + s) * _build.SLAB:(pos + s + 1) * _build.SLAB]
+        tiles += [_k16_tile(slab, n, kk) for kk in range(ks // 16)]
+    return torch.cat(tiles, dim=1)
+
+
+def test_staged_sizes_match_the_kernel(packed):
+    assert _build.SLAB == _const("SLAB") == 8192
+    for branch, ns in (("head", _const("NS_HEAD")), ("torso", _const("NS_TORSO"))):
+        w, _ = _build.weight_blobs(packed[branch], branch)
+        staged = _build.ring_blob(w, branch)
+        assert staged.dtype == torch.bfloat16 and staged.is_contiguous()
+        assert staged.numel() == ns * _build.SLAB + 2 * 8 * 256
+        assert sum(n * k for _, n, k in _build.ring_layers(branch)) == ns * _build.SLAB
+    assert (_const("NS_HEAD"), _const("NS_DEFORM"), _const("NS_TORSO")) == (68, 12, 84)
+
+
+@pytest.mark.parametrize("branch", ["head", "torso"])
+def test_slabs_hold_the_blob_matrices(packed, branch):
+    """Every ring slab, read through the descriptors, is the k-slab of the
+    [out][in] matrix it stands for, bit for bit; the narrow rows follow."""
+    w, _ = _build.weight_blobs(packed[branch], branch)
+    staged = _build.ring_blob(w, branch)
+    pos = 0
+    for off, n, k in _build.ring_layers(branch):
+        assert torch.equal(_unstage(staged, pos, n, k), w[off:off + n * k].reshape(n, k))
+        pos += n * k // _build.SLAB
+    pw = packed[branch]
+    narrow = staged[pos * _build.SLAB:].reshape(2, 8, 256)
+    assert torch.equal(narrow[0], pw["w_sf"][:, :8].t())
+    assert torch.equal(narrow[1], pw["w_out"][:, :8].t())
+
+
+@pytest.mark.parametrize("branch", ["head", "torso"])
+def test_ring_walk_reproduces_each_product(packed, branch):
+    """Summing the k16 steps of each layer's slabs, as the kernel's wgmma
+    chain does, gives the product with the [out][in] matrix of the blob."""
+    w, _ = _build.weight_blobs(packed[branch], branch)
+    staged = _build.ring_blob(w, branch)
+    g = torch.Generator().manual_seed(2)
+    pos = 0
+    for off, n, k in _build.ring_layers(branch):
+        a = torch.randn(ROWS, k, generator=g).to(torch.bfloat16).float()
+        ks = _build.SLAB // n
+        acc = torch.zeros(ROWS, n)
+        for s in range(k // ks):
+            slab = staged[(pos + s) * _build.SLAB:(pos + s + 1) * _build.SLAB]
+            for kk in range(ks // 16):
+                k0 = s * ks + kk * 16
+                acc += a[:, k0:k0 + 16] @ _k16_tile(slab, n, kk).float().t()
+        want = a @ w[off:off + n * k].reshape(n, k).float().t()
+        torch.testing.assert_close(acc, want, rtol=1e-5, atol=1e-4)
+        pos += k // ks
+
+
+def _walk_field(staged, b, x, vr, branch, act):
+    """The field over rows x [ROWS, 64] bf16 with every wide layer's weight
+    taken from the staged blob by a cursor, in the order the kernel's code
+    runs its layers (field_wgmma.cuh wg_deform, wg_trunk, wg_trunk_and_heads)."""
+    cur = [0]
+
+    def take(n, k):
+        m = _unstage(staged, cur[0], n, k)
+        cur[0] += n * k // _build.SLAB
+        return m.float().t().contiguous()
+
+    def mm(a, wt):
+        return a.to(torch.bfloat16).float() @ wt
+
+    def relu_layer(a, n, k, bias):
+        return (mm(a, take(n, k)) + bias).relu().to(torch.bfloat16).float()
+
+    b_in, b_blk, b_skip, b_sf, b_out = 0, 256, 256 + 7 * 256, 256 + 8 * 256, 256 + 8 * 256 + 384
+    pe = x.float()
+    if branch == "torso":
+        db1, dbk = b_out + 8, b_out + 8 + 128
+        dbskip, dbout, sig_pad = dbk + 4 * 128, dbk + 5 * 128, dbk + 6 * 128
+        h = relu_layer(pe, 128, 64, b[db1:db1 + 128])
+        h = relu_layer(h, 128, 128, b[dbk:dbk + 128])
+        h = relu_layer(h, 128, 128, b[dbk + 128:dbk + 256])
+        h = (mm(h, take(128, 128)) + b[dbk + 256:dbk + 384]).relu()
+        h = (h + mm(pe, take(128, 64)) + b[dbskip:dbskip + 128]).to(torch.bfloat16).float()
+        h = relu_layer(h, 128, 128, b[dbk + 384:dbk + 512])
+        d = mm(h, take(128, 128)) + b[dbout:dbout + 128] + b[sig_pad:sig_pad + 128]
+        x = (d + torch.cat([pe, torch.zeros_like(pe)], dim=1)).to(torch.bfloat16).float()
+    k_in = x.shape[1]
+    h = relu_layer(x, 256, k_in, b[b_in:b_in + 256])
+    for i in range(7):
+        bias = b[b_blk + i * 256:b_blk + (i + 1) * 256]
+        if i == 3:
+            h = (mm(h, take(256, 256)) + bias).relu()
+            h = (h + mm(x, take(256, k_in)) + b[b_skip:b_skip + 256]).to(torch.bfloat16).float()
+        else:
+            h = relu_layer(h, 256, 256, bias)
+    narrow = staged[-2 * 8 * 256:].reshape(2, 8, 256).float()
+    sigma = mm(h, narrow[0, 0:1].t())[:, 0] + b[b_sf]
+    feat = ((mm(h, take(256, 256)) + b[b_sf + 128:b_sf + 384]) + vr).relu()
+    rgb = torch.sigmoid(mm(feat, narrow[1, 0:3].t()) + b[b_out:b_out + 3])
+    return density_act(sigma, act), rgb, cur[0]
+
+
+@pytest.mark.parametrize("branch", ["head", "torso"])
+def test_ring_walk_runs_the_field(packed, branch):
+    """A plain walk of the staged blob in the kernel's layer order computes
+    the field of the plain version (_field_rows) and consumes every slab."""
+    pw = packed[branch]
+    w, b = _build.weight_blobs(pw, branch)
+    staged = _build.ring_blob(w, branch)
+    g = torch.Generator().manual_seed(3)
+    x = torch.sin(torch.randn(ROWS, 64, generator=g) * 3.0)
+    x[:, 60:] = 0.0
+    x = x.to(torch.bfloat16)
+    vr = torch.randn(ROWS, 256, generator=g) * 0.1
+    sigma, rgb, used = _walk_field(staged, b, x, vr, branch, "softplus")
+    want_sigma, want_rgb = _field_rows(pw, x, vr, branch, "softplus")
+    assert used == _const("NS_HEAD" if branch == "head" else "NS_TORSO")
+    torch.testing.assert_close(sigma, want_sigma, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(rgb, want_rgb, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["staged", "plain", "neither"])
+def test_binding_hands_each_library_the_layout_it_reports(packed, layout):
+    """Binding.blobs gives a library the weight blob whose size its
+    <name>_layout reports: staged (the wgmma core) or plain (the mma.sync
+    core); any other size is refused."""
+    binding = _build.Binding("render_rays", {})
+    plain = {br: _build.weight_blobs(packed[br], br) for br in ("head", "torso")}
+    staged = {br: _build.ring_blob(plain[br][0], br) for br in ("head", "torso")}
+    w_sizes = {"staged": {br: staged[br].numel() for br in staged},
+               "plain": {br: plain[br][0].numel() for br in plain},
+               "neither": {br: plain[br][0].numel() + 8 for br in plain}}[layout]
+    binding._lib = object()  # stands in for the loaded library
+    binding._layout = (w_sizes["head"], plain["head"][1].numel(), w_sizes["torso"],
+                       plain["torso"][1].numel(), 0)
+    for br in ("head", "torso"):
+        if layout == "neither":
+            with pytest.raises(ValueError, match="kernel expects"):
+                binding.blobs(packed[br], br, torch.device("cpu"))
+            continue
+        w, b = binding.blobs(packed[br], br, torch.device("cpu"))
+        assert torch.equal(w, staged[br] if layout == "staged" else plain[br][0])
+        assert torch.equal(b, plain[br][1])
