@@ -7,8 +7,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (one nvcc per source, all at once); print each library's ptxas lines
    (registers, spills, stack), each kernel's HGMMA and HMMA count in its
    SASS (cuobjdump) and any ptxas wgmma serialisation warning; fail if a
-   kernel of render_rays or pair_field (the wgmma core) holds no HGMMA or
-   ptxas serialised their wgmma;
+   kernel of the wgmma core's libraries (render_rays, pair_field,
+   render_head, pair_perz) holds no HGMMA or ptxas serialised their wgmma
+   (far_eval, sigma_head and pair_hier run the mma.sync core);
 2. hold each kernel against its plain PyTorch version on the card, on
    seeded full-width inputs, within the stated tolerances: render_rays,
    then pair_field (head and torso, relu and softplus, a pair list with
@@ -233,8 +234,9 @@ def _cuda_call(fn):
 # The libraries whose kernels run the wgmma core (csrc/field_wgmma.cuh):
 # each of their kernels must hold HGMMA instructions, and ptxas must not
 # have serialised their wgmma.
-WGMMA_LIBRARIES = ("render_rays", "pair_field")
-WGMMA_KERNELS = ("render_rays_kernel", "pair_field_kernel", "pair2_field_kernel")
+WGMMA_LIBRARIES = ("render_rays", "pair_field", "render_head", "pair_perz")
+WGMMA_KERNELS = ("render_rays_kernel", "pair_field_kernel", "pair2_field_kernel",
+                 "render_head_kernel", "pair_field_perz_kernel")
 
 
 def _cuobjdump():
@@ -1739,7 +1741,8 @@ def phase_hier_dense_main_path():
               f"{flops / 1e12:.2f} TFLOP at live widths -> {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms "
               f"at bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {nb / 1e6:.1f} MB",
               flush=True)
-    print(f"[hier dense] render_head slabs run {int(slabs.sum())} of {T * (S_f // 8)}; frame-level "
+    print(f"[hier dense] render_head slabs run {int(slabs.sum())} of {T * (S_f // 8)}; L2 weight "
+          f"rate {_l2_rate(('head',), float(slabs.sum()) * 16, ms_b):.3f} TB/s; frame-level "
           f"error vs plain {frame_err:.3e}; library_ms is null for sigma_head and render_head: no "
           f"single PyTorch call computes a packed NeRF field", flush=True)
     entries = [_entry("sigma_head", "sigma_head.cu", "dfanerf_tpu/ops/fused_render.py:837",
@@ -1946,12 +1949,13 @@ def phase_hier_pair_main_path(noskip_frames):
         print(f"[hier pair] {name}: {K} pairs, {ms:.3f} ms per launch; plain {plain_ms:.1f} ms; "
               f"{flops / 1e12:.3f} TFLOP at live widths -> {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at "
               f"bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {nb / 1e6:.1f} MB", flush=True)
-    print(f"[hier pair] frame-level error vs plain {err:.3e}; library_ms is null for pair_sigma "
+    print(f"[hier pair] pair_field_perz L2 weight rate {_l2_rate(('head',), K_f * 16, ms_f):.3f} "
+          f"TB/s; frame-level error vs plain {err:.3e}; library_ms is null for pair_sigma "
           f"and pair_field_perz: no single PyTorch call computes a packed NeRF field on listed "
           f"(tile, slab) pairs", flush=True)
     return [_entry("pair_sigma", "pair_hier.cu", "dfanerf_tpu/ops/fused_render.py:2165",
                    launches["pair_sigma"], err_c, ms_c, plain_c, flops_c, bytes_c),
-            _entry("pair_field_perz", "pair_hier.cu", "dfanerf_tpu/ops/fused_render.py:2256",
+            _entry("pair_field_perz", "pair_perz.cu", "dfanerf_tpu/ops/fused_render.py:2256",
                    launches["pair_field_perz"], err_f, ms_f, plain_f, flops_f, bytes_f)]
 
 

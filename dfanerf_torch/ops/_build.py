@@ -6,9 +6,10 @@ includes (``#include "x.cuh"``, followed through headers) and the flags, so an
 edited source or header is rebuilt and a stale library is never loaded. Sources build
 in parallel, one nvcc process each. The wrappers load the libraries with
 ctypes through ``Binding``, which also lays out a field's weights for the
-kernels (``weight_blobs``; for the wgmma core of render_rays and pair_field,
-re-laid into its weight ring's slabs by ``ring_blob``) and launches them;
-nothing is built when a module is imported.
+kernels (``weight_blobs``; for the wgmma core of render_rays, pair_field,
+render_head and pair_perz, re-laid into its weight ring's slabs by
+``ring_blob``) and launches them; nothing is built when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("render_rays", "pair_field", "far_eval", "sigma_head", "render_head", "pair_hier")
+SOURCES = ("render_rays", "pair_field", "far_eval", "sigma_head", "render_head", "pair_hier",
+           "pair_perz")
 LAYOUT_SIZES = 5  # ints a library's <name>_layout writes: weight and bias blob sizes, smem
 # --fmad=false: the kernels mirror their plain versions' float32 rounding
 # (see the note in csrc/render_rays.cu); -Xptxas -v reports registers, shared

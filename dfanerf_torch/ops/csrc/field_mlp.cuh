@@ -1,8 +1,8 @@
 // The mma.sync device core of the port's field kernels (far_eval.cu,
-// sigma_head.cu, render_head.cu, pair_hier.cu): one packed, frame-folded
-// field (ops/pack.py, layout in field_common.cuh) evaluated over a chunk of
-// 128 rows by a block of 8 warps. render_rays.cu and pair_field.cu run the
-// wgmma core instead (field_wgmma.cuh).
+// sigma_head.cu, pair_hier.cu): one packed, frame-folded field (ops/pack.py,
+// layout in field_common.cuh) evaluated over a chunk of 128 rows by a block
+// of 8 warps. render_rays.cu, pair_field.cu, render_head.cu and pair_perz.cu
+// run the wgmma core instead (field_wgmma.cuh).
 //
 // Matrix products are mma.sync m16n8k16 bf16 x bf16 -> fp32. Each warp owns
 // 32 output columns (16 in the 128-wide deform net) for all 128 rows; A
@@ -155,23 +155,6 @@ __device__ __forceinline__ void encode(bf16* P, const float* o, const float* d, 
       const float pts = o[k] + d[k] * zs;
       const float arg = pts * freq[c] + phase[c];
       v = sinf(arg);
-    }
-    P[row * LDP + c] = __float2bfloat16_rn(v);
-  }
-}
-
-// As encode, with a depth per ray (the hierarchical fine pass): row r of
-// the chunk takes z[r], where z points at ray ray0's depth.
-__device__ __forceinline__ void encode_perz(bf16* P, const float* o, const float* d,
-                                            const float* z, const float* freq,
-                                            const float* phase, int ray0, int tid) {
-  for (int idx = tid; idx < M * PEW; idx += NTHR) {
-    const int row = idx >> 6, c = idx & (PEW - 1);
-    float v = 0.f;
-    if (c < 60) {
-      const int k = (ray0 + row) * 3 + c % 3;
-      const float pts = o[k] + d[k] * z[row];
-      v = sinf(pts * freq[c] + phase[c]);
     }
     P[row * LDP + c] = __float2bfloat16_rn(v);
   }

@@ -1,9 +1,9 @@
-// The wgmma device core of the port's dense and pair field kernels
-// (render_rays.cu, pair_field.cu): one packed, frame-folded field (ops/pack.py,
-// layout in field_common.cuh) evaluated over a chunk of 128 rows by two
-// consumer warpgroups, with the weights fed by a producer warp through a
-// ring of shared-memory stages. The other field kernels keep the mma.sync
-// core of field_mlp.cuh.
+// The wgmma device core of the port's dense, pair and per-ray-depth field
+// kernels (render_rays.cu, pair_field.cu, render_head.cu, pair_perz.cu): one
+// packed, frame-folded field (ops/pack.py, layout in field_common.cuh)
+// evaluated over a chunk of 128 rows by two consumer warpgroups, with the
+// weights fed by a producer warp through a ring of shared-memory stages. The
+// other field kernels keep the mma.sync core of field_mlp.cuh.
 //
 // What bounds the mma.sync core, and what this one does about each:
 // 1. Weights streamed from L2 by every warp, one k-step ahead, with one
@@ -450,6 +450,25 @@ __device__ __forceinline__ void wg_encode(bf16* P, const float* o, const float* 
     if (c < 60) {
       const int k = (ray0 + row) * 3 + c % 3;
       const float pts = o[k] + d[k] * zs;
+      const float arg = pts * freq[c] + phase[c];
+      v = sinf(arg);
+    }
+    P[row * LDP + c] = __float2bfloat16_rn(v);
+  }
+}
+
+// As wg_encode, with a depth per row (the hierarchical fine pass): row
+// `row` of the chunk takes z[row], where z points at ray ray0's depth. The
+// expression and its rounding are wg_encode's.
+__device__ __forceinline__ void wg_encode_perz(bf16* P, const float* o, const float* d,
+                                               const float* z, const float* freq,
+                                               const float* phase, int ray0, int row0, int t) {
+  for (int idx = t; idx < WG_ROWS * PEW; idx += 128) {
+    const int row = row0 + (idx >> 6), c = idx & (PEW - 1);
+    float v = 0.f;
+    if (c < 60) {
+      const int k = (ray0 + row) * 3 + c % 3;
+      const float pts = o[k] + d[k] * z[row];
       const float arg = pts * freq[c] + phase[c];
       v = sinf(arg);
     }

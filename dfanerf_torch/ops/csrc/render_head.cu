@@ -17,28 +17,44 @@
 // What bounds it on the H100. 1,112,064 FLOP of matrix products per (ray,
 // sample) at live widths (field_flops_per_sample("head")) against 8 bytes of
 // per-sample input (depth, interval) and ~550 bytes per ray: bound by
-// operations (bf16 tensor-core rate), not by device memory.
+// operations (bf16 tensor-core rate), not by device memory. The head's
+// weights stream from L2 once per 128-row chunk (1.1 MB as staged ring
+// slabs), so at the operation bound the L2 would have to deliver ~7.5 TB/s,
+// as in render_rays.cu.
 //
-// Design: render_rays.cu's loop with the head stack only (the field's device
-// code is shared through field_mlp.cuh). One block of 8 warps per tile
-// loops over the slabs (the TPU's sequential slab grid axis); the per-ray
-// transmittance and rgb sum live in shared memory, and the ERT test at each
-// slab start is a block-wide max (field_mlp.cuh block_max, as in
-// render_rays.cu), so the kernel skips exactly the slabs the TPU kernel
-// skips. A slab runs in 16 chunks of 128 rows (one sample, half the rays),
-// each encoded at its rays' own depths (encode_perz) and composited
-// straight away. Built with --fmad=false and the accurate sinf/expf, as the
-// other field kernels.
+// Design: render_rays.cu's with the head stack only (the field's device code
+// is field_wgmma.cuh, whose note says what bounded the mma.sync design and
+// what the wgmma core does about it):
+// - One block per 256-ray tile: two consumer warpgroups and a producer warp
+//   that streams the head's weight slabs through the 5-stage shared-memory
+//   ring; the head's biases are staged into shared memory once per block.
+//   The block loops over the slabs (the TPU's sequential slab grid axis);
+//   the per-ray transmittance and rgb sum live in shared memory, and the
+//   ERT test at each slab start is a block-wide max over the 256 rays in
+//   which the producer takes part, so the kernel skips exactly the slabs the
+//   TPU kernel skips, and the producer issues a slab's weights only once the
+//   slab is known to run: no copy is left in flight at the end.
+// - A slab runs in 16 chunks of 128 rows (one sample, half the rays). Each
+//   warpgroup encodes its 64 rows at their rays' own depths
+//   (wg_encode_perz), runs the head on them and composites its 64 rays'
+//   sample straight away, since every chunk of sample s precedes every
+//   chunk of sample s + 1.
+// - Built with --fmad=false and the accurate sinf/expf, as the other field
+//   kernels.
 
-#include "field_mlp.cuh"
+#include "field_wgmma.cuh"
 
 namespace {
 
-constexpr int SM_STATE = SM_FIELD_END;           // t_acc [RT]
-constexpr int SM_ACC = SM_STATE + RT * 4;        // acc [RT][3]
-constexpr int SM_RES = SM_ACC + RT * 3 * 4;      // sig [M], rgb [M][3]
-constexpr int SM_RED = SM_RES + M * 4 * 4;       // 8 floats
-constexpr int SMEM_BYTES = SM_RED + 8 * 4;
+// Shared memory (bytes): the field's ring, buffers and barriers
+// (field_wgmma.cuh), the head's biases, then the compositing state.
+constexpr int SM_BIAS = SMW_FIELD_END;          // head bias blob [B_END]
+constexpr int SM_STATE = SM_BIAS + B_END * 4;   // t_acc [RT]
+constexpr int SM_ACC = SM_STATE + RT * 4;       // acc [RT][3]
+constexpr int SM_RES = SM_ACC + RT * 3 * 4;     // sig [M], rgb [M][3]
+constexpr int SM_RED = SM_RES + M * 4 * 4;      // one float per consumer warp
+constexpr int SMEM_BYTES = SM_RED + NCONS / 32 * 4;
+static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 
 struct Params {
   const float *o, *d;         // [n_pad][3]
@@ -48,7 +64,7 @@ struct Params {
   const float* bc;            // [n_pad][3]
   const float *freq, *phase;  // [64]
   const int* occ;             // [T][J]
-  const bf16* w;              // head weight blob
+  const bf16* w;              // staged head weight blob
   const float* b;             // head bias blob
   float* out;                 // [n_pad][3]
   int* slabs;                 // [T] slabs evaluated per tile
@@ -56,11 +72,11 @@ struct Params {
   float ert_eps;
 };
 
-__global__ void __launch_bounds__(NTHR, 1) render_head_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem + SM_X);
-  bf16* Y = reinterpret_cast<bf16*>(smem + SM_Y);
-  bf16* P = reinterpret_cast<bf16*>(smem + SM_P);
+__global__ void __launch_bounds__(NTHR_W, 1) render_head_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* H = reinterpret_cast<bf16*>(smem + SMW_H);
+  bf16* P = reinterpret_cast<bf16*>(smem + SMW_P);
+  float* b = reinterpret_cast<float*>(smem + SM_BIAS);
   float* t_acc = reinterpret_cast<float*>(smem + SM_STATE);
   float* acc = reinterpret_cast<float*>(smem + SM_ACC);
   float* sig = reinterpret_cast<float*>(smem + SM_RES);
@@ -68,56 +84,86 @@ __global__ void __launch_bounds__(NTHR, 1) render_head_kernel(const Params p) {
   float* red = reinterpret_cast<float*>(smem + SM_RED);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, t = tid & 127, row0 = wg * WG_ROWS;
   const int tile = blockIdx.x;
   const int J = p.n_slabs;
   const int n_pad = p.n_tiles * RT;
 
-  t_acc[tid] = 1.f;
-  for (int c = 0; c < 3; ++c) acc[tid * 3 + c] = 0.f;
+  if (tid < RT) {
+    t_acc[tid] = 1.f;
+    for (int c = 0; c < 3; ++c) acc[tid * 3 + c] = 0.f;
+  }
+  stage_biases(b, p.b, B_END);
+  Ring ring;
+  ring.init(smem);
+  ring_init(smem);
   int n_run = 0;
 
 #pragma unroll 1
   for (int j = 0; j < J; ++j) {
     const bool is_last = j == J - 1;
     __syncthreads();
-    const float mx = block_max(t_acc[tid], red);
-    const bool alive = (mx > p.ert_eps && p.occ[tile * J + j] != 0) || is_last;
+    float m = tid < RT ? t_acc[tid] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0 && tid < NCONS) red[warp] = m;
     __syncthreads();
+    float mx = red[0];
+#pragma unroll
+    for (int w = 1; w < NCONS / 32; ++w) mx = fmaxf(mx, red[w]);
+    // red is written again only after the next slab's first barrier
+    const bool alive = (mx > p.ert_eps && p.occ[tile * J + j] != 0) || is_last;
     if (!alive) continue;
     ++n_run;
 
+    if (tid >= NCONS) {  // the producer warp: this slab's chunks' weights
+      if (tid == NCONS) ring.produce(p.w, NS_HEAD, 2 * SS);
+      __syncwarp();
+      continue;
+    }
+
+    // The weight pointer, made opaque to the compiler once per slab: left
+    // visible, ptxas hoists narrow8's per-thread weight addresses out of the
+    // slab loop and spills them (368 B at the core's 168 registers).
+    const bf16* w = p.w;
+    asm volatile("" : "+l"(w));
 #pragma unroll 1
     for (int c = 0; c < 2 * SS; ++c) {
       const int s = c >> 1;
       const int r0 = (c & 1) * M;
       const int ray0 = tile * RT + r0;
       const int sg = j * SS + s;
-      encode_perz(P, p.o, p.d, p.z + sg * n_pad + ray0, p.freq, p.phase, ray0, tid);
-      __syncthreads();
-      trunk_and_heads<PEW>(X, Y, P, p.w, p.b, p.vr, ray0, p.softplus, sig, rgb, warp, lane);
-      __syncthreads();
+      wg_encode_perz(P, p.o, p.d, p.z + sg * n_pad + ray0, p.freq, p.phase, ray0, row0, t);
+      wg_sync(wg);
+      wg_trunk_and_heads<PEW>(H, P, w, b, p.vr, ray0, p.softplus, sig, rgb, ring, wg, warp,
+                              lane);
+      wg_sync(wg);
 
-      // composite sample s of rays r0 .. r0 + 128
-      if (tid < M) {
-        const int r = r0 + tid;
+      // composite sample s of the warpgroup's 64 rays
+      if (t < WG_ROWS) {
+        const int row = row0 + t;
+        const int r = r0 + row;
         const int gr = tile * RT + r;
         const float lastf = (is_last && s == SS - 1) ? 1.f : 0.f;
-        const float sh = sig[tid] + 1e-6f * lastf;
+        const float sh = sig[row] + 1e-6f * lastf;
         const float th = t_acc[r];
         const float alpha = 1.f - expf(-(sh + 1e-6f) * p.dists[sg * n_pad + gr]);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          const float ch = rgb[tid * 3 + k] * (1.f - lastf) + p.bc[gr * 3 + k] * lastf;
+          const float ch = rgb[row * 3 + k] * (1.f - lastf) + p.bc[gr * 3 + k] * lastf;
           acc[r * 3 + k] = acc[r * 3 + k] + (alpha * th) * ch;
         }
         t_acc[r] = th * (1.f - alpha + 1e-10f);
       }
-      // the next chunk rewrites sig/rgb only after several barriers
+      // the next chunk's head pass rewrites the warpgroup's sig/rgb rows
+      // only after several of its barriers
     }
   }
   __syncthreads();
-  const int gr = tile * RT + tid;
-  for (int k = 0; k < 3; ++k) p.out[gr * 3 + k] = acc[tid * 3 + k];
+  if (tid < RT) {
+    const int gr = tile * RT + tid;
+    for (int k = 0; k < 3; ++k) p.out[gr * 3 + k] = acc[tid * 3 + k];
+  }
   if (tid == 0) p.slabs[tile] = n_run;
 }
 
@@ -125,10 +171,11 @@ __global__ void __launch_bounds__(NTHR, 1) render_head_kernel(const Params p) {
 
 extern "C" {
 
-// Sizes the Python wrapper checks its blobs against: head weight and bias
-// blob lengths, two unused torso slots, dynamic shared memory.
+// Sizes the Python wrapper checks its blobs against: head staged weight and
+// bias blob lengths (ops/_build.py ring_blob), two unused torso slots,
+// dynamic shared memory.
 int render_head_layout(int* sizes) {
-  sizes[0] = WOff<PEW>::END;
+  sizes[0] = Staged<PEW>::END;
   sizes[1] = B_END;
   sizes[2] = 0;
   sizes[3] = 0;
@@ -163,7 +210,7 @@ int render_head_launch(const float* o, const float* d, const float* z, const flo
   p.n_slabs = n_slabs;
   p.softplus = softplus;
   p.ert_eps = ert_eps;
-  render_head_kernel<<<n_tiles, NTHR, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
+  render_head_kernel<<<n_tiles, NTHR_W, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

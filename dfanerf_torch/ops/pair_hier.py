@@ -20,10 +20,10 @@ writes it. An empty list returns zero buffers without a launch (reference
 Two implementations of each over the same operands:
 
 - ``pair_sigma_kernel`` and ``pair_field_perz_kernel``: the hand-written
-  CUDA kernels of csrc/pair_hier.cu (the ports of the Pallas
-  ``_pair_sigma_kernel`` and ``_pair_field_perz_kernel``), one block per
-  listed pair, bound with ctypes and built at first launch, each counting
-  its launches in ``.launches``.
+  CUDA kernels of csrc/pair_hier.cu (mma.sync core) and csrc/pair_perz.cu
+  (wgmma core), the ports of the Pallas ``_pair_sigma_kernel`` and
+  ``_pair_field_perz_kernel``, one block per listed pair, bound with ctypes
+  and built at first launch, each counting its launches in ``.launches``.
 - ``pair_sigma_eval_reference`` and ``pair_field_eval_perz_reference``:
   their plain PyTorch versions, with the same bf16 rounding points and NaN
   in every unlisted block, standing in for the kernels' unwritten memory.
@@ -153,11 +153,11 @@ class PairSigmaKernel(_build.Binding):
 
 
 class PairFieldPerzKernel(_build.Binding):
-    """ctypes binding of csrc/pair_hier.cu's pair_field_perz."""
+    """ctypes binding of csrc/pair_perz.cu's pair_field_perz."""
 
     def __init__(self):
         ptr = ctypes.c_void_p
-        super().__init__("pair_hier", {
+        super().__init__("pair_perz", {
             "pair_field_perz_launch": [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]})
 
     def __call__(self, pw, rays_o, rays_d, vr, z_buf, t_idx, j_idx, act: str = "relu") -> Buffers:

@@ -15,9 +15,9 @@ Two implementations over the same prepared operands
 (``prepare_head_operands``):
 
 - ``render_head_kernel``: the hand-written CUDA kernel csrc/render_head.cu
-  (the port of the Pallas ``_head_kernel``), one block per tile, bound with
-  ctypes and built at first launch. It counts its launches in
-  ``render_head_kernel.launches``.
+  (the port of the Pallas ``_head_kernel``, on the wgmma core), one block
+  per tile, bound with ctypes and built at first launch. It counts its
+  launches in ``render_head_kernel.launches``.
 - ``fused_render_head_reference``: its plain PyTorch version, with the same
   bf16 rounding points and the same per-tile ERT/occupancy decisions and
   compositing recurrence.

@@ -1,10 +1,12 @@
 """The host side of the wgmma core's weight ring (dfanerf_torch/ops/_build.py
-ring_blob, csrc/field_wgmma.cuh): the staged blob of render_rays and
-pair_field against the ``weight_blobs`` blob it is re-laid from, on packed
-weights of a seeded decoder. Nothing is compiled here: the tests read the
-staged blob as the kernel's wgmma descriptors address it (start address,
-leading byte offset 128 B along K, stride byte offset KS/8 x 128 B along N)
-and walk its slabs in the order the kernel's layers consume them."""
+ring_blob, csrc/field_wgmma.cuh): the staged blob of render_rays,
+pair_field, render_head and pair_perz against the ``weight_blobs`` blob it
+is re-laid from, on packed weights of a seeded decoder. Nothing is compiled
+here: the tests read the staged blob as the kernel's wgmma descriptors
+address it (start address, leading byte offset 128 B along K, stride byte
+offset KS/8 x 128 B along N) and walk its slabs in the order the kernel's
+layers consume them; and each source's ``<name>_layout`` is read to check
+that its library gets the blob of its core."""
 
 import re
 
@@ -191,3 +193,47 @@ def test_binding_hands_each_library_the_layout_it_reports(packed, layout):
         w, b = binding.blobs(packed[br], br, torch.device("cpu"))
         assert torch.equal(w, staged[br] if layout == "staged" else plain[br][0])
         assert torch.equal(b, plain[br][1])
+
+
+# The libraries of the wgmma core; the others run the mma.sync core and
+# take the plain blobs.
+WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz")
+
+
+def _layout_exprs(name):
+    """{slot: C++ expression} of the sizes a source's <name>_layout writes."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    body = re.search(rf"int {name}_layout\(int\* sizes\) {{(.*?)\n}}", src, re.S)
+    assert body, f"{name}.cu defines no {name}_layout"
+    return {int(i): e.strip() for i, e in re.findall(r"sizes\[(\d)\] = ([^;]+);", body.group(1))}
+
+
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_each_library_reports_the_blobs_of_its_core(packed, name):
+    """A source's <name>_layout reports the staged weight size (the ring's
+    slabs and the narrow rows) if it runs the wgmma core and the plain one
+    otherwise, so Binding.blobs hands its library the blob its kernels
+    read; the bias sizes are the plain blobs' in both cores."""
+    plain = {br: _build.weight_blobs(packed[br], br) for br in ("head", "torso")}
+    value = {"Staged<PEW>::END": _const("NS_HEAD") * _const("SLAB") + 2 * 8 * 256,
+             "Staged<DEF>::END": _const("NS_TORSO") * _const("SLAB") + 2 * 8 * 256,
+             "WOff<PEW>::END": plain["head"][0].numel(),
+             "TORSO_WEND": plain["torso"][0].numel(),
+             "B_END": plain["head"][1].numel(), "TORSO_BEND": plain["torso"][1].numel(), "0": 0}
+    exprs = _layout_exprs(name)
+    assert sorted(exprs) == list(range(_build.LAYOUT_SIZES))
+    assert set(exprs[i] for i in range(4)) <= set(value), exprs
+    sizes = [value[exprs[i]] for i in range(4)]
+    branches = ("head", "torso") if sizes[2] else ("head",)
+    assert sizes[2:] == [0, 0] or branches == ("head", "torso")
+    binding = _build.Binding(name, {})
+    binding._lib = object()  # stands in for the loaded library
+    binding._layout = (*sizes, 0)
+    for i, br in enumerate(branches):
+        w_plain, b_plain = plain[br]
+        staged = _build.staged_weight_bytes(br) // 2
+        assert sizes[2 * i] == (staged if name in WGMMA else w_plain.numel()), (name, br)
+        assert sizes[2 * i + 1] == b_plain.numel()
+        w, b = binding.blobs(packed[br], br, torch.device("cpu"))
+        assert torch.equal(w, _build.ring_blob(w_plain, br) if name in WGMMA else w_plain)
+        assert torch.equal(b, b_plain)
