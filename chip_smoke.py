@@ -8,8 +8,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (registers, spills, stack), each kernel's HGMMA and HMMA count in its
    SASS (cuobjdump) and any ptxas wgmma serialisation warning; fail if a
    kernel of the wgmma core's libraries (render_rays, pair_field,
-   render_head, pair_perz) holds no HGMMA or ptxas serialised their wgmma
-   (far_eval, sigma_head and pair_hier run the mma.sync core);
+   render_head, pair_perz, sigma_head, pair_hier) holds no HGMMA or ptxas
+   serialised their wgmma (far_eval runs the mma.sync core);
 2. hold each kernel against its plain PyTorch version on the card, on
    seeded full-width inputs, within the stated tolerances: render_rays,
    then pair_field (head and torso, relu and softplus, a pair list with
@@ -49,7 +49,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    pair_sigma, pair_field_perz) against their plain versions at a 450x450
    frame's rays and 64 + 128 samples, with ERT slab counts, exact zeros in
    clear slabs, pair lists with gaps and empty ones; cross-check the pair
-   kernels with every pair listed against the dense kernels;
+   kernels with every pair listed against the dense kernels (pair_sigma
+   against sigma_head bit for bit);
 11. drive the hierarchical render (BASELINE config 2) through
    encode_frame_signals and make_head_hierarchical_renderer: no-skip for 5
    frames (sigma_head and render_head once per frame), then the
@@ -201,13 +202,15 @@ def _check_frame(tag, head, com):
         _check_image(f"{tag} {name}", img)
 
 
-def _l2_rate(fields, chunks, ms) -> float:
+def _l2_rate(fields, chunks, ms, color=True) -> float:
     """The L2 weight rate (TB/s) of a kernel of the wgmma core: the staged
-    weight bytes of its fields that its 128-row chunks stream, over its
-    time."""
+    weight bytes of its fields that its 128-row chunks stream (the trunk's
+    and the sigma rows only for a density-only kernel, color=False), over
+    its time."""
     from dfanerf_torch.ops._build import staged_weight_bytes
 
-    return sum(staged_weight_bytes(f) for f in fields) * chunks / (ms * 1e-3) / 1e12
+    return (sum(staged_weight_bytes(f, color) for f in fields) * chunks / (ms * 1e-3)
+            / 1e12)
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -234,9 +237,11 @@ def _cuda_call(fn):
 # The libraries whose kernels run the wgmma core (csrc/field_wgmma.cuh):
 # each of their kernels must hold HGMMA instructions, and ptxas must not
 # have serialised their wgmma.
-WGMMA_LIBRARIES = ("render_rays", "pair_field", "render_head", "pair_perz")
+WGMMA_LIBRARIES = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head",
+                   "pair_hier")
 WGMMA_KERNELS = ("render_rays_kernel", "pair_field_kernel", "pair2_field_kernel",
-                 "render_head_kernel", "pair_field_perz_kernel")
+                 "render_head_kernel", "pair_field_perz_kernel", "sigma_head_kernel",
+                 "pair_sigma_kernel")
 
 
 def _cuobjdump():
@@ -1429,7 +1434,7 @@ def phase_hier_kernels_vs_plain():
     plain versions on the card, at a 450x450 frame's rays and the config's
     64 + 128 samples, seeded bf16 packed weights; then the cross-check of
     the two hand-written paths (pair kernels with every pair listed against
-    the dense kernels)."""
+    the dense kernels, pair_sigma against sigma_head bit for bit)."""
     from dfanerf_torch.core.rays import linspace
     from dfanerf_torch.data.synthetic import make_synthetic_scene
     from dfanerf_torch.models import Decoder, DecoderConfig
@@ -1527,16 +1532,17 @@ def phase_hier_kernels_vs_plain():
     print("[hier pair kernels, no pairs] zero buffers, no launch", flush=True)
 
     # cross-check: pair_sigma with every pair listed = sigma_head with every
-    # flag set (the same device code on the same rows)
+    # flag set, bit for bit (the same walk, wg_sigma_walk, on the same rows)
     t_all = torch.arange(T, device="cuda").repeat_interleave(J_c).to(torch.int32)
     j_all = torch.arange(J_c, device="cuda").repeat(T).to(torch.int32)
     buf = pair_sigma_kernel(pw, ro, rd, z_c, t_all, j_all, "relu")
     dense = sig_all["relu"].t().reshape(J_c, 8, n)
-    diff = float((buf[:, :, :n] - dense).abs().max())
-    print(f"[hier cross-check] pair_sigma (all {T * J_c} pairs) vs sigma_head: max abs diff "
-          f"{diff:.3e}", flush=True)
-    if _sigma_rel(buf[:, :, :n], dense) > SIG_RTOL:
-        _fail("pair_sigma with every pair listed disagrees with sigma_head")
+    same = torch.equal(buf[:, :, :n], dense)
+    print(f"[hier cross-check] pair_sigma (all {T * J_c} pairs) vs sigma_head: "
+          f"{'equal bit for bit' if same else 'DIFFERENT'}, max abs diff "
+          f"{float((buf[:, :, :n] - dense).abs().max()):.3e}", flush=True)
+    if not same:
+        _fail("pair_sigma with every pair listed is not sigma_head's values bit for bit")
 
     # cross-check: pair_field_perz with every pair listed, composited by
     # deferred_composite_head, against render_head (ert_eps 0) on the same
@@ -1742,7 +1748,8 @@ def phase_hier_dense_main_path():
               f"at bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {nb / 1e6:.1f} MB",
               flush=True)
     print(f"[hier dense] render_head slabs run {int(slabs.sum())} of {T * (S_f // 8)}; L2 weight "
-          f"rate {_l2_rate(('head',), float(slabs.sum()) * 16, ms_b):.3f} TB/s; frame-level "
+          f"rate {_l2_rate(('head',), float(slabs.sum()) * 16, ms_b):.3f} TB/s, sigma_head "
+          f"{_l2_rate(('head',), float(occ.sum()) * 16, ms_a, color=False):.3f} TB/s; frame-level "
           f"error vs plain {frame_err:.3e}; library_ms is null for sigma_head and render_head: no "
           f"single PyTorch call computes a packed NeRF field", flush=True)
     entries = [_entry("sigma_head", "sigma_head.cu", "dfanerf_tpu/ops/fused_render.py:837",
@@ -1949,8 +1956,9 @@ def phase_hier_pair_main_path(noskip_frames):
         print(f"[hier pair] {name}: {K} pairs, {ms:.3f} ms per launch; plain {plain_ms:.1f} ms; "
               f"{flops / 1e12:.3f} TFLOP at live widths -> {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at "
               f"bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {nb / 1e6:.1f} MB", flush=True)
-    print(f"[hier pair] pair_field_perz L2 weight rate {_l2_rate(('head',), K_f * 16, ms_f):.3f} "
-          f"TB/s; frame-level error vs plain {err:.3e}; library_ms is null for pair_sigma "
+    print(f"[hier pair] L2 weight rate: pair_field_perz {_l2_rate(('head',), K_f * 16, ms_f):.3f} "
+          f"TB/s, pair_sigma {_l2_rate(('head',), K_c * 16, ms_c, color=False):.3f} TB/s; "
+          f"frame-level error vs plain {err:.3e}; library_ms is null for pair_sigma "
           f"and pair_field_perz: no single PyTorch call computes a packed NeRF field on listed "
           f"(tile, slab) pairs", flush=True)
     return [_entry("pair_sigma", "pair_hier.cu", "dfanerf_tpu/ops/fused_render.py:2165",

@@ -7,9 +7,9 @@ edited source or header is rebuilt and a stale library is never loaded. Sources 
 in parallel, one nvcc process each. The wrappers load the libraries with
 ctypes through ``Binding``, which also lays out a field's weights for the
 kernels (``weight_blobs``; for the wgmma core of render_rays, pair_field,
-render_head and pair_perz, re-laid into its weight ring's slabs by
-``ring_blob``) and launches them; nothing is built when a module is
-imported.
+render_head, pair_perz, sigma_head and pair_hier, re-laid into its weight
+ring's slabs by ``ring_blob``; far_eval keeps the mma.sync core and the
+plain blob) and launches them; nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -126,7 +126,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 
 def weight_blobs(pw: Dict[str, torch.Tensor], branch: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flatten one field's packed operands into the kernels' blobs: bf16
-    matrices stored [out][in], fp32 biases (layout in csrc/field_mlp.cuh,
+    matrices stored [out][in], fp32 biases (layout in csrc/field_common.cuh,
     shared by every kernel of the port)."""
     k_in = 64 if branch == "head" else 128
     shapes = {
@@ -207,10 +207,14 @@ def stage_matrix(w: torch.Tensor) -> torch.Tensor:
     return (w.reshape(n // 8, 8, k // ks, ks // 8, 8).permute(2, 0, 3, 1, 4).reshape(-1))
 
 
-def staged_weight_bytes(branch: str) -> int:
-    """Bytes of a field's staged weight blob (``ring_blob``): what one 128-row
-    chunk of the field streams from L2 in the wgmma core."""
-    return 2 * (sum(n * k for _, n, k in ring_layers(branch)) + 2 * 8 * HID)
+def staged_weight_bytes(branch: str, color: bool = True) -> int:
+    """Bytes of a field's staged weight blob (``ring_blob``) that one 128-row
+    chunk of the field streams from L2 in the wgmma core: the whole blob; with
+    ``color=False``, what a density-only chunk (sigma_head, pair_sigma)
+    streams: the trunk's slabs, without the view feature's, and the sigma
+    rows."""
+    layers = ring_layers(branch) if color else ring_layers(branch)[:-1]
+    return 2 * (sum(n * k for _, n, k in layers) + (2 if color else 1) * 8 * HID)
 
 
 def ring_blob(w: torch.Tensor, branch: str) -> torch.Tensor:

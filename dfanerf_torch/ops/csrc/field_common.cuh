@@ -9,9 +9,9 @@
 //   colour: sigmoid(W_out . relu(feature + view_bias)), only cols 0:3.
 //
 // The cores: field_mlp.cuh (mma.sync, weights read from L2 by every warp;
-// far_eval.cu, sigma_head.cu, pair_hier.cu) and field_wgmma.cuh (wgmma,
-// weights through a shared-memory ring; render_rays.cu, pair_field.cu,
-// render_head.cu, pair_perz.cu). Sources including either are built with
+// far_eval.cu) and field_wgmma.cuh (wgmma, weights through a shared-memory
+// ring; render_rays.cu, pair_field.cu, render_head.cu, pair_perz.cu,
+// sigma_head.cu, pair_hier.cu). Sources including either are built with
 // --fmad=false (see render_rays.cu): the PE argument reaches ~500 rad.
 
 #pragma once

@@ -1,8 +1,9 @@
-// The mma.sync device core of the port's field kernels (far_eval.cu,
-// sigma_head.cu, pair_hier.cu): one packed, frame-folded field (ops/pack.py,
-// layout in field_common.cuh) evaluated over a chunk of 128 rows by a block
-// of 8 warps. render_rays.cu, pair_field.cu, render_head.cu and pair_perz.cu
-// run the wgmma core instead (field_wgmma.cuh).
+// The mma.sync device core of the port's far-plane kernels (far_eval.cu:
+// far_head, far_torso, far_joint): one packed, frame-folded field
+// (ops/pack.py, layout in field_common.cuh) evaluated over a chunk of 128
+// rows by a block of 8 warps. Every other field kernel (render_rays.cu,
+// pair_field.cu, render_head.cu, pair_perz.cu, sigma_head.cu, pair_hier.cu)
+// runs the wgmma core instead (field_wgmma.cuh).
 //
 // Matrix products are mma.sync m16n8k16 bf16 x bf16 -> fp32. Each warp owns
 // 32 output columns (16 in the 128-wide deform net) for all 128 rows; A
@@ -249,63 +250,6 @@ __device__ __forceinline__ void color_head(const bf16* h, bf16* feat, const bf16
       rgb[(warp * 16 + g + 8) * 3 + c] = 1.f / (1.f + expf(-(d[2 + e] + b[B_OUT + c])));
     }
   }
-}
-
-// The head's density on one (tile, slab) at the slab's 8 shared depths
-// z[0:8], for the density-only kernels (sigma_head.cu, pair_hier.cu): 16
-// chunks of 128 rows (one sample, half the tile's 256 rays), each encoded,
-// run through the trunk and the sigma column. Thread tid < M hands its row's
-// density to store(s, ray, sigma), with ray the index into o and d; sig is M
-// floats of shared memory.
-template <typename Store>
-__device__ __forceinline__ void sigma_walk(bf16* X, bf16* Y, bf16* P, float* sig, const float* o,
-                                           const float* d, const float* z, const float* freq,
-                                           const float* phase, const bf16* w, const float* b,
-                                           int softplus, int tile, Store store) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-#pragma unroll 1
-  for (int c = 0; c < 2 * SS; ++c) {
-    const int s = c >> 1;
-    const int ray0 = tile * RT + (c & 1) * M;
-    encode(P, o, d, z[s], freq, phase, ray0, tid);
-    __syncthreads();
-    bf16* spare;
-    const bf16* h = trunk<PEW>(X, Y, P, w, b, warp, lane, spare);
-    sigma_head<PEW>(h, w, b, softplus, sig, warp, lane);
-    __syncthreads();
-    if (tid < M) store(s, ray0 + tid, sig[tid]);
-    // the next chunk rewrites sig only after several barriers
-  }
-}
-
-// The largest of the block's values m, one per thread: the early ray
-// termination test of the compositing kernels (render_rays.cu,
-// render_head.cu), each thread passing its ray's transmittance. red is 8
-// floats of shared memory; the caller puts a barrier before the call and
-// one after it before red is written again.
-__device__ __forceinline__ float block_max(float m, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  float mx = red[0];
-#pragma unroll
-  for (int w = 1; w < NTHR / 32; ++w) mx = fmaxf(mx, red[w]);
-  return mx;
-}
-
-// sigma [M] and rgb [M][3] of one field over the chunk, from its input in P;
-// leaves the colour-head input in X.
-template <int KIN>
-__device__ __forceinline__ void trunk_and_heads(bf16* X, bf16* Y, bf16* P, const bf16* w,
-                                                const float* b, const bf16* vr, int ray0,
-                                                int softplus, float* sig, float* rgb, int warp,
-                                                int lane) {
-  bf16* spare;
-  const bf16* h = trunk<KIN>(X, Y, P, w, b, warp, lane, spare);
-  sigma_head<KIN>(h, w, b, softplus, sig, warp, lane);
-  color_head<KIN>(h, spare, w, b, vr, ray0, rgb, warp, lane);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
-// The wgmma device core of the port's dense, pair and per-ray-depth field
-// kernels (render_rays.cu, pair_field.cu, render_head.cu, pair_perz.cu): one
-// packed, frame-folded field (ops/pack.py, layout in field_common.cuh)
-// evaluated over a chunk of 128 rows by two consumer warpgroups, with the
-// weights fed by a producer warp through a ring of shared-memory stages. The
-// other field kernels keep the mma.sync core of field_mlp.cuh.
+// The wgmma device core of the port's dense, pair, per-ray-depth and
+// density-only field kernels (render_rays.cu, pair_field.cu, render_head.cu,
+// pair_perz.cu, sigma_head.cu, pair_hier.cu): one packed, frame-folded field
+// (ops/pack.py, layout in field_common.cuh) evaluated over a chunk of 128 rows
+// by two consumer warpgroups, with the weights fed by a producer warp through
+// a ring of shared-memory stages. The far-plane kernels (far_eval.cu) keep
+// the mma.sync core of field_mlp.cuh.
 //
 // What bounds the mma.sync core, and what this one does about each:
 // 1. Weights streamed from L2 by every warp, one k-step ahead, with one
@@ -78,12 +79,16 @@ constexpr int DEPTH = 5;                   // ring stages
 constexpr int slabs(int k, int n) { return k * n / SLAB; }
 // Ring slabs a chunk consumes, per field: the head's trunk (input layer,
 // blocks 0-3, skip, blocks 4-6, view feature); the torso's deform net (d_w1,
-// d_wk 0-2, d_wskip, d_wk 3, d_wout), then its trunk.
+// d_wk 0-2, d_wskip, d_wk 3, d_wout), then its trunk. A density-only chunk
+// of the head (wg_sigma_walk) consumes the first NS_HEAD_TRUNK of the head's
+// slabs: the view feature's come last and are never copied.
 constexpr int NS_HEAD = 68;
+constexpr int NS_HEAD_TRUNK = 60;
 constexpr int NS_DEFORM = 12;
 constexpr int NS_TORSO = 84;
 static_assert(NS_HEAD == slabs(PEW, HID) + 7 * slabs(HID, HID) + slabs(PEW, HID) +
                              slabs(HID, HID), "head ring");
+static_assert(NS_HEAD_TRUNK == NS_HEAD - slabs(HID, HID), "head trunk ring");
 static_assert(NS_DEFORM == slabs(PEW, DEF) + 4 * slabs(DEF, DEF) + slabs(PEW, DEF) +
                                slabs(DEF, DEF), "deform ring");
 static_assert(NS_TORSO == NS_DEFORM + slabs(DEF, HID) + 7 * slabs(HID, HID) + slabs(DEF, HID) +
@@ -552,6 +557,43 @@ __device__ __forceinline__ void wg_trunk_and_heads(bf16* H, bf16* P, const bf16*
       rgb[(warp * 16 + g) * 3 + c] = 1.f / (1.f + expf(-(d[e] + b[B_OUT + c])));
       rgb[(warp * 16 + g + 8) * 3 + c] = 1.f / (1.f + expf(-(d[2 + e] + b[B_OUT + c])));
     }
+  }
+}
+
+// The head's density on one (tile, slab) at the slab's 8 shared depths
+// z[0:8], for the density-only kernels (sigma_head.cu, pair_hier.cu): 16
+// chunks of 128 rows (one sample, half the tile's 256 rays). Each warpgroup
+// encodes its 64 rows of a chunk, runs the trunk on them and the sigma column
+// (narrow8 over the staged blob w's sigma rows), and no view or colour head:
+// the ring carries NS_HEAD_TRUNK slabs a chunk, so the producer runs
+// ring.produce(w, NS_HEAD_TRUNK, 2 * SS). The lane holding a row's density
+// hands it to store(s, ray, sigma), with ray the index into o and d; b is the
+// head's bias blob in shared memory. A row's value depends only on the row,
+// so every kernel that walks a (tile, slab) here computes it bit for bit.
+template <typename Store>
+__device__ __forceinline__ void wg_sigma_walk(bf16* H, bf16* P, const float* o, const float* d,
+                                              const float* z, const float* freq,
+                                              const float* phase, const bf16* w, const float* b,
+                                              int softplus, int tile, Ring& r, Store store) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wi = warp & 3, t = tid & 127, row0 = wg * WG_ROWS;
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll 1
+  for (int c = 0; c < 2 * SS; ++c) {
+    const int s = c >> 1;
+    const int ray0 = tile * RT + (c & 1) * M;
+    wg_encode(P, o, d, z[s], freq, phase, ray0, row0, t);
+    wg_sync(wg);
+    wg_trunk<PEW>(H, P, b, r, wg, wi, lane);
+    float x[4];
+    narrow8(x, H, w + Staged<PEW>::SIGW, warp, lane);
+    if (q == 0) {
+      store(s, ray0 + warp * 16 + g, density_act(x[0] + b[B_SF], softplus));
+      store(s, ray0 + warp * 16 + g + 8, density_act(x[2] + b[B_SF], softplus));
+    }
+    // the next chunk's encode rewrites P only after the trunk's last
+    // barrier, and its input layer rewrites the warp's rows of H (read by
+    // narrow8 above) only after the encode's barrier
   }
 }
 

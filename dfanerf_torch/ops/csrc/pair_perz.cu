@@ -35,9 +35,8 @@
 // barrier spans the block after the ring's set-up. Built with --fmad=false
 // and the accurate sinf/expf, as the other field kernels.
 //
-// Its own library (not pair_hier.cu's, where pair_sigma keeps the mma.sync
-// core): ops/_build.py Binding.blobs hands a library the plain or the staged
-// weight blob by the one size its <name>_layout reports.
+// A library of its own, beside pair_hier.cu's pair_sigma (the coarse pass,
+// also on the wgmma core).
 
 #include "field_wgmma.cuh"
 

@@ -20,8 +20,8 @@ writes it. An empty list returns zero buffers without a launch (reference
 Two implementations of each over the same operands:
 
 - ``pair_sigma_kernel`` and ``pair_field_perz_kernel``: the hand-written
-  CUDA kernels of csrc/pair_hier.cu (mma.sync core) and csrc/pair_perz.cu
-  (wgmma core), the ports of the Pallas ``_pair_sigma_kernel`` and
+  CUDA kernels of csrc/pair_hier.cu and csrc/pair_perz.cu (both on the
+  wgmma core), the ports of the Pallas ``_pair_sigma_kernel`` and
   ``_pair_field_perz_kernel``, one block per listed pair, bound with ctypes
   and built at first launch, each counting its launches in ``.launches``.
 - ``pair_sigma_eval_reference`` and ``pair_field_eval_perz_reference``:

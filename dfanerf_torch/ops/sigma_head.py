@@ -11,8 +11,8 @@ density, zero weight). No view or colour head runs.
 Two implementations over the same operands:
 
 - ``sigma_head_kernel``: the hand-written CUDA kernel csrc/sigma_head.cu
-  (the port of the Pallas ``_sigma_kernel``), one block per (tile, slab),
-  bound with ctypes and built at first launch. It counts its launches in
+  (the port of the Pallas ``_sigma_kernel``, on the wgmma core), one block
+  per (tile, slab), bound with ctypes and built at first launch. It counts its launches in
   ``sigma_head_kernel.launches``.
 - ``fused_sigma_head_reference``: its plain PyTorch version, with the same
   bf16 rounding points.

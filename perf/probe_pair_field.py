@@ -97,7 +97,10 @@ PAIR2_AT_8 = [_sub(SP4, ""), _sub(SP8, ""),
                    "ring.produce(p2.a.w, TORSO ? NS_TORSO : NS_HEAD, pairs * 2 * 8);"),
               _sub("  if (sp != 4 || (n_b", "  if (sp != 8 || (n_b")]
 
-NO_SINE = [_sub("      v = sinf(arg);", "      v = arg;")]
+NO_SINE = [_sub("      const float pts = o[k] + d[k] * zs;\n"
+                "      const float arg = pts * freq[c] + phase[c];\n      v = sinf(arg);",
+                "      const float pts = o[k] + d[k] * zs;\n"
+                "      const float arg = pts * freq[c] + phase[c];\n      v = arg;")]
 NO_RING_WAIT = [
     _sub("    mbar_wait(full(stage), phase);\n    return base + stage * SLAB_BYTES;",
          "    return base + stage * SLAB_BYTES;"),

@@ -71,7 +71,11 @@ STORE = "        *dst = v;"
 NO_EPILOGUE = [(STORE, "        (void)dst;")]
 # one column stored: every wgmma chain still waited for
 ONE_COLUMN = [(STORE, "        if (col == 0) " + STORE.strip())]
-NO_SINE = [("      v = sinf(arg);", "      v = arg;")]  # the PE writes its argument
+# the PE writes its argument (wg_encode only: wg_encode_perz reads z[row])
+NO_SINE = [("      const float pts = o[k] + d[k] * zs;\n"
+            "      const float arg = pts * freq[c] + phase[c];\n      v = sinf(arg);",
+            "      const float pts = o[k] + d[k] * zs;\n"
+            "      const float arg = pts * freq[c] + phase[c];\n      v = arg;")]
 PROBES = {
     "shipped": [],
     "no ring wait": NO_RING_WAIT,

@@ -19,9 +19,10 @@ def test_sources_list_every_kernel():
         assert (_build.CSRC / f"{name}.cu").exists()
 
 
-# The wgmma core (render_rays, pair_field, render_head, pair_perz) and the
-# mma.sync core (the others), each over the shared layout header.
-WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz")
+# The wgmma core (render_rays, pair_field, render_head, pair_perz,
+# sigma_head, pair_hier) and the mma.sync core (far_eval), each over the
+# shared layout header.
+WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier")
 HEADERS = {name: ["field_wgmma.cuh" if name in WGMMA else "field_mlp.cuh", "field_common.cuh"]
            for name in _build.SOURCES}
 
@@ -46,7 +47,7 @@ def test_digest_covers_the_included_header(tmp_path, name, header):
 
 def test_wgmma_kernels_have_no_path_to_the_mma_sync_core():
     """The wgmma core's sources include it and never the mma.sync core,
-    which far_eval, sigma_head and pair_hier (pair_sigma only) keep."""
+    which far_eval alone keeps."""
     for name in _build.SOURCES:
         includes = [h.name for h in _build.local_includes(_build.CSRC / f"{name}.cu")]
         assert ("field_mlp.cuh" in includes) == (name not in WGMMA)

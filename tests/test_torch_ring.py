@@ -1,7 +1,8 @@
 """The host side of the wgmma core's weight ring (dfanerf_torch/ops/_build.py
 ring_blob, csrc/field_wgmma.cuh): the staged blob of render_rays,
-pair_field, render_head and pair_perz against the ``weight_blobs`` blob it
-is re-laid from, on packed weights of a seeded decoder. Nothing is compiled
+pair_field, render_head, pair_perz, sigma_head and pair_hier against the
+``weight_blobs`` blob it is re-laid from, on packed weights of a seeded
+decoder. Nothing is compiled
 here: the tests read the staged blob as the kernel's wgmma descriptors
 address it (start address, leading byte offset 128 B along K, stride byte
 offset KS/8 x 128 B along N) and walk its slabs in the order the kernel's
@@ -16,8 +17,9 @@ import torch
 from dfanerf_torch.models import Decoder, DecoderConfig
 from dfanerf_torch.models.layers import init_uniform_
 from dfanerf_torch.ops import _build
-from dfanerf_torch.ops.fused_render import _field_rows, density_act
+from dfanerf_torch.ops.fused_render import _field_rows, density_act, sigma_only
 from dfanerf_torch.ops.pack import pack_field_weights
+from dfanerf_torch.ops.sigma_head import sigma_rows
 
 HEADER = (_build.CSRC / "field_wgmma.cuh").read_text()
 ROWS = 64
@@ -106,50 +108,70 @@ def test_ring_walk_reproduces_each_product(packed, branch):
         pos += k // ks
 
 
+B_IN, B_BLK, B_SKIP, B_SF, B_OUT = 0, 256, 256 + 7 * 256, 256 + 8 * 256, 256 + 8 * 256 + 384
+
+
+def _mm(a, wt):
+    return a.to(torch.bfloat16).float() @ wt
+
+
+class _Cursor:
+    """Takes each wide layer's weight from the staged blob in turn, as the
+    kernel's ring hands the slabs to its layers; ``pos`` counts the slabs
+    taken."""
+
+    def __init__(self, staged):
+        self.staged, self.pos = staged, 0
+
+    def take(self, n, k):
+        m = _unstage(self.staged, self.pos, n, k)
+        self.pos += n * k // _build.SLAB
+        return m.float().t().contiguous()
+
+    def relu_layer(self, a, n, k, bias):
+        return (_mm(a, self.take(n, k)) + bias).relu().to(torch.bfloat16).float()
+
+
+def _walk_trunk(cur, b, x):
+    """The trunk over its input x (float, bf16 values) in field_wgmma.cuh
+    wg_trunk's order: the input layer, blocks 0-3, the skip, blocks 4-6."""
+    k_in = x.shape[1]
+    h = cur.relu_layer(x, 256, k_in, b[B_IN:B_IN + 256])
+    for i in range(7):
+        bias = b[B_BLK + i * 256:B_BLK + (i + 1) * 256]
+        if i == 3:
+            h = (_mm(h, cur.take(256, 256)) + bias).relu()
+            h = (h + _mm(x, cur.take(256, k_in)) + b[B_SKIP:B_SKIP + 256]).to(
+                torch.bfloat16).float()
+        else:
+            h = cur.relu_layer(h, 256, 256, bias)
+    return h
+
+
 def _walk_field(staged, b, x, vr, branch, act):
     """The field over rows x [ROWS, 64] bf16 with every wide layer's weight
     taken from the staged blob by a cursor, in the order the kernel's code
     runs its layers (field_wgmma.cuh wg_deform, wg_trunk, wg_trunk_and_heads)."""
-    cur = [0]
-
-    def take(n, k):
-        m = _unstage(staged, cur[0], n, k)
-        cur[0] += n * k // _build.SLAB
-        return m.float().t().contiguous()
-
-    def mm(a, wt):
-        return a.to(torch.bfloat16).float() @ wt
-
-    def relu_layer(a, n, k, bias):
-        return (mm(a, take(n, k)) + bias).relu().to(torch.bfloat16).float()
-
-    b_in, b_blk, b_skip, b_sf, b_out = 0, 256, 256 + 7 * 256, 256 + 8 * 256, 256 + 8 * 256 + 384
+    cur = _Cursor(staged)
     pe = x.float()
+    x = pe
     if branch == "torso":
-        db1, dbk = b_out + 8, b_out + 8 + 128
+        db1, dbk = B_OUT + 8, B_OUT + 8 + 128
         dbskip, dbout, sig_pad = dbk + 4 * 128, dbk + 5 * 128, dbk + 6 * 128
-        h = relu_layer(pe, 128, 64, b[db1:db1 + 128])
-        h = relu_layer(h, 128, 128, b[dbk:dbk + 128])
-        h = relu_layer(h, 128, 128, b[dbk + 128:dbk + 256])
-        h = (mm(h, take(128, 128)) + b[dbk + 256:dbk + 384]).relu()
-        h = (h + mm(pe, take(128, 64)) + b[dbskip:dbskip + 128]).to(torch.bfloat16).float()
-        h = relu_layer(h, 128, 128, b[dbk + 384:dbk + 512])
-        d = mm(h, take(128, 128)) + b[dbout:dbout + 128] + b[sig_pad:sig_pad + 128]
+        h = cur.relu_layer(pe, 128, 64, b[db1:db1 + 128])
+        h = cur.relu_layer(h, 128, 128, b[dbk:dbk + 128])
+        h = cur.relu_layer(h, 128, 128, b[dbk + 128:dbk + 256])
+        h = (_mm(h, cur.take(128, 128)) + b[dbk + 256:dbk + 384]).relu()
+        h = (h + _mm(pe, cur.take(128, 64)) + b[dbskip:dbskip + 128]).to(torch.bfloat16).float()
+        h = cur.relu_layer(h, 128, 128, b[dbk + 384:dbk + 512])
+        d = _mm(h, cur.take(128, 128)) + b[dbout:dbout + 128] + b[sig_pad:sig_pad + 128]
         x = (d + torch.cat([pe, torch.zeros_like(pe)], dim=1)).to(torch.bfloat16).float()
-    k_in = x.shape[1]
-    h = relu_layer(x, 256, k_in, b[b_in:b_in + 256])
-    for i in range(7):
-        bias = b[b_blk + i * 256:b_blk + (i + 1) * 256]
-        if i == 3:
-            h = (mm(h, take(256, 256)) + bias).relu()
-            h = (h + mm(x, take(256, k_in)) + b[b_skip:b_skip + 256]).to(torch.bfloat16).float()
-        else:
-            h = relu_layer(h, 256, 256, bias)
+    h = _walk_trunk(cur, b, x)
     narrow = staged[-2 * 8 * 256:].reshape(2, 8, 256).float()
-    sigma = mm(h, narrow[0, 0:1].t())[:, 0] + b[b_sf]
-    feat = ((mm(h, take(256, 256)) + b[b_sf + 128:b_sf + 384]) + vr).relu()
-    rgb = torch.sigmoid(mm(feat, narrow[1, 0:3].t()) + b[b_out:b_out + 3])
-    return density_act(sigma, act), rgb, cur[0]
+    sigma = _mm(h, narrow[0, 0:1].t())[:, 0] + b[B_SF]
+    feat = ((_mm(h, cur.take(256, 256)) + b[B_SF + 128:B_SF + 384]) + vr).relu()
+    rgb = torch.sigmoid(_mm(feat, narrow[1, 0:3].t()) + b[B_OUT:B_OUT + 3])
+    return density_act(sigma, act), rgb, cur.pos
 
 
 @pytest.mark.parametrize("branch", ["head", "torso"])
@@ -169,6 +191,46 @@ def test_ring_walk_runs_the_field(packed, branch):
     assert used == _const("NS_HEAD" if branch == "head" else "NS_TORSO")
     torch.testing.assert_close(sigma, want_sigma, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(rgb, want_rgb, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+def test_ring_walk_runs_the_sigma_trunk(packed, act):
+    """The density-only walk (field_wgmma.cuh wg_sigma_walk, sigma_head and
+    pair_sigma): the trunk from the head's staged blob in wg_trunk's order,
+    then the sigma rows at the blob's end, computes the plain version's
+    density (sigma_rows) and consumes exactly the first NS_HEAD_TRUNK slabs;
+    that is the density-only chunk's L2 traffic."""
+    pw = packed["head"]
+    w, b = _build.weight_blobs(pw, "head")
+    staged = _build.ring_blob(w, "head")
+    g = torch.Generator().manual_seed(4)
+    x = torch.sin(torch.randn(ROWS, 64, generator=g) * 3.0)
+    x[:, 60:] = 0.0
+    x = x.to(torch.bfloat16)
+    cur = _Cursor(staged)
+    h = _walk_trunk(cur, b, x.float())
+    sigw = _const("NS_HEAD") * _build.SLAB  # Staged<PEW>::SIGW
+    sig_rows = staged[sigw:sigw + 8 * 256].reshape(8, 256).float()
+    sigma = density_act(_mm(h, sig_rows[0:1].t())[:, 0] + b[B_SF], act)
+    assert cur.pos == _const("NS_HEAD_TRUNK") == _const("NS_HEAD") - 256 * 256 // _build.SLAB
+    torch.testing.assert_close(sigma, sigma_rows(sigma_only(pw), x, act), rtol=1e-4, atol=1e-5)
+    assert _build.staged_weight_bytes("head", color=False) == 2 * (
+        cur.pos * _build.SLAB + 8 * 256) == 987_136
+
+
+@pytest.mark.parametrize("name", ["sigma_head", "pair_hier"])
+def test_density_kernels_share_the_sigma_walk(name):
+    """sigma_head.cu and pair_hier.cu run the one density-only walk of the
+    wgmma core, and their producers stream NS_HEAD_TRUNK slabs a chunk for
+    its 16 chunks, so pair_sigma with every pair listed is sigma_head bit for
+    bit and neither copies the view feature's slabs."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "field_wgmma.cuh"' in src and "field_mlp.cuh" not in src
+    assert len(re.findall(r"\bwg_sigma_walk\(", src)) == 1
+    assert re.findall(r"ring\.produce\([^;]*\);", src) == [
+        "ring.produce(p.w, NS_HEAD_TRUNK, 2 * SS);"]
+    assert "wg_trunk_and_heads" not in src and "NS_HEAD)" not in src
+    assert len(re.findall(r"void wg_sigma_walk\(", HEADER)) == 1
 
 
 @pytest.mark.parametrize("layout", ["staged", "plain", "neither"])
@@ -195,9 +257,9 @@ def test_binding_hands_each_library_the_layout_it_reports(packed, layout):
         assert torch.equal(b, plain[br][1])
 
 
-# The libraries of the wgmma core; the others run the mma.sync core and
-# take the plain blobs.
-WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz")
+# The libraries of the wgmma core; the other (far_eval) runs the mma.sync
+# core and takes the plain blobs.
+WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier")
 
 
 def _layout_exprs(name):
