@@ -7,13 +7,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (one nvcc per source, all at once); print each library's ptxas lines
    (registers, spills, stack), each kernel's HGMMA and HMMA count in its
    SASS (cuobjdump) and any ptxas wgmma serialisation warning; fail if a
-   kernel of the wgmma core's libraries (render_rays, pair_field,
-   render_head, pair_perz, sigma_head, pair_hier) holds no HGMMA or ptxas
-   serialised their wgmma (far_eval runs the mma.sync core);
+   kernel of the wgmma core's libraries (all of them: render_rays,
+   pair_field, render_head, pair_perz, sigma_head, pair_hier, far_eval)
+   holds no HGMMA or ptxas serialised their wgmma;
 2. hold each kernel against its plain PyTorch version on the card, on
    seeded full-width inputs, within the stated tolerances: render_rays,
    then pair_field (head and torso, relu and softplus, a pair list with
-   gaps and an empty one) and far_head / far_torso (a ragged ray count);
+   gaps and an empty one) and far_head / far_torso (77 rays, under one
+   128-ray chunk; 4096, an exact multiple; 4173, a ragged count);
 3. drive the dense main path — the fused head+torso frame render at
    450x450, 64 samples, bf16 — through encode_frame_signals and
    make_frame_renderer for a few frames of the synthetic scene with seeded
@@ -62,7 +63,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    background in the kernel; the epilogue mode with both fields, the head
    only, the torso only) and far_joint against their plain versions at a
    450x450 frame's rays and 64 samples (flags with gaps, tiles without a
-   flag, a saturating field for ERT), far_joint also against far_head +
+   flag, a saturating field for ERT) and far_joint (77, 4096, 4173 rays and
+   the frame's, relu and softplus), far_joint also against far_head +
    far_torso bit for bit;
 13. drive the shipped serving config (configs/obama_serve_tpu.json) through
    encode_frame_signals and make_frame_renderer: its tile-class branch for
@@ -129,6 +131,9 @@ TOL = {"head_max": 5e-4, "head_mean": 1e-6, "com_max": 5e-4, "com_mean": 5e-5}
 # (2**-8 relative: a flipped rounding of the stored value); the far-plane
 # torso colour is float32 and held to the head's max bound.
 SIG_RTOL, SIG_FLOOR, RGB_ULPS = 2e-2, 5e-2, 1.0
+# Ray counts the far kernels are held at beside a frame's: fewer than one of
+# their 128-ray chunks, whole chunks, a ragged last chunk.
+FAR_COUNTS = (77, 4096, 4096 + 77)
 # The occupancy flags decide which pairs are rendered at all, and on the card
 # they come from bf16 products on the tensor cores (the CUDA branch of
 # fused_render._mm_cast). Each refresh's flags are rebuilt from the same
@@ -213,6 +218,16 @@ def _l2_rate(fields, chunks, ms, color=True) -> float:
             / 1e12)
 
 
+def _far_l2_rate(kernel, n, ms) -> float:
+    """_l2_rate of a far kernel over n rays (128-ray chunks): far_head
+    streams the head's density-only chunk, far_torso the torso's staged blob
+    (its unread sigma rows, 4 KB of 1.38 MB, counted), far_joint both."""
+    chunks = -(-n // 128)
+    head = _l2_rate(("head",), chunks, ms, color=False)
+    torso = _l2_rate(("torso",), chunks, ms)
+    return {"far_head": head, "far_torso": torso, "far_joint": head + torso}[kernel]
+
+
 def _cuda_ms(fn, reps: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -238,10 +253,10 @@ def _cuda_call(fn):
 # each of their kernels must hold HGMMA instructions, and ptxas must not
 # have serialised their wgmma.
 WGMMA_LIBRARIES = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head",
-                   "pair_hier")
+                   "pair_hier", "far_eval")
 WGMMA_KERNELS = ("render_rays_kernel", "pair_field_kernel", "pair2_field_kernel",
                  "render_head_kernel", "pair_field_perz_kernel", "sigma_head_kernel",
-                 "pair_sigma_kernel")
+                 "pair_sigma_kernel", "far_head_kernel", "far_torso_kernel", "far_joint_kernel")
 
 
 def _cuobjdump():
@@ -519,8 +534,8 @@ def _check_far(tag, sh, ct, sh_ref, ct_ref):
 
 def phase_pair_kernels_vs_plain():
     """pair_field (head, torso; relu, softplus; a pair list with gaps and an
-    empty one) and far_head / far_torso (a ragged ray count), full width,
-    seeded bf16 packed weights."""
+    empty one) and far_head / far_torso (under one chunk, whole chunks, a
+    ragged last chunk), full width, seeded bf16 packed weights."""
     from dfanerf_torch.models import Decoder, DecoderConfig
     from dfanerf_torch.models.layers import init_uniform_
     from dfanerf_torch.ops.far_eval import (
@@ -566,18 +581,20 @@ def phase_pair_kernels_vs_plain():
         if pair_field_kernel.launches != before or any(bool(b.float().any()) for b in bufs):
             _fail(f"pair_field with no pairs: a launch or non-zero buffers")
         print(f"[pair_field vs plain, {branch}, no pairs] zero buffers, no launch", flush=True)
-    n = 4096 + 77  # ragged: not a multiple of the kernels' 128-ray chunks
-    o, d = rays(n)
-    o_t, d_t = rays(n)
-    vr_t = view_bias(packs["torso"], d_t).to(torch.bfloat16).contiguous()
     far = float(z[-1])
-    for act in ("relu", "softplus"):
-        sh = far_head_kernel(packs["head"], o, d, far, act=act)
-        ct = far_torso_kernel(packs["torso"], o_t, d_t, far, vr_t, act=act)
-        torch.cuda.synchronize()
-        sh_r, ct_r = far_eval_reference(packs["head"], packs["torso"], o, d, o_t, d_t, far, vr_t,
-                                        act)
-        _check_far(f"far kernels vs plain, {n} rays, {act}", sh, ct, sh_r, ct_r)
+    # the far kernels' 128-ray chunks: fewer rays than one, whole chunks, a
+    # ragged last chunk
+    for n in FAR_COUNTS:
+        o, d = rays(n)
+        o_t, d_t = rays(n)
+        vr_t = view_bias(packs["torso"], d_t).to(torch.bfloat16).contiguous()
+        for act in ("relu", "softplus"):
+            sh = far_head_kernel(packs["head"], o, d, far, act=act)
+            ct = far_torso_kernel(packs["torso"], o_t, d_t, far, vr_t, act=act)
+            torch.cuda.synchronize()
+            sh_r, ct_r = far_eval_reference(packs["head"], packs["torso"], o, d, o_t, d_t, far,
+                                            vr_t, act)
+            _check_far(f"far kernels vs plain, {n} rays, {act}", sh, ct, sh_r, ct_r)
 
 
 def phase_pair_vs_dense(ops):
@@ -925,7 +942,7 @@ def phase_pair_main_path():
         print(f"[pair path] {name}: {n} rays, {ms:.3f} ms per launch; plain {plain_ms:.1f} ms; "
               f"{flops / 1e12:.3f} TFLOP at live widths -> {flops / PEAK_BF16_FLOPS * 1e3:.3f} "
               f"ms at bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s achieved); {n_bytes / 1e6:.1f} "
-              f"MB", flush=True)
+              f"MB; L2 weight rate {_far_l2_rate(name, n, ms):.3f} TB/s", flush=True)
         far_res[name] = (out, out_ref, ms, plain_ms, flops, n_bytes)
     errs = _check_far("pair path, far kernels vs plain", far_res["far_head"][0],
                       far_res["far_torso"][0], far_res["far_head"][1], far_res["far_torso"][1])
@@ -2045,7 +2062,8 @@ def phase_serve_kernels_vs_plain():
     path, with its seeded weights) and 64 samples: flags with gaps and tiles
     without a flag, and a saturating field whose rays terminate early (ERT).
     far_joint also against far_head + far_torso on the same rays (bit for
-    bit), and on a ragged ray count. Returns each kernel's largest error."""
+    bit), there and at FAR_COUNTS rays, under relu and softplus. Returns
+    each kernel's largest error."""
     import dfanerf_torch.render.renderer as renderer
     from dfanerf_torch.core.rays import linspace
     from dfanerf_torch.ops.far_eval import (
@@ -2098,7 +2116,8 @@ def phase_serve_kernels_vs_plain():
     far = float(z[-1])
     vr_t = view_bias(pw_t, rd_t).to(torch.bfloat16).contiguous()
     far_err = 0.0
-    for n, act in ((ro.shape[0], "relu"), (ro.shape[0], "softplus"), (4096 + 77, "relu")):
+    far_cases = [(n, act) for n in FAR_COUNTS + (ro.shape[0],) for act in ("relu", "softplus")]
+    for n, act in far_cases:
         rays = [x[:n] for x in (ro, rd, ro_t, rd_t)]
         sh, ct = far_joint_kernel(pw_h, pw_t, *rays, far, vr_t[:n], act)
         sh_s = far_head_kernel(pw_h, rays[0], rays[1], far, act=act)
@@ -2494,8 +2513,9 @@ def phase_serve_epilogue_kernel_form(args):
     print(f"[serve epilogue kernel form] far_joint: {n} rays, {ms:.3f} ms per launch; plain "
           f"{plain_ms:.1f} ms; {flops / 1e12:.3f} TFLOP at live widths -> "
           f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak ({flops / ms / 1e9:.1f} TFLOP/s "
-          f"achieved); {n_bytes / 1e6:.1f} MB. The whole-frame epilogue: _bg_epilogue (plain "
-          f"PyTorch) {epi_ms:.3f} ms, bg_epilogue_fused {fused_ms:.3f} ms; frame-level error "
+          f"achieved); {n_bytes / 1e6:.1f} MB; L2 weight rate "
+          f"{_far_l2_rate('far_joint', n, ms):.3f} TB/s. The whole-frame epilogue: _bg_epilogue "
+          f"(plain PyTorch) {epi_ms:.3f} ms, bg_epilogue_fused {fused_ms:.3f} ms; frame-level error "
           f"{err:.3e}", flush=True)
     return _entry("far_joint", "far_eval.cu", "dfanerf_tpu/ops/fused_render.py:1381", launches,
                   err_k, ms, plain_ms, flops, n_bytes)

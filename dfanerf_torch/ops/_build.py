@@ -6,10 +6,9 @@ includes (``#include "x.cuh"``, followed through headers) and the flags, so an
 edited source or header is rebuilt and a stale library is never loaded. Sources build
 in parallel, one nvcc process each. The wrappers load the libraries with
 ctypes through ``Binding``, which also lays out a field's weights for the
-kernels (``weight_blobs``; for the wgmma core of render_rays, pair_field,
-render_head, pair_perz, sigma_head and pair_hier, re-laid into its weight
-ring's slabs by ``ring_blob``; far_eval keeps the mma.sync core and the
-plain blob) and launches them; nothing is built when a module is imported.
+kernels (``weight_blobs``, re-laid into the weight ring's slabs of the wgmma
+core, csrc/field_wgmma.cuh, by ``ring_blob``) and launches them; nothing is
+built when a module is imported.
 """
 
 from __future__ import annotations
@@ -269,16 +268,14 @@ class Binding:
 
     def blobs(self, pw: Dict[str, torch.Tensor], branch: str,
               dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One field's weight and bias blobs (``weight_blobs``), checked
-        against the sizes the library reports (its ``<name>_layout``: head
-        weight, head bias, torso weight, torso bias). A library of the wgmma
-        core reports the size of the staged weight blob, and gets the weights
-        re-laid by ``ring_blob``."""
+        """One field's staged weight blob (``weight_blobs`` re-laid by
+        ``ring_blob``) and bias blob, checked against the sizes the library
+        reports (its ``<name>_layout``: head weight, head bias, torso weight,
+        torso bias)."""
         self._load()
         w, b = weight_blobs(pw, branch)
+        w = ring_blob(w, branch)
         sizes = self._layout[2:4] if branch == "torso" else self._layout[0:2]
-        if w.numel() != sizes[0]:
-            w = ring_blob(w, branch)
         for blob, size in zip((w, b), sizes):
             if blob.numel() != size or blob.device != dev:
                 raise ValueError(f"weight blob of {blob.numel()} on {blob.device}, kernel expects "

@@ -1,6 +1,6 @@
-// What both device cores of the port's field kernels share: the packed,
-// frame-folded field (ops/pack.py), its weight and bias blob layout, and the
-// small helpers around mma.sync.
+// What the port's field kernels share: the packed, frame-folded field
+// (ops/pack.py), its weight and bias blob layout, and the small helpers
+// around mma.sync (the narrow sigma and rgb heads).
 //
 //   torso: deform MLP 64 -> 128 (x4, PE skip at block 2) -> + sig_pad + pe
 //          -> trunk;  head: trunk on the PE directly;
@@ -8,10 +8,8 @@
 //          256 -> 384 output (sigma col 0, view feature cols 128:384);
 //   colour: sigmoid(W_out . relu(feature + view_bias)), only cols 0:3.
 //
-// The cores: field_mlp.cuh (mma.sync, weights read from L2 by every warp;
-// far_eval.cu) and field_wgmma.cuh (wgmma, weights through a shared-memory
-// ring; render_rays.cu, pair_field.cu, render_head.cu, pair_perz.cu,
-// sigma_head.cu, pair_hier.cu). Sources including either are built with
+// The device core over it is field_wgmma.cuh (wgmma, weights through a
+// shared-memory ring), included by every kernel source; they are built with
 // --fmad=false (see render_rays.cu): the PE argument reaches ~500 rad.
 
 #pragma once

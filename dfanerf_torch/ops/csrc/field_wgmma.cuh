@@ -1,12 +1,13 @@
-// The wgmma device core of the port's dense, pair, per-ray-depth and
-// density-only field kernels (render_rays.cu, pair_field.cu, render_head.cu,
-// pair_perz.cu, sigma_head.cu, pair_hier.cu): one packed, frame-folded field
-// (ops/pack.py, layout in field_common.cuh) evaluated over a chunk of 128 rows
-// by two consumer warpgroups, with the weights fed by a producer warp through
-// a ring of shared-memory stages. The far-plane kernels (far_eval.cu) keep
-// the mma.sync core of field_mlp.cuh.
+// The wgmma device core of every field kernel of the port: dense, pair,
+// per-ray-depth, density-only and far-plane (render_rays.cu, pair_field.cu,
+// render_head.cu, pair_perz.cu, sigma_head.cu, pair_hier.cu, far_eval.cu):
+// one packed, frame-folded field (ops/pack.py, layout in field_common.cuh)
+// evaluated over a chunk of 128 rows by two consumer warpgroups, with the
+// weights fed by a producer warp through a ring of shared-memory stages.
 //
-// What bounds the mma.sync core, and what this one does about each:
+// What bounded the port's first core (mma.sync m16n8k16, eight warps each
+// owning 32 output columns of all 128 rows), and what this one does about
+// each:
 // 1. Weights streamed from L2 by every warp, one k-step ahead, with one
 //    8-warp block per SM: half the dense kernel's time was waiting on them
 //    (perf/probe_render_rays.py). Here one thread copies each weight k-slab
@@ -23,7 +24,7 @@
 //    form), out of padded row-major buffers. A warp's A fragment and its
 //    accumulator cover the same 16 rows, so a layer reads and writes only
 //    its own warp's rows and runs in place: one activation buffer H instead
-//    of the mma.sync core's two, which leaves room for a 5-stage ring and
+//    of the first core's two, which leaves room for a 5-stage ring and
 //    the field's biases.
 // 3. The epilogue (bias, relu, rounding, store) runs once the warpgroup's
 //    chain has drained, and both warpgroups reach it together: they share
@@ -58,9 +59,9 @@
 // sigma rows 0:8 of w_sf and the rgb rows 0:8 of w_out as [8][256], read by
 // narrow8 (mma.sync, straight from L2: 16 KB a chunk).
 //
-// Numerics as field_mlp.cuh: bf16 operands, fp32 sums (in wgmma's own order
-// inside a k16 step), activations rounded to bf16 where the TPU kernels
-// round them, sigma and the colour sigmoid fp32.
+// Numerics: bf16 operands, fp32 sums (in wgmma's own order inside a k16
+// step), activations rounded to bf16 where the TPU kernels round them, sigma
+// and the colour sigmoid fp32.
 
 #pragma once
 
@@ -369,17 +370,21 @@ __device__ __forceinline__ void wg_gemm(float (&acc)[N / 2], const bf16* A, int 
 // One dense layer over warpgroup rows row0 .. row0 + 63 of the chunk, all N
 // output columns; wi is the warp's index in its warpgroup. Each warp reads
 // and writes only its own 16 rows, so `out` may be `A` (in place). MODE
-// picks the epilogue (as field_mlp.cuh layer):
+// picks the epilogue:
 //   RELU:       out = bf16(relu(A W^T + b))
 //   SKIP:       out = bf16(relu(A W^T + b) + P Wp^T + bp)      (trunk block 3,
 //               deform block 2; P has KP columns, Wp the ring's next slabs)
 //   VIEW:       out = bf16(relu((A W^T + b) + vr[ray]))        (view feature)
 //   DEFORM_OUT: out = bf16(((A W^T + b) + bp) + pe)  written in place over
 //               the PE buffer `out` (pe = 0 beyond column 64; bp = sig_pad)
-template <int K, int N, int MODE, int KP = 0>
+// With CLAMP, VIEW reads row `row`'s view bias at ray min(ray0 + row,
+// n_rows - 1): the far-plane kernels' ragged last chunk, whose rows at or
+// past n_rows read no ray beyond the last and are never stored.
+template <int K, int N, int MODE, int KP = 0, bool CLAMP = false>
 __device__ __forceinline__ void wg_layer(const bf16* A, int lda, const float* bias, bf16* out,
                                          int ldo, const bf16* P, const float* bp, const bf16* vr,
-                                         int ray0, Ring& r, int row0, int wi, int lane) {
+                                         int ray0, Ring& r, int row0, int wi, int lane,
+                                         int n_rows = 0) {
   constexpr int EG = 8;  // column groups (of 8) whose operands load ahead of their stores
   float acc[N / 2];
 #pragma unroll
@@ -409,9 +414,11 @@ __device__ __forceinline__ void wg_layer(const bf16* A, int lda, const float* bi
       for (int h = 0; h < 2; ++h) {
         const int row = rw + g + h * 8;
         ad[jj][h] = make_float2(0.f, 0.f);
-        if (MODE == VIEW)
+        if (MODE == VIEW) {
+          const int ray = CLAMP ? min(ray0 + row, n_rows - 1) : ray0 + row;
           ad[jj][h] = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(vr + (ray0 + row) * HID + col));
+              *reinterpret_cast<const __nv_bfloat162*>(vr + ray * HID + col));
+        }
         if (MODE == DEFORM_OUT && col < PEW)
           ad[jj][h] = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(out + row * ldo + col));
@@ -445,15 +452,18 @@ __device__ __forceinline__ void wg_layer(const bf16* A, int lda, const float* bi
 // sin((o + d z) * freq + phase) for warpgroup rows row0 .. row0 + 63 of the
 // chunk (rays ray0 + row) in the 64 PE slots (slot c reads coordinate c % 3;
 // slots 60:64 are zero), rounded to bf16; t is the thread's index in its
-// warpgroup.
+// warpgroup. With CLAMP, row `row` encodes ray min(ray0 + row, n_rows - 1),
+// as wg_layer's CLAMP reads its view bias.
+template <bool CLAMP = false>
 __device__ __forceinline__ void wg_encode(bf16* P, const float* o, const float* d, float zs,
                                           const float* freq, const float* phase, int ray0,
-                                          int row0, int t) {
+                                          int row0, int t, int n_rows = 0) {
   for (int idx = t; idx < WG_ROWS * PEW; idx += 128) {
     const int row = row0 + (idx >> 6), c = idx & (PEW - 1);
     float v = 0.f;
     if (c < 60) {
-      const int k = (ray0 + row) * 3 + c % 3;
+      const int ray = CLAMP ? min(ray0 + row, n_rows - 1) : ray0 + row;
+      const int k = ray * 3 + c % 3;
       const float pts = o[k] + d[k] * zs;
       const float arg = pts * freq[c] + phase[c];
       v = sinf(arg);

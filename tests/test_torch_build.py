@@ -19,12 +19,10 @@ def test_sources_list_every_kernel():
         assert (_build.CSRC / f"{name}.cu").exists()
 
 
-# The wgmma core (render_rays, pair_field, render_head, pair_perz,
-# sigma_head, pair_hier) and the mma.sync core (far_eval), each over the
-# shared layout header.
-WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier")
-HEADERS = {name: ["field_wgmma.cuh" if name in WGMMA else "field_mlp.cuh", "field_common.cuh"]
-           for name in _build.SOURCES}
+# The libraries of the wgmma core, over the shared layout header: every one.
+WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier",
+         "far_eval")
+HEADERS = {name: ["field_wgmma.cuh", "field_common.cuh"] for name in WGMMA}
 
 
 @pytest.mark.parametrize("name,header", [(n, h) for n in _build.SOURCES for h in HEADERS[n]])
@@ -46,12 +44,16 @@ def test_digest_covers_the_included_header(tmp_path, name, header):
 
 
 def test_wgmma_kernels_have_no_path_to_the_mma_sync_core():
-    """The wgmma core's sources include it and never the mma.sync core,
-    which far_eval alone keeps."""
+    """Every source includes the wgmma core; the mma.sync core
+    (field_mlp.cuh), whose last user was far_eval, is gone, and no source or
+    header names it."""
+    assert set(WGMMA) == set(_build.SOURCES)
+    assert not (_build.CSRC / "field_mlp.cuh").exists()
     for name in _build.SOURCES:
         includes = [h.name for h in _build.local_includes(_build.CSRC / f"{name}.cu")]
-        assert ("field_mlp.cuh" in includes) == (name not in WGMMA)
-        assert ("field_wgmma.cuh" in includes) == (name in WGMMA)
+        assert "field_wgmma.cuh" in includes and "field_mlp.cuh" not in includes
+    for path in sorted(_build.CSRC.iterdir()):
+        assert "field_mlp" not in path.read_text(), path.name
 
 
 def test_flags_target_sm90a_without_fma_contraction():

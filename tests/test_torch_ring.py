@@ -1,13 +1,13 @@
 """The host side of the wgmma core's weight ring (dfanerf_torch/ops/_build.py
-ring_blob, csrc/field_wgmma.cuh): the staged blob of render_rays,
-pair_field, render_head, pair_perz, sigma_head and pair_hier against the
-``weight_blobs`` blob it is re-laid from, on packed weights of a seeded
-decoder. Nothing is compiled
-here: the tests read the staged blob as the kernel's wgmma descriptors
-address it (start address, leading byte offset 128 B along K, stride byte
-offset KS/8 x 128 B along N) and walk its slabs in the order the kernel's
-layers consume them; and each source's ``<name>_layout`` is read to check
-that its library gets the blob of its core."""
+ring_blob, csrc/field_wgmma.cuh): the staged blob of every kernel library
+(render_rays, pair_field, render_head, pair_perz, sigma_head, pair_hier,
+far_eval) against the ``weight_blobs`` blob it is re-laid from, on packed
+weights of a seeded decoder. Nothing is compiled here: the tests read the
+staged blob as the kernel's wgmma descriptors address it (start address,
+leading byte offset 128 B along K, stride byte offset KS/8 x 128 B along N)
+and walk its slabs in the order the kernel's layers consume them, the far
+kernels' 128-ray chunks included; and each source's ``<name>_layout`` is
+read to check that its library gets the staged blob."""
 
 import re
 
@@ -17,6 +17,7 @@ import torch
 from dfanerf_torch.models import Decoder, DecoderConfig
 from dfanerf_torch.models.layers import init_uniform_
 from dfanerf_torch.ops import _build
+from dfanerf_torch.ops.far_eval import _far_rows, far_head_reference, far_torso_reference
 from dfanerf_torch.ops.fused_render import _field_rows, density_act, sigma_only
 from dfanerf_torch.ops.pack import pack_field_weights
 from dfanerf_torch.ops.sigma_head import sigma_rows
@@ -193,6 +194,16 @@ def test_ring_walk_runs_the_field(packed, branch):
     torch.testing.assert_close(rgb, want_rgb, rtol=1e-4, atol=1e-5)
 
 
+def _walk_sigma(staged, b, x, act):
+    """The head's density over rows x in a density-only chunk's order (the
+    trunk, then the sigma rows at the staged blob's end); the slabs taken."""
+    cur = _Cursor(staged)
+    h = _walk_trunk(cur, b, x.float())
+    sigw = _const("NS_HEAD") * _build.SLAB  # Staged<PEW>::SIGW
+    sig_rows = staged[sigw:sigw + 8 * 256].reshape(8, 256).float()
+    return density_act(_mm(h, sig_rows[0:1].t())[:, 0] + b[B_SF], act), cur.pos
+
+
 @pytest.mark.parametrize("act", ["relu", "softplus"])
 def test_ring_walk_runs_the_sigma_trunk(packed, act):
     """The density-only walk (field_wgmma.cuh wg_sigma_walk, sigma_head and
@@ -207,15 +218,11 @@ def test_ring_walk_runs_the_sigma_trunk(packed, act):
     x = torch.sin(torch.randn(ROWS, 64, generator=g) * 3.0)
     x[:, 60:] = 0.0
     x = x.to(torch.bfloat16)
-    cur = _Cursor(staged)
-    h = _walk_trunk(cur, b, x.float())
-    sigw = _const("NS_HEAD") * _build.SLAB  # Staged<PEW>::SIGW
-    sig_rows = staged[sigw:sigw + 8 * 256].reshape(8, 256).float()
-    sigma = density_act(_mm(h, sig_rows[0:1].t())[:, 0] + b[B_SF], act)
-    assert cur.pos == _const("NS_HEAD_TRUNK") == _const("NS_HEAD") - 256 * 256 // _build.SLAB
+    sigma, used = _walk_sigma(staged, b, x, act)
+    assert used == _const("NS_HEAD_TRUNK") == _const("NS_HEAD") - 256 * 256 // _build.SLAB
     torch.testing.assert_close(sigma, sigma_rows(sigma_only(pw), x, act), rtol=1e-4, atol=1e-5)
     assert _build.staged_weight_bytes("head", color=False) == 2 * (
-        cur.pos * _build.SLAB + 8 * 256) == 987_136
+        used * _build.SLAB + 8 * 256) == 987_136
 
 
 @pytest.mark.parametrize("name", ["sigma_head", "pair_hier"])
@@ -235,9 +242,10 @@ def test_density_kernels_share_the_sigma_walk(name):
 
 @pytest.mark.parametrize("layout", ["staged", "plain", "neither"])
 def test_binding_hands_each_library_the_layout_it_reports(packed, layout):
-    """Binding.blobs gives a library the weight blob whose size its
-    <name>_layout reports: staged (the wgmma core) or plain (the mma.sync
-    core); any other size is refused."""
+    """Binding.blobs gives a library the staged weight blob, the one layout
+    of the wgmma core, which every library runs: a library reporting any
+    other size, the plain blob's (the deleted mma.sync core's) included,
+    is refused."""
     binding = _build.Binding("render_rays", {})
     plain = {br: _build.weight_blobs(packed[br], br) for br in ("head", "torso")}
     staged = {br: _build.ring_blob(plain[br][0], br) for br in ("head", "torso")}
@@ -248,18 +256,18 @@ def test_binding_hands_each_library_the_layout_it_reports(packed, layout):
     binding._layout = (w_sizes["head"], plain["head"][1].numel(), w_sizes["torso"],
                        plain["torso"][1].numel(), 0)
     for br in ("head", "torso"):
-        if layout == "neither":
+        if layout != "staged":
             with pytest.raises(ValueError, match="kernel expects"):
                 binding.blobs(packed[br], br, torch.device("cpu"))
             continue
         w, b = binding.blobs(packed[br], br, torch.device("cpu"))
-        assert torch.equal(w, staged[br] if layout == "staged" else plain[br][0])
+        assert torch.equal(w, staged[br])
         assert torch.equal(b, plain[br][1])
 
 
-# The libraries of the wgmma core; the other (far_eval) runs the mma.sync
-# core and takes the plain blobs.
-WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier")
+# The libraries of the wgmma core: every one.
+WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier",
+         "far_eval")
 
 
 def _layout_exprs(name):
@@ -273,14 +281,13 @@ def _layout_exprs(name):
 @pytest.mark.parametrize("name", _build.SOURCES)
 def test_each_library_reports_the_blobs_of_its_core(packed, name):
     """A source's <name>_layout reports the staged weight size (the ring's
-    slabs and the narrow rows) if it runs the wgmma core and the plain one
-    otherwise, so Binding.blobs hands its library the blob its kernels
-    read; the bias sizes are the plain blobs' in both cores."""
+    slabs and the narrow rows), every source running the wgmma core, so
+    Binding.blobs hands its library the blob its kernels read; the bias
+    sizes are the plain bias blobs'."""
+    assert name in WGMMA
     plain = {br: _build.weight_blobs(packed[br], br) for br in ("head", "torso")}
     value = {"Staged<PEW>::END": _const("NS_HEAD") * _const("SLAB") + 2 * 8 * 256,
              "Staged<DEF>::END": _const("NS_TORSO") * _const("SLAB") + 2 * 8 * 256,
-             "WOff<PEW>::END": plain["head"][0].numel(),
-             "TORSO_WEND": plain["torso"][0].numel(),
              "B_END": plain["head"][1].numel(), "TORSO_BEND": plain["torso"][1].numel(), "0": 0}
     exprs = _layout_exprs(name)
     assert sorted(exprs) == list(range(_build.LAYOUT_SIZES))
@@ -294,8 +301,91 @@ def test_each_library_reports_the_blobs_of_its_core(packed, name):
     for i, br in enumerate(branches):
         w_plain, b_plain = plain[br]
         staged = _build.staged_weight_bytes(br) // 2
-        assert sizes[2 * i] == (staged if name in WGMMA else w_plain.numel()), (name, br)
+        assert sizes[2 * i] == staged, (name, br)
         assert sizes[2 * i + 1] == b_plain.numel()
         w, b = binding.blobs(packed[br], br, torch.device("cpu"))
-        assert torch.equal(w, _build.ring_blob(w_plain, br) if name in WGMMA else w_plain)
+        assert torch.equal(w, _build.ring_blob(w_plain, br))
         assert torch.equal(b, b_plain)
+
+
+# far_eval.cu: 128-ray chunks; the ragged last chunk's rows at or past n
+# read ray n - 1 (CLAMP) and are not stored.
+FAR = 0.9
+
+
+def _far_inputs(n):
+    g = torch.Generator().manual_seed(5)
+    o, d = torch.randn(n, 3, generator=g) * 0.05, torch.randn(n, 3, generator=g) * 0.2
+    d[:, 2] -= 1.0
+    return o, d, (torch.randn(n, 256, generator=g) * 0.1).to(torch.bfloat16)
+
+
+def _far_chunk(staged, b, branch, o, d, vr, ray0, act):
+    """One chunk of far_eval.cu's far_head_chunk or far_torso_chunk: the
+    chunk's 128 rows (clamped rays), each wide layer's weight taken from the
+    field's staged blob from its start (the producer's ring.produce(w, ns,
+    1)). Returns the values of the rows below n and the slabs taken."""
+    n = o.shape[0]
+    rays = (ray0 + torch.arange(128)).clamp(max=n - 1)
+    x = _far_rows(o, d, FAR, rays)
+    if branch == "head":
+        sigma, used = _walk_sigma(staged, b, x, act)
+        out = sigma[:, None]
+    else:
+        _, out, used = _walk_field(staged, b, x, vr[rays].float(), "torso", act)
+    return out[:n - ray0], used
+
+
+def _far_walk(packed, branches, o, d, vr, act):
+    """far_eval.cu's kernel over n rays: per chunk, the walk of each field in
+    ``branches`` in turn. Returns each field's output and the (field, slabs)
+    sequence its producer must issue."""
+    blobs = {}
+    for br in branches:
+        w, b = _build.weight_blobs(packed[br], br)
+        blobs[br] = (_build.ring_blob(w, br), b)
+    outs, seq = {br: [] for br in branches}, []
+    for ray0 in range(0, o.shape[0], 128):
+        for br in branches:
+            out, used = _far_chunk(*blobs[br], br, o, d, vr, ray0, act)
+            outs[br].append(out)
+            seq.append((br, used))
+    return {br: torch.cat(v) for br, v in outs.items()}, seq
+
+
+@pytest.mark.parametrize("n", [77, 300])
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+@pytest.mark.parametrize("branch", ["head", "torso"])
+def test_far_ring_walk_matches_the_plain_version(packed, branch, act, n):
+    """far_head (NS_HEAD_TRUNK slabs a chunk, the sigma rows) and far_torso
+    (NS_TORSO slabs, the rgb rows) walked chunk by chunk over a ragged ray
+    count, under one chunk or over several, give the plain versions' sh [n,
+    1] and ct [n, 3]."""
+    o, d, vr = _far_inputs(n)
+    outs, seq = _far_walk(packed, (branch,), o, d, vr, act)
+    ns = _const("NS_HEAD_TRUNK" if branch == "head" else "NS_TORSO")
+    assert seq == [(branch, ns)] * -(-n // 128)
+    if branch == "head":
+        want = far_head_reference(packed["head"], o, d, FAR, act)
+    else:
+        want = far_torso_reference(packed["torso"], o, d, FAR, vr, act)
+    assert outs[branch].shape == want.shape
+    torch.testing.assert_close(outs[branch], want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [77, 300])
+def test_far_joint_walk_is_the_head_walk_then_the_torso_walk(packed, n):
+    """far_joint's walk takes, per chunk, the head's 60 slabs then the
+    torso's 84, as its producer issues them (far_eval.cu far_block), and
+    equals the two walks alone bit for bit."""
+    src = (_build.CSRC / "far_eval.cu").read_text()
+    assert '#include "field_wgmma.cuh"' in src
+    assert re.findall(r"ring\.produce\([^;]*\);", src) == [
+        "ring.produce(p.w_h, NS_HEAD_TRUNK, 1);", "ring.produce(p.w_t, NS_TORSO, 1);"]
+    o, d, vr = _far_inputs(n)
+    joint, seq = _far_walk(packed, ("head", "torso"), o, d, vr, "relu")
+    assert seq == [("head", 60), ("torso", 84)] * -(-n // 128)
+    assert (_const("NS_HEAD_TRUNK"), _const("NS_TORSO")) == (60, 84)
+    for br in ("head", "torso"):
+        alone, _ = _far_walk(packed, (br,), o, d, vr, "relu")
+        assert torch.equal(joint[br], alone[br])
