@@ -23,8 +23,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 4. cross-check the two hand-written paths: the pair kernels with every
    (tile, slab) listed, the far kernels, deferred_composite and bg_blend
    against the dense kernel on that frame;
-5. drive the pair-compacted serving path (BASELINE config 3's recipe, the
-   levers not ported yet switched off) for 16 frames across two flag
+5. drive the pair-compacted serving path (BASELINE config 3's recipe, its
+   serving levers switched off) for 16 frames across two flag
    refreshes; check the flags are mixed and equal to flags built with
    widened float32 products, the frames, a refresh frame and a steady frame
    against the plain versions, and the launches per steady frame
@@ -46,27 +46,40 @@ Phases, in order; any failure ends the run with a non-zero exit:
 9. refresh_union with occ_pack2 over a window of 4 frames: the pinned union,
    then per-frame slots (render(..., window_slot=i)), with prep seconds, ms
    per frame and every slot frame against the plain versions;
-10. hold the hierarchical head render's kernels (sigma_head, render_head,
+10. drive BASELINE config 3's offline serving config (cfg1 of
+   benchmarks/serve_trained.py:246-259, verbatim: the colour-keyed budget
+   refined over two rounds with verify-and-revert, far_skip_tol,
+   far_subsample=8, occ_prune_carry) on the recipe of 5: refresh_union with
+   per-frame slots over a window of 4 (prep seconds; each slot's pairs,
+   refinement, reverted tiles, far_skip; the budget must drop pairs beyond
+   the trans prune alone), 8 window_slot frames (pair_field 2 launches, the
+   far kernels 1 + 1 on the 3,364-row subgrid or none under far_skip, no
+   host sync), a renderer with far_skip_tol 0 whose frames run the far
+   kernels at 3,364 rows, and the live path refreshing every 4 frames
+   (full, carried x3, full); slot, forced-far, carried-refresh and steady
+   frames against the plain versions; errors against the dense no-skip
+   frames printed;
+11. hold the hierarchical head render's kernels (sigma_head, render_head,
    pair_sigma, pair_field_perz) against their plain versions at a 450x450
    frame's rays and 64 + 128 samples, with ERT slab counts, exact zeros in
    clear slabs, pair lists with gaps and empty ones; cross-check the pair
    kernels with every pair listed against the dense kernels (pair_sigma
    against sigma_head bit for bit);
-11. drive the hierarchical render (BASELINE config 2) through
+12. drive the hierarchical render (BASELINE config 2) through
    encode_frame_signals and make_head_hierarchical_renderer: no-skip for 5
    frames (sigma_head and render_head once per frame), then the
    pair-compacted serving recipe for 12 frames across three refreshes
    (pair_sigma and pair_field_perz once per steady frame, no host sync);
    check the frames, the flags and lists, a frame of each kind against the
    plain versions; time the frames, each stage and each kernel;
-12. hold the four render_rays instantiations (both fields with the
+13. hold the four render_rays instantiations (both fields with the
    background in the kernel; the epilogue mode with both fields, the head
    only, the torso only) and far_joint against their plain versions at a
    450x450 frame's rays and 64 samples (flags with gaps, tiles without a
    flag, a saturating field for ERT) and far_joint (77, 4096, 4173 rays and
    the frame's, relu and softplus), far_joint also against far_head +
    far_torso bit for bit;
-13. drive the shipped serving config (configs/obama_serve_tpu.json) through
+14. drive the shipped serving config (configs/obama_serve_tpu.json) through
    encode_frame_signals and make_frame_renderer: its tile-class branch for
    12 frames across three refreshes (one render_rays per non-empty class
    segment in a steady frame, no host sync), then its plain occupancy branch
@@ -74,10 +87,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    check the classes, the flags, a refresh and a steady frame of each branch
    against the plain versions; print each branch's error against the dense
    no-skip frames; time the frames, each stage and each segment's kernel;
-14. the tile-class branch with its epilogue in its kernel form
+15. the tile-class branch with its epilogue in its kernel form
    (bg_epilogue_fused, one far_joint per epilogue) against the shipped
    epilogue; far_joint's times;
-15. print the card's name and power limit, then one JSON line listing every
+16. print the card's name and power limit, then one JSON line listing every
    ported kernel with its launches, error and times, and last a JSON status
    line.
 
@@ -132,8 +145,10 @@ TOL = {"head_max": 5e-4, "head_mean": 1e-6, "com_max": 5e-4, "com_mean": 5e-5}
 # torso colour is float32 and held to the head's max bound.
 SIG_RTOL, SIG_FLOOR, RGB_ULPS = 2e-2, 5e-2, 1.0
 # Ray counts the far kernels are held at beside a frame's: fewer than one of
-# their 128-ray chunks, whole chunks, a ragged last chunk.
-FAR_COUNTS = (77, 4096, 4096 + 77)
+# their 128-ray chunks, whole chunks, a ragged last chunk, and a 450x450
+# frame's far_subsample=8 subgrid (841 tiles x 4 cells: 26 chunks and a
+# ragged one).
+FAR_COUNTS = (77, 4096, 4096 + 77, 3364)
 # The occupancy flags decide which pairs are rendered at all, and on the card
 # they come from bf16 products on the tensor cores (the CUDA branch of
 # fused_render._mm_cast). Each refresh's flags are rebuilt from the same
@@ -629,8 +644,8 @@ def phase_pair_vs_dense(ops):
 
 
 # Pair-compacted serving path: BASELINE config 3's recipe
-# (benchmarks/serve_trained.py:246-257) with the levers that are not ported
-# yet switched off (budget, carry, far_skip, far_subsample).
+# (benchmarks/serve_trained.py:246-257) with its serving levers (budget,
+# carry, far_skip, far_subsample) switched off; phase_cfg1 drives them.
 PAIR_FRAMES = 16
 PAIR_RENDER = dict(n_samples=N_SAMPLES, concate_bg=True, compute_dtype="bfloat16",
                    use_fused_kernel=True, spatial_tiles=True, ert_eps=1e-4, occ_sigma_thresh=2.0,
@@ -695,6 +710,20 @@ def _spy(name, runs):
         setattr(renderer, name, real)
 
 
+def _far_full(x):
+    """Far-plane values of every ray in tile order: as given, or upsampled
+    as the renderer does from a far_subsample subgrid."""
+    import math
+
+    from dfanerf_torch.render.renderer import far_upsample, far_upsample_matrix
+
+    n_tiles = (-(-H // 16)) * (-(-W // 16))
+    if x.shape[0] == n_tiles * 256:
+        return x
+    ss = 16 // math.isqrt(x.shape[0] // n_tiles)
+    return far_upsample(x, torch.from_numpy(far_upsample_matrix(ss)).to(x.device))
+
+
 @contextlib.contextmanager
 def _plain_pair_path(captured):
     """The pair renderer with its kernel calls swapped for their plain
@@ -723,7 +752,7 @@ def _plain_pair_path(captured):
     def plain_far(pw_h, pw_t, o, d, o_t, d_t, far, act):
         vr_t = view_bias(pw_t, d_t).to(torch.bfloat16).contiguous()
         sh = far_head_reference(pw_h, o, d, far, act)
-        captured["sh"] = renderer.spatial_untile(sh, H, W)[..., 0]
+        captured["sh"] = renderer.spatial_untile(_far_full(sh), H, W)[..., 0]
         return sh, far_torso_reference(pw_t, o_t, d_t, far, vr_t, act)
 
     names = ("pair_field_eval", "pair2_field_eval", "fused_far_eval_split")
@@ -1383,6 +1412,311 @@ def phase_refresh_union():
             err = max(err, _check_pair(f"refresh_union frame {i} under slot {i}, kernels vs plain",
                                        head, com, head_r, com_r, captured["sh"]))
     print(f"[refresh_union] frame-level error vs plain {err:.3e}", flush=True)
+
+
+# BASELINE config 3's offline serving config, cfg1 of
+# benchmarks/serve_trained.py:246-259 with the defaults of run() (:129-132),
+# verbatim: the colour-keyed budgeted prune refined over two rounds,
+# far_skip_tol, the far plane on an 8x8-pixel subgrid, carried keep-masks.
+CFG1_RENDER = dict(n_samples=N_SAMPLES, use_fused_kernel=True, compute_dtype="bfloat16",
+                   ert_eps=1e-4, spatial_tiles=True, occ_sigma_thresh=2.0, occ_grid_res=96,
+                   occ_refresh_every=8, occ_pair_compaction=True, occ_prune_contrib=0.0,
+                   occ_prune_budget=2e-3, occ_budget_color=True, occ_budget_iters=2,
+                   occ_prune_trans=0.1, far_skip_tol=2e-3, far_subsample=8, occ_prune_carry=3)
+CFG1_WINDOW = 4
+CFG1_SLOT_FRAMES = 8   # window_slot frames served, cycling the window twice
+CFG1_LIVE_EVERY = 4    # live part: refresh every 4 frames, so 20 frames hold
+CFG1_LIVE_FRAMES = 20  # full, carried x3, full refreshes
+CFG1_FAR_ROWS = 841 * 4  # a 450x450 frame's far_subsample=8 subgrid
+# A second budget, served where cfg1's drops no pair on these random weights
+# (the colour keys of random fields can all exceed 2e-3).
+CFG1_DROP_BUDGET = 2e-2
+
+
+def phase_cfg1():
+    """BASELINE config 3's offline serving config (cfg1) at full width:
+    refresh_union(per_slot=True) over a window of 4 prepped frames, then
+    window_slot frames; a renderer with far_skip_tol 0, whose fast frames run
+    the far kernels on the 3,364-row subgrid; the live path with refreshes
+    every 4 frames (full, carried x3, full). Frames against the plain
+    versions in the same flag state, launches per frame, no host sync in a
+    served frame; errors against the dense no-skip frames printed. Returns
+    the launches of the phase's driving."""
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.pair_field import pair_field_kernel
+
+    t_phase = time.perf_counter()
+
+    def config(**kw):
+        return ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                                render=RenderConfig(**dict(CFG1_RENDER, **kw)))
+
+    cfg = config()
+    scene, args = _pair_scene(cfg, n_frames=CFG1_LIVE_FRAMES)
+
+    def make(c):
+        return renderer.make_frame_renderer(c, scene.hwfcxy, scene.near, scene.far)
+
+    kernels = {"pair_field": pair_field_kernel, "far_head": far_head_kernel,
+               "far_torso": far_torso_kernel}
+    no_far = torch.full((H, W), float("inf"), device="cuda")
+
+    def plain_check(tag, frame, render_plain):
+        """frame against the same renderer call with the plain versions; under
+        far_skip the composite has no far-plane term and is held everywhere."""
+        captured = {}
+        with _plain_pair_path(captured):
+            head_r, com_r = render_plain()
+            torch.cuda.synchronize()
+        return _check_pair(f"cfg1 {tag}, kernels vs plain", frame[0], frame[1], head_r, com_r,
+                           captured.get("sh", no_far))
+
+    def served(render, frame_args, n_frames, slot):
+        """n_frames frames, frame i under slot(i), through _run_frames (each
+        a steady frame: launches counted, host syncs too): (frames, [(True,
+        ms, launches)], host syncs, the far-plane rows of each far call)."""
+        runs, calls = [], iter(range(n_frames))
+
+        def slot_frame(*a):
+            return render(*a, window_slot=slot(next(calls)))
+
+        slot_frame.cache = render.cache
+        with _spy("fused_far_eval_split", runs):
+            out = _run_frames(slot_frame, frame_args, n_frames,
+                              {k: (v, None) for k, v in kernels.items()}, lambda _: True)
+        return (*out, [a[2].shape[0] for a, _, _ in runs])
+
+    def launches_ok(marks, rows, far_skips):
+        """Each frame launched pair_field twice and, where its state does
+        not skip the far plane, far_head and far_torso once on the
+        3,364-row subgrid."""
+        want = [{"pair_field": 2} if fs else {"pair_field": 2, "far_head": 1, "far_torso": 1}
+                for fs in far_skips]
+        return [got for _, _, got in marks] == want and rows == [CFG1_FAR_ROWS] * far_skips.count(
+            False)
+
+    def prep(render, window):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render.refresh_union(window, per_slot=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    noskip = _serve_noskip_frames(cfg, args, CFG1_LIVE_FRAMES)
+    with warnings.catch_warnings():
+        # the sync debug mode's one-time notice that it is a prototype
+        # mentions synchronizing operations: let it fire outside a frame
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    for k in kernels.values():
+        k.launches = 0
+
+    # offline: per-slot prep, then window_slot frames
+    window = [make(cfg).inputs_fn(*args(i)) for i in range(CFG1_WINDOW)]
+    trans_only = make(config(occ_prune_budget=0.0))
+    trans_s = prep(trans_only, window)
+    trans_pairs = [tuple(int(t.numel()) for t, _ in st["lists"]) for st in trans_only.cache["slots"]]
+    print(f"[cfg1] window of {CFG1_WINDOW}, the trans prune alone: per-slot prep {trans_s:.3f} s, "
+          f"slot pairs (head, torso) {trans_pairs}", flush=True)
+
+    def budget_prep(budget):
+        """A renderer of cfg1 with this budget, prepped over the window:
+        (renderer, pairs it drops beyond the trans prune alone)."""
+        r = make(config(occ_prune_budget=budget))
+        keys = []
+        real = renderer.deferred_composite
+
+        def spy(*a, **kw):
+            out = real(*a, **kw)
+            if kw.get("with_ray_diag") and not keys:
+                # slot 0's unpruned keys: each listed pair's largest ray cost
+                occ = a[2].bool()
+                keys.extend(float(x) for x in torch.quantile(torch.cat(
+                    [out[8 + f].amax(dim=2).t()[occ[f]] for f in range(2)]),
+                    torch.tensor([0.0, 0.1, 0.5, 0.9], device=occ.device)))
+            return out
+
+        renderer.deferred_composite = spy
+        try:
+            prep_s = prep(r, window)
+        finally:
+            renderer.deferred_composite = real
+        for i, (st, sp) in enumerate(zip(r.cache["slots"], r.cache["slot_prep"])):
+            print(f"[cfg1] budget {budget:g}, slot {i}: pairs (head, torso) unpruned "
+                  f"{sp['pairs'][0]}, after the trans prune and the budget {sp['pairs'][1]}, after "
+                  f"the refinement {sp['pairs'][-1]} ({sp['refined']} pairs dropped by the "
+                  f"refinement, {sp['reverted']} tiles reverted); {len(st['tiles_u'])} union "
+                  f"tiles; far_skip {st['far_skip']}, far_cmix_err {st['far_cmix_err']:.3e}",
+                  flush=True)
+        pairs = [sp["pairs"][-1] for sp in r.cache["slot_prep"]]
+        dropped = sum(sum(a) - sum(b) for a, b in zip(trans_pairs, pairs))
+        print(f"[cfg1] budget {budget:g}: per-slot prep {prep_s:.3f} s; slot 0's unpruned pairs' "
+              f"largest ray cost min / 10% / 50% / 90% {' / '.join(f'{k:.3e}' for k in keys)}; "
+              f"the budget drops {dropped} pairs beyond the trans prune", flush=True)
+        if any(a[f] < b[f] for a, b in zip(trans_pairs, pairs) for f in range(2)):
+            _fail("the budget kept a pair the trans prune alone drops")
+        return r, dropped
+
+    render, dropped = budget_prep(CFG1_RENDER["occ_prune_budget"])
+    c = render.cache
+    if not dropped:
+        # random weights: cfg1's budget may drop nothing, so a second
+        # renderer whose budget does drop pairs is served and held too
+        dropper, dropped = budget_prep(CFG1_DROP_BUDGET)
+        if not dropped:
+            _fail(f"neither cfg1's budget nor {CFG1_DROP_BUDGET} dropped a pair beyond the trans "
+                  f"prune")
+    else:
+        dropper = None
+
+    frames, marks, syncs, rows = served(render, lambda i: args(i % CFG1_WINDOW),
+                                        CFG1_SLOT_FRAMES, lambda i: i)
+    ms = [m for _, m, _ in marks]
+    print(f"[cfg1] {CFG1_SLOT_FRAMES} window_slot frames {H}x{W}: "
+          f"{sum(ms) / len(ms):.2f} ms per frame ({', '.join(f'{m:.2f}' for m in ms)}; CUDA "
+          f"events); launches per frame {[got for _, _, got in marks]}; far-plane rows {rows}; "
+          f"host syncs {syncs}", flush=True)
+    far_skips = [c["slots"][i % CFG1_WINDOW]["far_skip"] for i in range(CFG1_SLOT_FRAMES)]
+    if not launches_ok(marks, rows, far_skips) or syncs:
+        _fail(f"window_slot frames launched {[got for _, _, got in marks]} on far-plane rows "
+              f"{rows} with far_skip {far_skips}; {syncs} host syncs")
+    err = 0.0
+    for i in range(CFG1_WINDOW):
+        _check_frame(f"cfg1 slot frame {i}", *frames[i])
+        err = max(err, plain_check(f"slot frame {i}", frames[i],
+                                   lambda: render(*args(i), window_slot=i)))
+    _noskip_errors("cfg1 window_slot frames", frames[:CFG1_WINDOW], noskip)
+    if dropper is not None:
+        d_frames, d_marks, d_syncs, d_rows = served(dropper, args, CFG1_WINDOW, lambda i: i)
+        print(f"[cfg1] budget {CFG1_DROP_BUDGET:g}, window_slot frames "
+              f"{', '.join(f'{m:.2f}' for _, m, _ in d_marks)} ms; launches "
+              f"{[got for _, _, got in d_marks]}; host syncs {d_syncs}", flush=True)
+        if d_syncs or not launches_ok(d_marks, d_rows, [st["far_skip"] for st in
+                                                        dropper.cache["slots"]]):
+            _fail(f"the budget {CFG1_DROP_BUDGET:g} frames launched "
+                  f"{[got for _, _, got in d_marks]}, {d_syncs} host syncs")
+        for i in (0, CFG1_WINDOW - 1):
+            _check_frame(f"cfg1 budget {CFG1_DROP_BUDGET:g} slot frame {i}", *d_frames[i])
+            err = max(err, plain_check(f"budget {CFG1_DROP_BUDGET:g} slot frame {i}", d_frames[i],
+                                       lambda: dropper(*args(i), window_slot=i)))
+        _noskip_errors(f"cfg1 budget {CFG1_DROP_BUDGET:g} window_slot frames", d_frames, noskip)
+
+    # the far plane forced on: far_skip_tol 0, a window of one frame
+    forced = make(config(far_skip_tol=0.0))
+    forced_s = prep(forced, window[:1])
+    f_frames, f_marks, f_syncs, f_rows = served(forced, args, 2, lambda i: 0)
+    print(f"[cfg1] far_skip_tol 0: prep of one slot {forced_s:.3f} s; window_slot frames "
+          f"{', '.join(f'{m:.2f}' for _, m, _ in f_marks)} ms; launches "
+          f"{[got for _, _, got in f_marks]}; far-plane rows {f_rows}; host syncs {f_syncs}",
+          flush=True)
+    if f_syncs or not launches_ok(f_marks, f_rows, [False, False]):
+        _fail(f"the forced far-plane frames launched {[got for _, _, got in f_marks]} on rows "
+              f"{f_rows}, {f_syncs} host syncs")
+    _check_frame("cfg1 forced far-plane frame 0", *f_frames[0])
+    err = max(err, plain_check("forced far-plane frame 0", f_frames[0],
+                               lambda: forced(*args(0), window_slot=0)))
+    _noskip_errors("cfg1 forced far-plane frame", f_frames[:1], noskip)
+
+    # live: refresh every 4 frames; the first 8 frames, then a carried
+    # refresh frame (4) and a steady one (5) against the plain versions in
+    # their flag state, which holds through frame 7; then frames 8 .. 19
+    live = make(config(occ_refresh_every=CFG1_LIVE_EVERY))
+    lc = live.cache
+
+    def is_steady(cache):
+        return cache["lists"] is not None and cache["age"] < CFG1_LIVE_EVERY
+
+    kinds = []
+
+    def live_frames(first, n):
+        def on_refresh(i):
+            kinds.append((first + i, lc["keep_age"],
+                          tuple(int(t.numel()) for t, _ in lc["lists"]), lc["far_skip"],
+                          lc["far_cmix_err"]))
+
+        out = _run_frames(live, lambda i: args(first + i), n,
+                          {k: (v, None) for k, v in kernels.items()}, is_steady, on_refresh)
+        # each frame's far_skip: that of the refresh before it
+        far_skips = [next(k[3] for k in reversed(kinds) if k[0] <= i)
+                     for i in range(first, first + n)]
+        return (*out, far_skips)
+
+    l_frames, l_marks, l_syncs, l_skips = live_frames(0, 8)
+    err = max(err, plain_check("live carried refresh frame 4", l_frames[4],
+                               lambda: live.run_fast(*args(4))))
+    err = max(err, plain_check("live steady frame 5", l_frames[5],
+                               lambda: live.run_fast(*args(5))))
+    more = live_frames(8, CFG1_LIVE_FRAMES - 8)
+    l_frames, l_marks, l_syncs, l_skips = (l_frames + more[0], l_marks + more[1],
+                                           l_syncs + more[2], l_skips + more[3])
+    for i, keep_age, pairs, fs, cmix in kinds:
+        print(f"[cfg1 live] refresh at frame {i}: keep_age {keep_age} "
+              f"({'full' if keep_age == 0 else 'carried'}), lists {pairs}, far_skip {fs}, "
+              f"far_cmix_err {cmix:.3e}", flush=True)
+    if [k[:2] for k in kinds] != [(0, 0), (4, 1), (8, 2), (12, 3), (16, 0)]:
+        _fail(f"live refreshes {[k[:2] for k in kinds]}, expected full, carried x3, full")
+    steady = [(m, fs) for m, fs in zip(l_marks, l_skips) if m[0]]
+    if not launches_ok([m for m, _ in steady], [CFG1_FAR_ROWS] * [fs for _, fs in steady].count(
+            False), [fs for _, fs in steady]) or l_syncs:
+        _fail(f"live steady frames launched {[m[2] for m, _ in steady]}, {l_syncs} host syncs")
+    for i, (head, com) in enumerate(l_frames):
+        _check_frame(f"cfg1 live frame {i}", head, com)
+    _frame_times("cfg1 live", l_marks, CFG1_LIVE_EVERY)
+    _noskip_errors("cfg1 live", l_frames, noskip)
+
+    got = {name: k.launches for name, k in kernels.items()}
+    _cfg1_far_times(make(cfg), args(0), float(torch.tensor(scene.far, dtype=torch.float32)))
+    print(f"[cfg1] launches over the phase's driving {got}; frame-level error vs plain "
+          f"{err:.3e}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if min(got.values()) == 0:
+        _fail(f"a kernel of the cfg1 path never launched: {got}")
+    return got
+
+
+def _cfg1_far_times(render, a, far):
+    """The fast frame's far stage at far_subsample=8 on frame a: the far
+    kernels at 3,364 rows through their wrappers (which re-lay the weight
+    blobs at every call) and as bare launches of blobs staged once, and the
+    whole stage (subgrid, view bias, both kernels, the two upsamples)."""
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.fused_render import _slot_tables, view_bias
+    from dfanerf_torch.render.renderer import far_subgrid, far_upsample, far_upsample_matrix
+
+    pw_h, pw_t, ro, rd, ro_t, rd_t, _ = render.inputs_fn(*a)
+    A = torch.from_numpy(far_upsample_matrix(8)).cuda()
+    o, d, o_t, d_t = (far_subgrid(x, 8) for x in (ro, rd, ro_t, rd_t))
+    n, dev = o.shape[0], o.device
+    vr = view_bias(pw_t, d_t).to(torch.bfloat16).contiguous()
+    freq, phase = _slot_tables(dev)
+    (w_h, b_h), (w_t, b_t) = far_head_kernel.blobs(pw_h, "head", dev), far_torso_kernel.blobs(
+        pw_t, "torso", dev)
+    sh, ct = torch.empty((n, 1), device=dev), torch.empty((n, 3), device=dev)
+    wrapped = {"far_head": lambda: far_head_kernel(pw_h, o, d, far, act="softplus"),
+               "far_torso": lambda: far_torso_kernel(pw_t, o_t, d_t, far, vr, act="softplus")}
+    bare = {"far_head": lambda: far_head_kernel.launch("far_eval_launch", dev, 0, o, d, far, None,
+                                                       freq, phase, w_h, b_h, sh, n, 1),
+            "far_torso": lambda: far_torso_kernel.launch("far_eval_launch", dev, 1, o_t, d_t, far,
+                                                         vr, freq, phase, w_t, b_t, ct, n, 1)}
+
+    def stage():
+        s_o, s_d, s_ot, s_dt = (far_subgrid(x, 8) for x in (ro, rd, ro_t, rd_t))
+        v = view_bias(pw_t, s_dt).to(torch.bfloat16).contiguous()
+        return (far_upsample(far_head_kernel(pw_h, s_o, s_d, far, act="softplus"), A),
+                far_upsample(far_torso_kernel(pw_t, s_ot, s_dt, far, v, act="softplus"), A))
+
+    for fn in list(wrapped.values()) + list(bare.values()) + [stage]:
+        fn()
+    times = {f"{k} {kind}": _cuda_ms(fns[k], 20) for kind, fns in (("wrapped", wrapped),
+                                                                      ("bare", bare))
+             for k in fns}
+    print(f"[cfg1] far stage at far_subsample=8, {n} rows: "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in times.items())
+          + f"; whole stage (subgrid, view bias, both wrapped kernels, upsample) "
+          f"{_cuda_ms(stage, 20):.3f} ms", flush=True)
 
 
 # Hierarchical head render, BASELINE config 2 (benchmarks/serve_trained.py:
@@ -2555,6 +2889,10 @@ def main() -> int:
         # the largest error of the kernel's checks: on the main path and alone
         entry["max_abs_err"] = max(entry["max_abs_err"], pair2_errs[entry["name"]])
     phase_refresh_union()
+    cfg1_launches = phase_cfg1()
+    for entry in pair_kernels:
+        # the pair path's launches and those of the cfg1 path
+        entry["launches"] += cfg1_launches[entry["name"]]
     phase_hier_kernels_vs_plain()
     hier_dense, noskip_frames = phase_hier_dense_main_path()
     hier_pairs = phase_hier_pair_main_path(noskip_frames[:N_FRAMES])

@@ -4,7 +4,7 @@ resample of the hierarchical render.
 
 Only the deterministic forms are ported: the random ones (``key`` given, or
 ``det=False``) serve training, which is not ported yet (ROADMAP.md queue 1,
-item 7), and JAX's random bits cannot be reproduced anyway.
+item 2), and JAX's random bits cannot be reproduced anyway.
 
 ``sample_pdf`` selects with ``torch.searchsorted(right=True)`` and gathers,
 as the original NeRF code does (run_nerf_helpers.py:537-581). The reference
@@ -27,7 +27,7 @@ def stratified_z_vals(near: float, far: float, n_rays: int, n_samples: int, key=
     if key is not None:
         raise NotImplementedError(
             "stratified_z_vals with a random key (--perturb) is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+            "(ROADMAP.md queue 1, item 2)")
     t = linspace(0.0, 1.0, n_samples, device=device)
     return (near * (1.0 - t) + far * t).expand(n_rays, n_samples)
 
@@ -41,7 +41,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int, key=No
     if not det:
         raise NotImplementedError(
             "sample_pdf with det=False (training's random resample) is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+            "(ROADMAP.md queue 1, item 2)")
     weights = weights + 1e-5
     pdf = weights / weights.sum(dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)

@@ -5,7 +5,7 @@ From the same seed this builds the same arrays as the reference package:
 orbiting head poses, the audio/expression features of a scalar driving
 state, the background image, intrinsics and face rects. The ground-truth
 frames need the volume renderer of the training slice and are not built
-here (ROADMAP.md queue 1, item 6).
+here (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations

@@ -130,7 +130,7 @@ class Decoder(nn.Module):
         super().__init__()
         if cfg.positional_encoding != "normal":
             raise NotImplementedError(
-                "positional_encoding='gauss' is not ported yet (ROADMAP.md queue 1, item 3)")
+                "positional_encoding='gauss' is not ported yet (ROADMAP.md queue 1, odds and ends)")
         self.cfg = cfg
         H, Z = cfg.hidden_size, cfg.z_dim
         d_e, d_ev = cfg.dim_embed, cfg.dim_embed_view

@@ -2,7 +2,7 @@
 AudioNet_W2L, ExpressionEnc and AudioAttNet. They run once per frame; their
 outputs become per-frame constants folded into the decoder's biases.
 
-The DeepSpeech ``AudioNet`` is not ported yet (ROADMAP.md queue 1, item 3).
+The DeepSpeech ``AudioNet`` is not ported yet (ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations

@@ -38,21 +38,25 @@ def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
     (tile_trans_head, tile_trans_com [T, J]) and of each field's summed
     compositing weight over both stacks (contrib_head, contrib_torso [T, J]).
 
+    With the diagnostics and ``with_ray_diag`` (the budgeted prune's input,
+    reference :1889-1937) two more outputs [J, T, 256] follow, each field's
+    drop cost per (slab, tile, ray): its compositing mass over both stacks,
+    or with ``ray_err_bc`` (the background pixels [n, 3]) a first-order
+    estimate of the colour error of dropping the pair, which renormalizes
+    the ray's remaining transmittance onto what lies behind it (later
+    slabs and the background): per channel |sum w c - (sum w) c_behind|,
+    the largest over channels and, for the head, over both stacks.
+
     The packed-2 kernel's second quartets ``buf_h2``/``buf_t2`` come with
     their flag partition ``occ2`` (disjoint from ``occ``): each partition is
     unpacked under its own flags and the two are summed (reference
-    :1767-1777). Per-ray diagnostics (``with_ray_diag``, ``ray_err_bc``) and
-    live prune keys (``with_keys``) serve levers that are not ported yet and
-    raise."""
+    :1767-1777). Live prune keys (``with_keys``) serve a lever that is not
+    ported yet and raise."""
     if (buf_h2 is None) != (occ2 is None) or (buf_h2 is None) != (buf_t2 is None):
         raise ValueError("buf_h2, buf_t2 and occ2 come together")
-    if with_ray_diag or ray_err_bc is not None:
-        raise NotImplementedError(
-            "per-ray diagnostics (the budgeted prune) are not ported yet (ROADMAP.md queue 1, "
-            "item 8)")
     if with_keys:
         raise NotImplementedError(
-            "live prune keys (occ_live_keys) are not ported yet (ROADMAP.md queue 1, item 8)")
+            "live prune keys (occ_live_keys) are not ported yet (ROADMAP.md queue 1, item 4)")
     J = buf_h[0].shape[0]
     NT = buf_h[0].shape[2]
     n = rays_d.shape[0]
@@ -117,10 +121,41 @@ def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
         return w.reshape(J, sp, T, R_T).sum(dim=1).amax(dim=2).t()
 
     frac_h = sig_h / denom
-    contrib_h = tile_contrib(w_h + w_c * frac_h)
-    contrib_t = tile_contrib(w_c * (1.0 - frac_h))
-    return (acc_head, acc_com, tl_h, tl_c, tile_trans(starts_h), tile_trans(starts_c),
-            contrib_h, contrib_t)
+    frac_t = 1.0 - frac_h
+    mass_h, mass_t = w_h + w_c * frac_h, w_c * frac_t
+    out = (acc_head, acc_com, tl_h, tl_c, tile_trans(starts_h), tile_trans(starts_c),
+           tile_contrib(mass_h), tile_contrib(mass_t))
+    if not with_ray_diag:
+        return out
+
+    def slab_sum(x):  # [S, n] -> [J, T, R_T]
+        return x.reshape(J, sp, T, R_T).sum(dim=1)
+
+    if ray_err_bc is None:
+        return out + (slab_sum(mass_h), slab_sum(mass_t))
+
+    def behind(slab_x, tail):  # the sum over later slabs, plus tail
+        rev = torch.cumsum(slab_x.flip(0), dim=0).flip(0)
+        return torch.cat([rev[1:], torch.zeros_like(rev[:1])]) + tail
+
+    bc_r = ray_err_bc.float().t().reshape(3, T, R_T)
+    m_hs = slab_sum(w_h)            # head-stack mass of head pairs
+    m_ch = slab_sum(w_c * frac_h)   # composite-stack mass, head share
+    m_ct = slab_sum(w_c * frac_t)   # composite-stack mass, torso share
+    tlh, tlc = tl_h[:, 0].reshape(T, R_T), tl_c[:, 0].reshape(T, R_T)
+    bm_h = behind(m_hs, tlh)        # the mass behind a pair that replaces it
+    bm_c = behind(m_ch + m_ct, tlc)
+    e_h, e_t = torch.zeros_like(m_hs), torch.zeros_like(m_ct)
+    for c in range(3):
+        col_hs = slab_sum(w_h * rgb_h[c])
+        col_ch = slab_sum(w_c * frac_h * rgb_h[c])
+        col_ct = slab_sum(w_c * frac_t * rgb_t[c])
+        cb_h = behind(col_hs, tlh * bc_r[c]) / torch.clamp(bm_h, min=1e-8)
+        cb_c = behind(col_ch + col_ct, tlc * bc_r[c]) / torch.clamp(bm_c, min=1e-8)
+        e_h = torch.maximum(e_h, (col_hs - m_hs * cb_h).abs())
+        e_h = torch.maximum(e_h, (col_ch - m_ch * cb_c).abs())
+        e_t = torch.maximum(e_t, (col_ct - m_ct * cb_c).abs())
+    return out + (e_h, e_t)
 
 
 def bg_blend(sh, ct, rays_d, rays_d_t, bc_rgb, last_dist, acc_head, acc_com, t_head, t_com):

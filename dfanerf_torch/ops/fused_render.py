@@ -538,7 +538,7 @@ def fused_render_rays(
     if fields != "both" and not bg_epilogue:
         raise NotImplementedError(
             f"fields={fields!r} with the background in the kernel is not ported (no renderer "
-            "runs it; ROADMAP.md queue 1, item 8)")
+            "runs it; ROADMAP.md queue 1, odds and ends)")
     n = rays_o.shape[0]
     dev = rays_o.device
     if dev.type not in ("cpu", "cuda"):

@@ -25,13 +25,16 @@ pose_torso, signal, signal_torso, bc_img) -> (rgb_head, rgb_com), each
   (``fused_far_eval_split``), and ``deferred_composite`` + ``bg_blend``
   composite the union-occupied tiles and the background catch-all. Flags
   are rebuilt every ``occ_refresh_every`` frames, or pinned over a window
-  by ``render.refresh_union`` (see ``_make_pair_compaction_renderer``).
+  by ``render.refresh_union``; the serving levers of BASELINE config 3
+  (the budgeted prune, ``far_skip_tol``, ``far_subsample``,
+  ``occ_prune_carry``) act on this path (see
+  ``_make_pair_compaction_renderer``).
 
 Kernels run on a CUDA device, their plain versions on the CPU. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA a
 call with no device raises. Not ported yet, each raising
 NotImplementedError: the unfused ``render_ray_batch`` path
-(``use_fused_kernel=False``) and the pair path's further levers (listed in
+(``use_fused_kernel=False``) and the pair path's live levers (listed in
 ``_refuse_unported``).
 """
 
@@ -63,6 +66,45 @@ from dfanerf_torch.ops.sigma_head import fused_sigma_head
 from dfanerf_torch.train.signals import encode_signal, encode_signal_torso
 
 
+def budget_drop_masks(wr_h: np.ndarray, wr_t: np.ndarray,
+                      cand: np.ndarray, budget: float,
+                      base: np.ndarray = None) -> np.ndarray:
+    """Greedy budgeted pair-drop decision (RenderConfig.occ_prune_budget;
+    a copy of the reference's, renderer.py :27-64, call for call, so the
+    same float32 inputs give the same drops bit for bit).
+
+    wr_h/wr_t [J, K, R] — per-ray drop cost of each field's (tile, slab)
+    pair on each of the tile's rays: raw compositing mass, or the
+    first-order color-error estimate under occ_budget_color (both from
+    deferred_composite with_ray_diag); cand [2, K, J] bool — pairs
+    eligible to drop. Per tile, candidates from BOTH fields are dropped
+    in ascending order of max-ray cost while the ACCUMULATED dropped cost
+    on every ray stays <= budget (the greedy prefix over sorted
+    candidates — feasibility is monotone in the prefix since costs are
+    nonnegative). ``base`` [K, R] seeds each ray's ledger with an already
+    realized error. Returns drop [2, K, J] bool, always a subset of cand.
+    Pure host-side numpy: K tiles x 2J candidates, vectorized over
+    tiles."""
+    J = wr_h.shape[0]
+    # [K, R, 2J]: both fields in one per-ray ledger
+    W = np.concatenate([wr_h.transpose(1, 2, 0),
+                        wr_t.transpose(1, 2, 0)], axis=2)
+    c = cand.transpose(1, 0, 2).reshape(W.shape[0], 2 * J)
+    key = np.where(c, W.max(axis=1), np.inf)  # non-candidates sort last
+    Wm = np.where(c[:, None, :], W, 0.0)
+    order = np.argsort(key, axis=1)
+    Ws = np.take_along_axis(Wm, order[:, None, :], axis=2)
+    feas = np.take_along_axis(key, order, axis=1) < np.inf
+    cum = Ws.cumsum(axis=2)
+    if base is not None:
+        cum = cum + base[:, :, None]
+    ok = (cum.max(axis=1) <= budget) & feas
+    drop_sorted = np.cumprod(ok, axis=1).astype(bool)
+    drop = np.zeros_like(ok)
+    np.put_along_axis(drop, order, drop_sorted, axis=1)
+    return drop.reshape(-1, 2, J).transpose(1, 0, 2)
+
+
 def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, device=None):
     """Build the fused frame renderer on ``device`` (default CUDA): dense;
     with ``occ_sigma_thresh > 0`` the occupancy path, its per-field tile
@@ -75,7 +117,7 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
     if not rcfg.use_fused_kernel:
         raise NotImplementedError(
             "use_fused_kernel=False (the render_ray_batch path) is not ported yet "
-            "(ROADMAP.md queue 1, items 4 and 8)")
+            "(ROADMAP.md queue 1, item 2)")
     if not rcfg.concate_bg or rcfg.n_samples % S_SLAB:
         raise ValueError("the fused renderer needs concate_bg and n_samples % 8 == 0")
     if rcfg.occ_sigma_thresh > 0 and rcfg.occ_pair_compaction:
@@ -121,7 +163,8 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         T = len(perm) // R_T
         if rcfg.occ_pair_compaction:
             return _make_pair_compaction_renderer(
-                rcfg, act, T, z_vals_c, float(np.float32(far)), frame_inputs, untile)
+                rcfg, act, T, z_vals_c, float(np.float32(far)), frame_inputs, untile,
+                lambda img: img.reshape(-1, img.shape[-1])[perm])
         if rcfg.occ_tile_compaction:
             return _make_tile_class_renderer(rcfg, act, T, z_vals_c, frame_inputs, untile)
         return _make_occupancy_renderer(rcfg, act, z_vals_c, frame_inputs, untile)
@@ -165,46 +208,107 @@ def _refuse_unported(rcfg: RenderConfig) -> None:
     """The pair path's levers that are not ported yet raise, each naming its
     ROADMAP.md item."""
     unported = [
-        (rcfg.occ_prune_budget > 0 or rcfg.occ_budget_color or rcfg.occ_budget_iters != 1,
-         "the budgeted prune (occ_prune_budget, occ_budget_color, occ_budget_iters)"),
-        (rcfg.occ_prune_carry > 0 or rcfg.occ_prune_hist_decay > 0 or rcfg.occ_live_keys,
-         "occ_prune_carry, occ_prune_hist_decay and occ_live_keys"),
+        (rcfg.occ_prune_hist_decay > 0 or rcfg.occ_live_keys,
+         "occ_prune_hist_decay and occ_live_keys (the live prune keys)"),
         (rcfg.occ_async_refresh, "occ_async_refresh (the async refresh worker)"),
-        (rcfg.far_skip_tol > 0, "far_skip_tol > 0"),
-        (rcfg.far_subsample > 1, "far_subsample > 1"),
     ]
     for on, what in unported:
         if on:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1, item 8)")
+                f"{what} is not ported yet (ROADMAP.md queue 1, item 4)")
 
 
-# The flag state a per-window slot holds (reference _SLOT_KEYS :935, less the
-# keys of levers not ported yet: far_skip, far_cmix_err, tiles_scatter).
-SLOT_KEYS = ("lists", "occ", "tiles_u", "tiles_sel", "occ_sub", "lists2", "occ_sub_a",
-             "occ_sub_b")
+# The flag state a per-window slot holds (reference _SLOT_KEYS :935, less
+# tiles_scatter: the port scatters by tiles_sel, with no padding rows).
+SLOT_KEYS = ("lists", "occ", "tiles_u", "tiles_sel", "occ_sub", "far_skip", "far_cmix_err",
+             "lists2", "occ_sub_a", "occ_sub_b")
+
+
+def far_subgrid(x: torch.Tensor, ss: int) -> torch.Tensor:
+    """[T * 256, C] in tile order -> each tile's (16/ss)^2 cell-centre
+    subgrid, pixels ss/2 + i*ss in each direction (reference _sub_tiles
+    :1049). Returns [T * (16/ss)^2, C]."""
+    c = x.shape[-1]
+    v = x.reshape(-1, 16, 16, c)[:, ss // 2::ss, ss // 2::ss, :]
+    return v.reshape(-1, c)
+
+
+def far_upsample_matrix(ss: int) -> np.ndarray:
+    """[16, 16/ss] float32: row x interpolates the two nearest cell centres
+    of ``far_subgrid`` (edge-clamped at the tile border; reference _up_matrix
+    :1064)."""
+    m = 16 // ss
+    centers = (ss // 2 + np.arange(m) * ss).astype(np.float64)
+    A = np.zeros((16, m), np.float32)
+    for x in range(16):
+        i = np.clip(np.searchsorted(centers, x) - 1, 0, m - 2)
+        w = np.clip((x - centers[i]) / (centers[i + 1] - centers[i]), 0.0, 1.0) if m > 1 else 0.0
+        A[x, i] = 1.0 - w
+        A[x, min(i + 1, m - 1)] += w
+    return A
+
+
+def far_upsample(x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The bilinear inverse of ``far_subgrid`` with its matrix A [16, m]:
+    [T * m^2, C] -> [T * 256, C], separably per axis (reference _up_tiles
+    :1078)."""
+    m, c = A.shape[1], x.shape[-1]
+    v = torch.einsum("xj,tjkc,yk->txyc", A, x.reshape(-1, m, m, c), A)
+    return v.reshape(-1, c)
 
 
 def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, far: float,
-                                   frame_inputs, untile):
+                                   frame_inputs, untile, tile_order):
     """The (tile, slab)-pair-compacted serving path (port of the semantics
     of the reference's _make_pair_compaction_renderer, renderer.py :502).
 
     A refresh frame (the first, then every ``occ_refresh_every``-th) builds
     per-field flags [2, T, J] with ``conservative_occupancy``, copies them to
     the host and derives the pair lists (``set_flags``); it renders under
-    these unpruned flags and returns that image. With ``occ_prune_trans`` or
-    ``occ_prune_contrib`` set, its composite diagnostics then drop the pairs
-    behind saturated opacity or invisible to every stack (``prune_flags``),
-    and the following frames render under the pruned lists. A steady frame
-    copies nothing to the host: it gathers the union-occupied tiles, runs
-    each field's pair kernel over exactly its listed pairs and both
-    far-plane kernels over every ray, composites the gathered tiles, scatters
-    them back, blends the background catch-all and untiles.
+    these unpruned flags and returns that image. With ``occ_prune_trans``,
+    ``occ_prune_contrib`` or ``occ_prune_budget`` set, its composite
+    diagnostics then drop pairs (``prune_flags``) and the following frames
+    render under the pruned lists. A steady frame copies nothing to the
+    host: it gathers the union-occupied tiles, runs each field's pair kernel
+    over exactly its listed pairs and both far-plane kernels, composites the
+    gathered tiles, scatters them back, blends the background catch-all and
+    untiles.
+
+    Two kinds of frame, as in the reference: a frame that builds or measures
+    flags (a refresh frame, the diagnostic and verify renders of
+    ``refresh_union``) is a pipeline frame (reference run_pipeline :795),
+    with the full pair lists and the far plane at every ray; every other
+    frame (steady, pinned, ``window_slot``, a carried refresh) is a fast
+    frame (reference run_fast :1299), with the packed-2 lists under
+    ``occ_pack2`` and the far plane on the ``far_subsample`` subgrid.
+
+    The prunes (reference prune_flags :839):
+    - ``occ_prune_trans``: pairs behind saturated opacity (tile-max
+      slab-start transmittance) drop;
+    - ``occ_prune_budget`` > 0, the budgeted prune, replaces the
+      contribution prune: per tile, the occupied pairs the trans prune kept
+      drop greedily in ascending order of their largest per-ray cost while
+      every ray's summed cost stays within the budget
+      (``budget_drop_masks``); the cost is the slab mass, or with
+      ``occ_budget_color`` a first-order colour-error estimate
+      (``deferred_composite(with_ray_diag=True, ray_err_bc=...)``);
+    - otherwise ``occ_prune_contrib``: pairs whose max-ray summed weight is
+      at most the threshold drop.
+
+    ``far_skip_tol`` > 0 (with ``last_dist`` >= 1e8, where both far alphas
+    are exactly 1): at each refresh the exact largest deviation of the
+    composite's far-plane colour from the background pixel is measured
+    (``far_cmix_err``); within the tolerance the state's frames skip the far
+    plane (``far_skip``) and blend the background pixel instead.
+    ``far_subsample`` = ss > 1: fast frames run the far kernels on each
+    tile's (16/ss)^2 cell-centre subgrid and upsample bilinearly.
+    ``occ_prune_carry`` = c > 0: after a full refresh, the next c refreshes
+    are cheap: fresh conservative flags times the carried keep-masks, the
+    frame rendered as a fast frame.
 
     With ``occ_pack2`` a slab is a 4-sample half-slab (sp = 4, J = S / 4):
-    the flags are built at that size and a refresh frame renders the full
-    per-field lists with ``pair_field_eval`` at sp = 4. A steady frame
+    the flags are built at that size and a pipeline frame renders the full
+    per-field lists with ``pair_field_eval`` at sp = 4. A fast frame
     renders their even/odd split (``lists2``: pairs 0, 2, 4, ... of the
     tile-major list in A, 1, 3, 5, ... in B) with one ``pair2_field_eval``
     per field and composites the A and B quartets under the matching flag
@@ -214,27 +318,37 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     compiles few programs; its padding pairs write only a dummy tile row and
     its padding tiles carry zero flags, so the port launches exactly K pairs
     (A ceil(K/2), B floor(K/2)) and gathers exactly the union tiles and gets
-    the same images.
+    the same images and prune decisions.
 
     ``render.cache`` holds the flag state: ``lists`` (per field, the pair
     coordinates t_idx, j_idx as int32 device tensors, t in union-tile
     positions), ``tiles_u`` (the union tiles, host int64), ``occ`` ([2, T, J]
     flags in force), ``occ_sub`` (their union-tile rows), with ``occ_pack2``
     ``lists2`` (per field, tA, jA, tB, jB) and ``occ_sub_a``/``occ_sub_b``,
-    and ``age``. ``render.refresh_union(window_inputs, per_slot=False)``
-    pins flags built over a window of ``render.inputs_fn`` results (the
-    offline mode, reference :947): the union of the frames' flags, pruned
-    to every pair some frame's composite sees, after which ``render`` no
-    longer refreshes (``cache["pinned"]``); with ``per_slot`` it first
-    builds each frame's own pruned state into ``cache["slots"]``, and
+    ``far_skip`` and ``far_cmix_err``, ``age``, and with pruning ``keeps``
+    (the keep-masks of the last full refresh) and ``keep_age``.
+    ``render.refresh_union(window_inputs, per_slot=False)`` pins flags built
+    over a window of ``render.inputs_fn`` results (the offline mode,
+    reference :947): the union of the frames' flags, pruned to every pair
+    some frame's composite keeps, after which ``render`` no longer refreshes
+    (``cache["pinned"]``); with ``per_slot`` it first builds each frame's
+    own pruned state into ``cache["slots"]`` (with the budget, refined over
+    ``occ_budget_iters`` rounds, each verified; ``cache["slot_prep"]`` holds
+    each slot's pair counts per round and reverted tiles), and
     ``render(..., window_slot=i)`` renders under slot ``i % len(slots)``.
     ``render.inputs_fn`` is the frame-input builder and ``render.run_fast``
-    renders a frame under the current flags without advancing the cadence."""
+    renders a fast frame under the current flags without advancing the
+    cadence."""
     dev = z_vals_c.device
     pack2 = rcfg.occ_pack2
     sp = 4 if pack2 else S_SLAB
     J = rcfg.n_samples // sp
-    prune_on = rcfg.occ_prune_trans > 0 or rcfg.occ_prune_contrib > 0
+    budget_on = rcfg.occ_prune_budget > 0
+    prune_on = rcfg.occ_prune_trans > 0 or rcfg.occ_prune_contrib > 0 or budget_on
+    ss = max(int(rcfg.far_subsample), 1)
+    if 16 % ss:
+        raise ValueError(f"far_subsample={ss} must divide the 16-pixel tile")
+    up_A = torch.from_numpy(far_upsample_matrix(ss)).to(dev) if ss > 1 else None
     cache = {"age": 0, "lists": None, "occ": None, "tiles_u": None, "tiles_sel": None,
              "occ_sub": None}
 
@@ -276,10 +390,24 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             st.update(lists2=lists2, occ_sub_a=torch.from_numpy(occ_ab[0]).to(dev),
                       occ_sub_b=torch.from_numpy(occ_ab[1]).to(dev))
 
-    def run(inputs, st, diag: bool = False, packed: bool = False):
-        """One frame under the flag state ``st``: its full pair lists, or
-        with ``packed`` its packed-2 lists; with ``diag`` also the prune
-        diagnostics, in union-tile rows."""
+    def set_pruned(occ_np, keeps, st=None):
+        set_flags(np.stack([occ_np[0] * keeps[0], occ_np[1] * keeps[1]]), st)
+
+    def far_plane(inputs, fast: bool):
+        """(sh [n, 1], ct [n, 3]) at every ray's far point; a fast frame
+        evaluates them on the far_subsample subgrid and upsamples."""
+        pw_h, pw_t, ro, rd, ro_t, rd_t, _ = inputs
+        if not fast or ss == 1:
+            return fused_far_eval_split(pw_h, pw_t, ro, rd, ro_t, rd_t, far, act)
+        sh, ct = fused_far_eval_split(pw_h, pw_t, *(far_subgrid(x, ss) for x in (ro, rd, ro_t,
+                                                                                 rd_t)), far, act)
+        return far_upsample(sh, up_A), far_upsample(ct, up_A)
+
+    def run(inputs, st, diag: bool = False, fast: bool = False):
+        """One frame under the flag state ``st``: a pipeline frame, or with
+        ``fast`` a fast frame (see above); with ``diag`` also the prune
+        diagnostics in union-tile rows (reference run_pipeline :795 and
+        run_fast :1299)."""
         pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = inputs
         sel = st["tiles_sel"]
 
@@ -287,31 +415,59 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             return x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
 
         ro_g, rd_g, ro_t_g, rd_t_g = (gather(x) for x in (ro, rd, ro_t, rd_t))
-        if packed:
+        if fast and pack2:
             lh, lt = st["lists2"]
             (buf_h, buf_h2) = pair2_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, *lh, act, sp)
             (buf_t, buf_t2) = pair2_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, *lt, act,
                                                sp)
-            occ, second = st["occ_sub_a"], dict(buf_h2=buf_h2, buf_t2=buf_t2,
-                                                occ2=st["occ_sub_b"])
+            occ, extra = st["occ_sub_a"], dict(buf_h2=buf_h2, buf_t2=buf_t2,
+                                               occ2=st["occ_sub_b"])
         else:
             (ti_h, ji_h), (ti_t, ji_t) = st["lists"]
             buf_h = pair_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, ti_h, ji_h, act, sp)
             buf_t = pair_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, ti_t, ji_t, act, sp)
-            occ, second = st["occ_sub"], {}
-        sh, ct = fused_far_eval_split(pw_h, pw_t, ro, rd, ro_t, rd_t, far, act)
+            occ, extra = st["occ_sub"], {}
+        far_skip = st.get("far_skip", False)
+        far_vals = None if far_skip else far_plane(inputs, fast)
+        if diag and budget_on:
+            extra.update(with_ray_diag=True,
+                         ray_err_bc=gather(bc_p) if rcfg.occ_budget_color else None)
         out = deferred_composite(buf_h, buf_t, occ, rd_g, rd_t_g, z_vals_c, with_diagnostics=diag,
-                                 s_slab=sp, **second)
+                                 s_slab=sp, **extra)
 
         def scatter(x, fill):
             full = x.new_full((T, R_T, x.shape[-1]), fill)
             return full.index_copy_(0, sel, x.reshape(-1, R_T, x.shape[-1])).reshape(T * R_T, -1)
 
-        ah, ac, t_h, t_c = out[:4]
-        head, com = bg_blend(sh, ct, rd, rd_t, bc_p, rcfg.last_dist, scatter(ah, 0.0),
-                             scatter(ac, 0.0), scatter(t_h, 1.0), scatter(t_c, 1.0))
+        ah, ac, t_h, t_c = (scatter(x, fill) for x, fill in zip(out[:4], (0.0, 0.0, 1.0, 1.0)))
+        if far_skip:
+            # both far alphas are exactly 1: the catch-all colour is the
+            # background pixel (reference blend_nofar_fn :647)
+            bc = bc_p.float()
+            head, com = ah + t_h * bc, ac + t_c * bc
+        else:
+            head, com = bg_blend(*far_vals, rd, rd_t, bc_p, rcfg.last_dist, ah, ac, t_h, t_c)
         imgs = (untile(head), untile(com))
         return (imgs, *out[4:]) if diag else imgs
+
+    def update_far_skip(window_inputs, st):
+        """The far_skip decision of ``st`` from the exact largest deviation
+        of bg_blend's composite far colour c_mix from the background pixel
+        over the frames (reference cmix_err_fn :668, update_far_skip :680):
+        the only far-dependent term once last_dist saturates both far
+        alphas."""
+        if rcfg.far_skip_tol <= 0 or rcfg.last_dist < 1e8:
+            st["far_skip"] = False
+            return
+        err = 0.0
+        for inputs in window_inputs:
+            sh, ct = far_plane(inputs, fast=False)
+            bc = inputs[6].float()
+            ssum = sh + 1e-6
+            c_mix = (sh * bc + 1e-6 * ct) / torch.where(ssum == 0.0, 1e-4, ssum)
+            err = max(err, float((c_mix - bc).abs().max()))
+        st["far_cmix_err"] = err
+        st["far_skip"] = err <= rcfg.far_skip_tol
 
     def expand_tiles(x_sub, st):
         """[K_u, J] union-tile diagnostic -> [T, J] on the host, zero off
@@ -320,10 +476,13 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         full[st["tiles_u"]] = x_sub.cpu().numpy()
         return full
 
-    def prune_flags(st, tm_h, tm_c, cb_h, cb_t):
+    def prune_flags(st, tm_h, tm_c, cb_h, cb_t, wr_h=None, wr_t=None, base_led=None):
         """Keep-masks [T, J] from one frame's composite diagnostics under the
-        flag state ``st``: the transmittance prune and the contribution
-        prune of the reference's prune_flags (:878-883, :929-932)."""
+        flag state ``st`` (reference prune_flags :839-933, without the live
+        history): the transmittance prune, then the budgeted prune when
+        per-ray costs wr_h/wr_t [J, K_u, R_T] are given, else the
+        contribution prune. ``base_led`` [T, R_T] seeds each ray's budget
+        ledger with a measured error (the refinement rounds)."""
         keep_h = np.ones((T, J), bool)
         keep_t = np.ones((T, J), bool)
         if rcfg.occ_prune_trans > 0:
@@ -331,24 +490,70 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             tm_h_f, tm_c_f = expand_tiles(tm_h, st), expand_tiles(tm_c, st)
             keep_h &= np.maximum(tm_h_f, tm_c_f) > eps
             keep_t &= tm_c_f > eps
-        if rcfg.occ_prune_contrib > 0:
+        if budget_on and wr_h is not None:
+            # candidates: the occupied pairs the trans prune kept (pairs
+            # behind saturated opacity drop anyway and spend no budget)
+            tiles_u = st["tiles_u"]
+            cand = st["occ_sub"].cpu().numpy().astype(bool)  # [2, K_u, J]
+            cand &= np.stack([keep_h[tiles_u], keep_t[tiles_u]])
+            base = None if base_led is None else base_led[tiles_u]
+            drop = budget_drop_masks(wr_h.cpu().numpy(), wr_t.cpu().numpy(), cand,
+                                     rcfg.occ_prune_budget, base=base)
+            keep_h[tiles_u] &= ~drop[0]
+            keep_t[tiles_u] &= ~drop[1]
+        elif rcfg.occ_prune_contrib > 0:
             eps = rcfg.occ_prune_contrib
             keep_h &= expand_tiles(cb_h, st) > eps
             keep_t &= expand_tiles(cb_t, st) > eps
         return keep_h, keep_t
 
-    def refresh(inputs, st=None):
-        """A refresh frame under fresh flags into ``st`` (default the
-        cache): the image under the unpruned lists, then the pruned state."""
-        st = cache if st is None else st
+    def err_led(imgs0, imgs1):
+        """The realized per-ray error of imgs1 against imgs0, the larger
+        over channels and both images, [T, R_T] in tile order on the host
+        (reference err_led_fn :940)."""
+        e = torch.maximum((imgs1[0] - imgs0[0]).abs().amax(-1),
+                          (imgs1[1] - imgs0[1]).abs().amax(-1))
+        return tile_order(e[..., None]).reshape(T, R_T).cpu().numpy()
+
+    def refresh(inputs, st):
+        """A full refresh into ``st``: fresh flags and the far_skip
+        decision, the frame rendered under the unpruned lists; with pruning,
+        the pruned state. Returns (imgs, host flags, keep-masks or None)."""
         occ_np = occ_fn(inputs).cpu().numpy()
         set_flags(occ_np, st)
+        update_far_skip([inputs], st)
         if not prune_on:
-            return run(inputs, st)
+            return run(inputs, st), occ_np, None
         imgs, *diags = run(inputs, st, diag=True)
-        keep_h, keep_t = prune_flags(st, *diags)
-        set_flags(np.stack([occ_np[0] * keep_h, occ_np[1] * keep_t]), st)
-        return imgs
+        keeps = prune_flags(st, *diags)
+        set_pruned(occ_np, keeps, st)
+        return imgs, occ_np, keeps
+
+    def refine(inputs, st, imgs0, occ_np, keeps, prep):
+        """One refinement round of a slot's budgeted prune (reference
+        :978-1019): the diagnostics under the pruned state, the budget
+        ledger seeded with the realized error against the unpruned image
+        imgs0, the refined drops, then a verify render that reverts them in
+        every tile whose realized error grew by more than the budget."""
+        kh, kt = keeps
+        imgs1, *diags = run(inputs, st, diag=True)
+        led = err_led(imgs0, imgs1)
+        kh2, kt2 = prune_flags(st, *diags, base_led=led)
+        kh_new, kt_new = kh & kh2, kt & kt2
+        set_pruned(occ_np, (kh_new, kt_new), st)
+        led2 = err_led(imgs0, run(inputs, st))
+        bad = led2.max(1) > led.max(1) + rcfg.occ_prune_budget
+        if bad.any():
+            kh_new[bad], kt_new[bad] = kh[bad], kt[bad]
+            set_pruned(occ_np, (kh_new, kt_new), st)
+        prep["refined"].append(int((occ_np[0].astype(bool) & kh & ~kh2).sum()
+                                   + (occ_np[1].astype(bool) & kt & ~kt2).sum()))
+        prep["reverted"].append(int(bad.sum()))
+        prep["pairs"].append(pair_counts(st))
+        return kh_new, kt_new
+
+    def pair_counts(st):
+        return tuple(int(t.numel()) for t, _ in st["lists"])
 
     @torch.no_grad()
     def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img,
@@ -358,19 +563,30 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         slots = cache.get("slots")
         if window_slot is not None and slots:
             # pinned per-slot serving: window frame i under its own lists
-            return run(inputs, slots[window_slot % len(slots)], packed=pack2)
+            return run(inputs, slots[window_slot % len(slots)], fast=True)
         if cache["lists"] is not None and (cache.get("pinned")
                                            or cache["age"] < max(rcfg.occ_refresh_every, 1)):
             cache["age"] += 1
-            return run(inputs, cache, packed=pack2)
-        imgs = refresh(inputs)
+            return run(inputs, cache, fast=True)
+        if (prune_on and rcfg.occ_prune_carry > 0 and cache.get("keeps") is not None
+                and cache["keep_age"] < rcfg.occ_prune_carry):
+            # cheap refresh: fresh conservative flags times the carried
+            # keep-masks, rendered as a fast frame (reference :1621-1636)
+            set_pruned(occ_fn(inputs).cpu().numpy(), cache["keeps"])
+            cache["keep_age"] += 1
+            update_far_skip([inputs], cache)
+            cache["age"] = 1
+            return run(inputs, cache, fast=True)
+        imgs, _, keeps = refresh(inputs, cache)
+        if keeps is not None:
+            cache.update(keeps=keeps, keep_age=0)
         cache["age"] = 1  # this frame consumed the refresh
         return imgs
 
     @torch.no_grad()
     def run_fast(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
         return run(frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
-                                bc_img), cache, packed=pack2)
+                                bc_img), cache, fast=True)
 
     @torch.no_grad()
     def refresh_union(window_inputs, per_slot: bool = False):
@@ -380,31 +596,37 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         flags, pruned to the pairs that some frame's composite under the
         union keeps. Pins the union state: ``render`` no longer refreshes
         until the next call."""
-        slots = []
+        slots, slot_prep = [], []
+        iters = max(int(rcfg.occ_budget_iters), 1) if budget_on else 1
         if per_slot:
             for inp in window_inputs:
                 st = {}
-                refresh(inp, st)
+                imgs0, occ_np, keeps = refresh(inp, st)
+                prep = {"pairs": [tuple(int(x) for x in occ_np.sum(axis=(1, 2))),
+                                  pair_counts(st)], "refined": [], "reverted": []}
+                for _ in range(iters - 1):
+                    keeps = refine(inp, st, imgs0, occ_np, keeps, prep)
                 slots.append({k: st[k] for k in SLOT_KEYS if k in st})
+                slot_prep.append(prep)
         occ = occ_fn(window_inputs[0])
         for inp in window_inputs[1:]:
             occ = torch.maximum(occ, occ_fn(inp))
         occ_np = occ.cpu().numpy()
         set_flags(occ_np)
+        update_far_skip(window_inputs, cache)
         if prune_on:
             keeps = None
             for inp in window_inputs:
                 _, *diags = run(inp, cache, diag=True)
                 kh, kt = prune_flags(cache, *diags)
                 keeps = (kh, kt) if keeps is None else (keeps[0] | kh, keeps[1] | kt)
-            set_flags(np.stack([occ_np[0] * keeps[0], occ_np[1] * keeps[1]]))
-        cache["pinned"] = True
-        cache["slots"] = slots
+            set_pruned(occ_np, keeps)
+        cache.update(pinned=True, slots=slots, slot_prep=slot_prep)
 
     def precompile_headroom(*_, **__):
         raise NotImplementedError(
             "precompile_headroom and occ_class_clamp (the async worker's program classes) are "
-            "not ported yet (ROADMAP.md queue 1, item 8)")
+            "not ported yet (ROADMAP.md queue 1, item 4)")
 
     render.cache = cache
     render.inputs_fn = frame_inputs
@@ -633,7 +855,7 @@ def make_head_hierarchical_renderer(cfg: ExperimentConfig, hwfcxy, near: float, 
     if not rcfg.use_fused_kernel:
         raise NotImplementedError(
             "use_fused_kernel=False (render_head_hierarchical, the render_ray_batch path) is not "
-            "ported yet (ROADMAP.md queue 1, item 4)")
+            "ported yet (ROADMAP.md queue 1, item 2)")
     S_c, S_f = rcfg.n_samples, rcfg.n_samples + rcfg.n_importance
     if not rcfg.concate_bg or S_c % S_SLAB or S_f % S_SLAB:
         raise ValueError("the fused hierarchical renderer needs concate_bg and n_samples and "

@@ -39,7 +39,7 @@ def encode_signal(
     if audio_net != "w2l":
         raise NotImplementedError(
             f"audio_net={audio_net!r}: the DeepSpeech AudioNet is not ported yet "
-            "(ROADMAP.md queue 1, item 3)")
+            "(ROADMAP.md queue 1, item 5)")
     if not use_smoothing:
         return torch.cat([params.audnet(auds[img_i]), params.expnet(exps[img_i])], dim=-1)
     feat_win = torch.cat(

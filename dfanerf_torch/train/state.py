@@ -3,7 +3,7 @@
 ``Params`` holds every network under the reference package's parameter-tree
 keys (decoder, audnet, expnet, audattnet, poseattnet); the state adds the
 per-(object, part) latents z_shape and z_app and the step counter. The
-optimizer moments come with the training slice (ROADMAP.md queue 1, item 7).
+optimizer moments come with the training slice (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ class Params(nn.Module):
         if cfg.signal.audio_net != "w2l":
             raise NotImplementedError(
                 f"audio_net={cfg.signal.audio_net!r}: the DeepSpeech AudioNet is not ported "
-                "yet (ROADMAP.md queue 1, item 3)")
+                "yet (ROADMAP.md queue 1, item 5)")
         dim_et = 2 * nerf_embed_dim(cfg.signal.et_multires)
         self.decoder = Decoder(cfg.decoder)
         self.audnet = AudioNetW2L()

@@ -131,11 +131,8 @@ def test_bg_blend_matches(setup):
 
 def test_unported_options_raise(setup):
     args = (setup["buf_h"], setup["buf_t"], setup["occ"], setup["rd"], setup["rd_t"], setup["z"])
-    for kw in ({"with_ray_diag": True, "with_diagnostics": False},
-               {"with_ray_diag": True, "ray_err_bc": setup["bc"]}, {"with_ray_diag": True},
-               {"ray_err_bc": setup["bc"]}, {"with_keys": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            deferred_composite(*args, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        deferred_composite(*args, with_keys=True)
 
 
 def _partition(occ):
