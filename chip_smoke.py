@@ -90,7 +90,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 15. the tile-class branch with its epilogue in its kernel form
    (bg_epilogue_fused, one far_joint per epilogue) against the shipped
    epilogue; far_joint's times;
-16. print the card's name and power limit, then one JSON line listing every
+16. train, the second half of the main path, at benchmarks/serve_trained.py
+   run()'s shape (softplus, 64 samples, bf16, 2048 rays, distortion 3e-3 from
+   step 2000): the synthetic scene's ground truth (8 frames, 450x450) built
+   on the card and one frame held against the CPU (1 LSB); one float32 step
+   (TF32 off) on the card against the same step on the CPU (rtol 1e-4);
+   300 steps through train_loop from the seed's weights (loss falling below
+   0.6x, the checkpoint read back bit for bit); warm ms per step with the
+   distortion term off and on under sync debug mode "error", the peak
+   memory and the recipe's projected time; a held-out frame of the trained
+   weights from render_rays against the unfused float32 renderer, with the
+   val PSNR of both (render_rays' launches join its entry below);
+17. print the card's name and power limit, then one JSON line listing every
    ported kernel with its launches, error and times, and last a JSON status
    line.
 
@@ -2855,6 +2866,279 @@ def phase_serve_epilogue_kernel_form(args):
                   err_k, ms, plain_ms, flops, n_bytes)
 
 
+# Training (the second half of the main path) at benchmarks/serve_trained.py
+# run()'s shape (:157-166): softplus density, 64 samples, bf16, 2048 rays, the
+# distortion loss (3e-3) from step 2000, on make_synthetic_dataset(n_frames=8,
+# H=450, W=450, n_samples_gt=64). TRAIN_STEPS from the seed's weights must
+# bring the mean loss of the last TRAIN_WINDOW steps below TRAIN_DROP of the
+# first TRAIN_WINDOW's (tests/test_train.py:30-41). The recipe's projected
+# training time is RECIPE_STEPS steps (12,000 with distortion from 2,000, then
+# a 2,000-step polish without).
+TRAIN_STEPS, TRAIN_WINDOW, TRAIN_DROP = 300, 20, 0.6
+TRAIN_TIMED, TRAIN_WARM = 20, 3
+PARITY_RAYS = 256
+RECIPE_STEPS = {"distortion off": 2000 + 2000, "distortion on": 12000 - 2000}
+# The trained field served by the render_rays kernel (bf16) against the
+# unfused float32 field that training optimises: tests/test_ops.py:97-99's
+# bars for the kernel against render_ray_batch.
+SERVE_BARS = {"head_max": 2e-2, "head_mean": 2e-3, "com_mean": 5e-3}
+
+
+def _recipe_cfg(**render):
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig, TrainConfig
+    from dfanerf_torch.models import DecoderConfig
+
+    return ExperimentConfig(
+        decoder=DecoderConfig(density_activation="softplus"),
+        render=RenderConfig(**{"n_samples": N_SAMPLES, "use_fused_kernel": True,
+                               "compute_dtype": "bfloat16", "ert_eps": 0.0, **render}),
+        train=TrainConfig(n_rand=2048, distortion_lambda=3e-3, distortion_from=2000))
+
+
+def _timed_steps(step, state, data, generator, n):
+    """ms per step over n steps (CUDA events), with any host sync an error."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        for _ in range(n):
+            state, m = step(state, data, generator)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, m
+
+
+def _train_stages(step, state, data, generator):
+    """Mean ms of a step's stages over TRAIN_TIMED steps, from CUDA events
+    recorded at their edges: the draws, the loss (signals and both fields'
+    forward render), the backward with the gradient norm, the staged Adam
+    update."""
+    import dfanerf_torch.train.step as step_mod
+
+    edges = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        edges[-1].append(ev)
+
+    loss, adam = step.loss, step_mod.adam_update
+
+    def timed_loss(*a, **k):
+        mark()
+        out = loss(*a, **k)
+        mark()
+        return out
+
+    def timed_adam(opt, *a, **k):
+        if len(edges[-1]) == 3:  # the first group's update begins
+            mark()
+        return adam(opt, *a, **k)
+
+    step.loss, step_mod.adam_update = timed_loss, timed_adam
+    try:
+        for _ in range(TRAIN_TIMED):
+            edges.append([])
+            mark()
+            step(state, data, generator)
+            mark()
+    finally:
+        del step.loss
+        step_mod.adam_update = adam
+    torch.cuda.synchronize()
+    names = ("draws", "loss (forward)", "backward", "Adam")
+    return {n: round(sum(e[k].elapsed_time(e[k + 1]) for e in edges) / len(edges), 3)
+            for k, n in enumerate(names)}
+
+
+def _train_device_time(step, state, data, generator, step_ms, card):
+    """The card's kernel time per step from a torch.profiler trace of
+    TRAIN_WARM steps, beside the step's unprofiled time: the share of a step
+    the card is busy, and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_WARM):
+            step(state, data, generator)
+        torch.cuda.synchronize()
+    # the card's own events (kernels, copies, fills); the host ops that
+    # launched them report the same time again
+    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[0] for r in rows) / 1e3 / TRAIN_WARM
+    if device_ms == 0:
+        print("[train] device time per step: not measured (the profiler saw no kernel)",
+              flush=True)
+        return
+    top = [f"{k[:48]} {t / 1e3 / TRAIN_WARM:.2f} ms x{n // TRAIN_WARM}"
+           for t, k, n in sorted(rows, reverse=True)[:6]]
+    print(f"[train] device time per step (torch.profiler, {TRAIN_WARM} steps, distortion on): "
+          f"{device_ms:.2f} ms of kernels, {100 * device_ms / step_ms:.1f}% of the "
+          f"{step_ms:.2f} ms step (the rest the card idles, waiting for the host); "
+          f"{sum(r[2] for r in rows) // TRAIN_WARM} launches a step; top: "
+          f"{top}; {card}", flush=True)
+
+
+def phase_train(card):
+    """Training through the entry points (make_synthetic_dataset,
+    init_train_state, make_train_step, train_loop, load_checkpoint) at the
+    recipe's shape: the ground truth against the CPU; one float32 step on
+    the card against the same step on the CPU; TRAIN_STEPS steps of the
+    recipe through train_loop (loss falling, a checkpoint read back bit for
+    bit); warm ms per step with the distortion term off and on, with no host
+    sync; the peak memory; then a held-out frame of the trained weights from
+    render_rays against the unfused float32 renderer. Returns the
+    render_rays launches of that render."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.compat.from_jax import state_to_jax
+    from dfanerf_torch.data.synthetic import make_synthetic_dataset
+    from dfanerf_torch.ops.fused_render import render_rays_kernel
+    from dfanerf_torch.train.checkpoint import _flatten, load_checkpoint
+    from dfanerf_torch.train.loop import train_loop
+    from dfanerf_torch.train.state import init_train_state
+    from dfanerf_torch.train.step import dataset_to_device, make_train_step
+
+    t0 = time.time()
+    ds = make_synthetic_dataset(n_frames=8, H=H, W=W, n_samples_gt=N_SAMPLES, device="cuda")
+    scene_s = time.time() - t0
+    t0 = time.time()
+    cpu = make_synthetic_dataset(n_frames=1, H=H, W=W, n_samples_gt=N_SAMPLES, device="cpu")
+    cpu_s = time.time() - t0
+    for k in ("imgs_com", "imgs_head"):
+        d = np.abs(getattr(ds, k)[0].astype(np.int16) - getattr(cpu, k)[0].astype(np.int16))
+        print(f"[train] ground truth {k}[0], card vs CPU: max {int(d.max())} LSB, "
+              f"{int((d > 0).sum())} of {d.size} channel values differ", flush=True)
+        if d.max() > 1:
+            _fail(f"ground truth {k}[0] differs from the CPU's by {int(d.max())} LSB")
+    print(f"[train] scene {ds.n_frames} frames {H}x{W}, {N_SAMPLES} samples: {scene_s:.2f} s on "
+          f"the card (2 targets a frame), frame 0 on the CPU {cpu_s:.2f} s", flush=True)
+
+    # one float32 step, card against CPU, from the same state and batch
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        _fail("TF32 is on: the float32 check needs full float32 products and convolutions")
+    cfg32 = _recipe_cfg(compute_dtype="float32")
+    cfg32 = dataclasses.replace(cfg32, train=dataclasses.replace(cfg32.train, n_rand=PARITY_RAYS))
+    states, metrics = {}, {}
+    batch = make_train_step(cfg32, ds, device="cpu").draw_batch(torch.Generator().manual_seed(3))
+    for dev in ("cpu", "cuda"):
+        st = init_train_state(cfg32, seed=0, device=dev)
+        st["step"] = cfg32.train.distortion_from  # the distortion term on
+        b = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()}
+        states[dev], metrics[dev] = make_train_step(cfg32, ds, device=dev).step_on_batch(
+            st, dataset_to_device(ds, dev), b)
+    rel = {k: abs(float(metrics["cuda"][k]) / float(metrics["cpu"][k]) - 1)
+           for k in ("loss", "loss_head", "loss_com", "grad_norm")}
+    p_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(
+        states["cuda"]["params"].parameters(), states["cpu"]["params"].parameters()))
+    print(f"[train] float32 step ({PARITY_RAYS} rays, TF32 off for matmuls and cuDNN), card vs "
+          f"CPU: relative differences {json.dumps(rel)}; params after the step within "
+          f"{p_err:.3e}", flush=True)
+    if max(rel.values()) > 1e-4:
+        _fail(f"the float32 train step on the card differs from the CPU's: {rel}")
+    del states
+
+    # the recipe through the training loop
+    cfg = _recipe_cfg()
+    loop_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, i_print=1, i_weights=TRAIN_STEPS))
+    losses = []
+    with tempfile.TemporaryDirectory() as run:
+        t0 = time.time()
+        state = train_loop(loop_cfg, ds, n_iters=TRAIN_STEPS, run_dir=run, val_render=False,
+                           device="cuda", on_metrics=lambda i, m: losses.append(m["loss"]))
+        torch.cuda.synchronize()
+        loop_s = time.time() - t0
+        saved = load_checkpoint(os.path.join(run, f"{TRAIN_STEPS:06d}.npz"), state)
+    flat_a, flat_b = _flatten(state_to_jax(saved)), _flatten(state_to_jax(state))
+    if flat_a.keys() != flat_b.keys() or not all(
+            flat_a[k].dtype == flat_b[k].dtype and np.array_equal(flat_a[k], flat_b[k])
+            for k in flat_a):
+        _fail("the checkpoint read back differs from the state saved")
+    first, last = np.mean(losses[:TRAIN_WINDOW]), np.mean(losses[-TRAIN_WINDOW:])
+    print(f"[train] train_loop, {TRAIN_STEPS} steps of the recipe from the seed's weights: "
+          f"{loop_s:.2f} s (a metrics read each step); mean loss of the first {TRAIN_WINDOW} "
+          f"{first:.5f}, of the last {last:.5f} ({last / first:.3f}x); checkpoint of "
+          f"{len(flat_a)} arrays read back bit for bit", flush=True)
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        _fail(f"{len(losses)} losses logged, or non-finite ones")
+    if not last < TRAIN_DROP * first:
+        _fail(f"no convergence: mean loss {first:.5f} -> {last:.5f}")
+
+    # warm ms per step, distortion off and on in turns (off, on, off, on)
+    step = make_train_step(cfg, ds, device="cuda")
+    data = dataset_to_device(ds, "cuda")
+    timed = copy.deepcopy(state)
+    gen = torch.Generator().manual_seed(7)
+    ms = {"distortion off": [], "distortion on": []}
+    for label, at in 2 * (("distortion off", TRAIN_STEPS),
+                          ("distortion on", cfg.train.distortion_from)):
+        timed["step"] = at
+        for _ in range(TRAIN_WARM):
+            step(timed, data, gen)
+        torch.cuda.reset_peak_memory_stats()
+        t, m = _timed_steps(step, timed, data, gen, TRAIN_TIMED)
+        ms[label].append(t)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[train] {label}: {t:.2f} ms per step ({1e3 / t:.1f} steps/s; {TRAIN_TIMED} warm "
+              f"steps, CUDA events, no host sync); peak memory {peak:.2f} GiB; loss "
+              f"{float(m['loss']):.5f}; {card}", flush=True)
+    stages = _train_stages(step, timed, data, gen)
+    print(f"[train] where a step's time goes (distortion on, ms, CUDA events, mean of "
+          f"{TRAIN_TIMED} steps): {json.dumps(stages)}; {card}", flush=True)
+    _train_device_time(step, timed, data, gen, min(ms["distortion on"]), card)
+    projected = sum(RECIPE_STEPS[k] * min(v) for k, v in ms.items()) / 1e3
+    print(f"[train] projected recipe time ({RECIPE_STEPS['distortion off']} steps without the "
+          f"distortion term, {RECIPE_STEPS['distortion on']} with, at the faster turn of each): "
+          f"{projected:.1f} s; {card}", flush=True)
+    del timed
+
+    # a held-out frame of the trained weights: render_rays vs the unfused field
+    i = int(ds.i_val[0])
+    auds, exps, poses = (torch.from_numpy(x).cuda() for x in (ds.auds, ds.exps, ds.poses))
+    bc_img = torch.from_numpy(ds.bc_img).cuda()
+    params = state["params"]
+    use_smo = state["step"] >= cfg.signal.nosmo_iters
+    sig, sig_t = renderer.encode_frame_signals(params, auds, exps, poses, i, ds.n_frames, cfg,
+                                               use_smo)
+    args = (params, state["z_shape"], state["z_app"], poses[i], poses[0], sig, sig_t, bc_img)
+    unfused = renderer.make_frame_renderer(dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, use_fused_kernel=False, compute_dtype="float32")), ds.hwfcxy, ds.near, ds.far)
+    head_r, com_r = unfused(*args)
+    render = renderer.make_frame_renderer(cfg, ds.hwfcxy, ds.near, ds.far)
+    torch.cuda.synchronize()
+    render_rays_kernel.launches = 0
+    head, com = render(*args)
+    torch.cuda.synchronize()
+    launches = render_rays_kernel.launches
+    if launches != 1:
+        _fail(f"render_rays launched {launches} times for one trained frame")
+    _check_frame("trained frame", head, com)
+    _check_frame("trained frame, unfused", head_r, com_r)
+    (h_max, h_mean), (_, c_mean) = _errors(head, head_r), _errors(com, com_r)
+    psnr = {}
+    for tag, h, c in (("render_rays", head, com), ("unfused", head_r, com_r)):
+        for name, img, gt in (("head", h, ds.imgs_head[i]), ("com", c, ds.imgs_com[i])):
+            mse = float(((img.clamp(0, 1) - torch.from_numpy(gt).cuda().float() / 255) ** 2).mean())
+            psnr[f"{tag} {name}"] = round(-10 * np.log10(max(mse, 1e-12)), 2)
+    print(f"[train] held-out frame {i} of the trained weights, render_rays (bf16) vs the unfused "
+          f"float32 field: head max {h_max:.3e} mean {h_mean:.3e}, com mean {c_mean:.3e} (bars "
+          f"{SERVE_BARS}); val PSNR (dB) {json.dumps(psnr)}; render_rays launches {launches}",
+          flush=True)
+    if h_max >= SERVE_BARS["head_max"] or h_mean >= SERVE_BARS["head_mean"] \
+            or c_mean >= SERVE_BARS["com_mean"]:
+        _fail("the trained frame from render_rays is outside the bars of the unfused field")
+    return launches
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return {"name": name, "route": "cuda", "source": f"dfanerf_torch/ops/csrc/{source}",
@@ -2914,6 +3198,7 @@ def main() -> int:
         _fail(f"the serving path ran no segment of {sorted(missing)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    kernel["launches"] += phase_train(smi.splitlines()[0])
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + hier_dense + hier_pairs
                       + serve + [far_joint]}), flush=True)

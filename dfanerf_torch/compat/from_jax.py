@@ -11,7 +11,9 @@ names are the same keys. Conversion, given the tree as numpy arrays:
 - ``b`` becomes ``bias``.
 
 The conversion is exact (a transpose), so the inverse recovers the tree
-bit for bit.
+bit for bit. The optimizer moments of a group are trees of the same layout
+as its parameters (``opt/<group>/m/...``), converted the same way, and the
+counters ``t`` and ``step`` are int32 scalars in the reference's tree.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 from dfanerf_torch.config import ExperimentConfig
 from dfanerf_torch.device import resolve_device
-from dfanerf_torch.train.state import Params, TrainState
+from dfanerf_torch.train.optim import adam_init
+from dfanerf_torch.train.state import OPT_GROUPS, Params, TrainState
 
 _LEAF = {"w": "weight", "b": "bias"}
 _LEAF_INV = {v: k for k, v in _LEAF.items()}
@@ -81,16 +84,54 @@ def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 def state_from_jax(jax_state: Dict[str, Any], cfg: ExperimentConfig, device=None) -> TrainState:
     """A reference-package train state (as numpy arrays) -> the port's state
-    on ``device`` (default CUDA; see device.resolve_device). The optimizer
-    moments are not carried across."""
+    on ``device`` (default CUDA; see device.resolve_device), the optimizer
+    moments included; a state without ``opt`` gets fresh ones."""
     device = resolve_device(device)
     with torch.device("meta"):
         params = Params(cfg)
-    params = params.to_empty(device="cpu")
-    params.load_state_dict(params_to_state_dict(jax_state["params"]), strict=True)
+    return load_state_tree(jax_state, params.to_empty(device="cpu"), device)
+
+
+def load_state_tree(tree: Dict[str, Any], params: Params, device) -> TrainState:
+    """A reference-layout state tree loaded into ``params`` (in place, every
+    key required) and moved to ``device``, with its moments, latents and
+    step."""
+    params.load_state_dict(params_to_state_dict(tree["params"]), strict=True)
+    params = params.to(device)
+    opt = {}
+    for name, _, _ in OPT_GROUPS:
+        group = getattr(params, name)
+        if name not in tree.get("opt", {}):
+            opt[name] = adam_init(group)
+            continue
+        o = tree["opt"][name]
+        names = [n for n, _ in group.named_parameters()]
+        moments = {}
+        for k in ("m", "v"):
+            sd = params_to_state_dict(o[k])
+            if sorted(sd) != sorted(names):
+                raise ValueError(f"opt/{name}/{k}: keys {sorted(set(sd) ^ set(names))} differ "
+                                 "from the group's parameters")
+            moments[k] = {n: sd[n].to(device) for n in names}
+        opt[name] = {**moments, "t": int(np.asarray(o["t"]))}
     return {
-        "params": params.to(device),
-        "z_shape": torch.from_numpy(np.array(jax_state["z_shape"], np.float32)).to(device),
-        "z_app": torch.from_numpy(np.array(jax_state["z_app"], np.float32)).to(device),
-        "step": int(np.asarray(jax_state["step"])),
+        "params": params,
+        "opt": opt,
+        "z_shape": torch.from_numpy(np.array(tree["z_shape"], np.float32)).to(device),
+        "z_app": torch.from_numpy(np.array(tree["z_app"], np.float32)).to(device),
+        "step": int(np.asarray(tree["step"])),
+    }
+
+
+def state_to_jax(state: TrainState) -> Dict[str, Any]:
+    """The inverse of state_from_jax: the reference package's state tree as
+    numpy arrays (params and moments float32, t and step int32)."""
+    return {
+        "params": state_dict_to_params(state["params"].state_dict()),
+        "opt": {name: {"m": state_dict_to_params(o["m"]), "v": state_dict_to_params(o["v"]),
+                       "t": np.asarray(o["t"], np.int32)}
+                for name, o in state["opt"].items()},
+        "z_shape": state["z_shape"].detach().cpu().numpy(),
+        "z_app": state["z_app"].detach().cpu().numpy(),
+        "step": np.asarray(state["step"], np.int32),
     }

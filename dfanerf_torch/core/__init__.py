@@ -2,7 +2,7 @@
 
 from dfanerf_torch.core.geometry import pose_to_euler_trans, rot_to_euler
 from dfanerf_torch.core.posenc import et_embed, nerf_embed_dim, nerf_embedder, sincos_posenc
-from dfanerf_torch.core.rays import get_rays, linspace
+from dfanerf_torch.core.rays import get_rays, linspace, rays_for_pixels
 
 __all__ = [
     "et_embed",
@@ -11,6 +11,7 @@ __all__ = [
     "nerf_embed_dim",
     "nerf_embedder",
     "pose_to_euler_trans",
+    "rays_for_pixels",
     "rot_to_euler",
     "sincos_posenc",
 ]

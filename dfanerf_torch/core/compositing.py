@@ -29,9 +29,28 @@ def calc_volume_weights(z_vals: torch.Tensor, ray_d: torch.Tensor, sigma: torch.
     dists = torch.cat([dists, torch.full_like(dists[..., :1], last_dist)], dim=-1)
     dists = dists * torch.linalg.norm(ray_d.float(), dim=-1, keepdim=True)
     alpha = 1.0 - torch.exp(-(torch.relu(sigma) + 1e-6) * dists)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1), dim=-1)[..., :-1]
+    trans = _PositiveCumprod.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1))[..., :-1]
     return alpha * trans
+
+
+class _PositiveCumprod(torch.autograd.Function):
+    """torch.cumprod along the last axis of an input with no zeros (the
+    transmittance factors 1 - alpha + 1e-10 are at least 1e-10). Its backward
+    is torch's own formula for that case, reversed_cumsum(out * grad) / x,
+    without the test for zeros torch's backward makes, which reads a device
+    value on the host in every training step."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(out * grad, [-1]), dim=-1), [-1]) / x
 
 
 def composite_fields(sigma: torch.Tensor, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Pinhole-camera ray generation (port of dfanerf_tpu/core/rays.py get_rays).
+"""Pinhole-camera ray generation (port of dfanerf_tpu/core/rays.py get_rays
+and rays_for_pixels).
 
 Pixel grid with 'xy' indexing, camera looking down -z with y flipped:
 dir = [(i - cx) / f, -(j - cy) / f, -1], rotated by c2w[:3, :3]; ray
@@ -51,6 +52,19 @@ def get_rays(
     j = linspace(0.0, H - 1, H // stride, device=c2w.device)
     jj, ii = torch.meshgrid(j, i, indexing="ij")
     dirs = torch.stack([(ii - cx) / focal, -(jj - cy) / focal, -torch.ones_like(ii)], dim=-1)
+    rays_d = torch.einsum("...j,ij->...i", dirs, c2w[:3, :3].to(torch.float32))
+    rays_o = c2w[:3, -1].to(torch.float32).expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def rays_for_pixels(coords_yx: torch.Tensor, focal: float, c2w: torch.Tensor, cx: float,
+                    cy: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rays of explicit (row, col) pixel coordinates coords_yx [N, 2] (reference
+    :66): rays_o, rays_d each [N, 3], the rows of get_rays at those pixels,
+    without building the frame's grid."""
+    y = coords_yx[..., 0].to(torch.float32)
+    x = coords_yx[..., 1].to(torch.float32)
+    dirs = torch.stack([(x - cx) / focal, -(y - cy) / focal, -torch.ones_like(x)], dim=-1)
     rays_d = torch.einsum("...j,ij->...i", dirs, c2w[:3, :3].to(torch.float32))
     rays_o = c2w[:3, -1].to(torch.float32).expand(rays_d.shape)
     return rays_o, rays_d

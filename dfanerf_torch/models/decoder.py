@@ -3,10 +3,17 @@ dfanerf_tpu/models/decoder.py).
 
 One module holds all three input branches (head-with-signal, head-listener,
 torso), as the reference's shared network does. ``Decoder.forward`` is the
-port of ``apply_decoder``: a float32 function of a flat point batch, and the
-oracle that ops/pack.py's folded weights are tested against. The deformation
+port of ``apply_decoder``: a function of a flat point batch, in float32 by
+default (the oracle that ops/pack.py's folded weights are tested against) or
+with its trunk in ``compute_dtype`` (training's bfloat16). The deformation
 field is evaluated in its 128-wide block-diagonal form, built from the
 two-branch parameters on the fly.
+
+In ``compute_dtype`` every layer runs as the reference's ``linear`` does in
+that dtype: the float32 master weights are cast (so autograd carries the
+gradient back to them), the product is rounded to the dtype and the bias add
+rounds again (the colour layer's add excepted, see ``forward``). ``F.linear``
+would fuse the add and round once; autocast would choose its own casts.
 
 Only ``positional_encoding='normal'`` is ported; 'gauss' raises.
 """
@@ -67,6 +74,13 @@ class DecoderConfig:
         return sum(i in self.skips for i in range(self.n_blocks - 1))
 
 
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x @ w + b``: the float32 layer, or in ``dtype`` as two rounded steps."""
+    if dtype is None:
+        return layer(x)
+    return x @ layer.weight.to(dtype).t() + layer.bias.to(dtype)
+
+
 class DeformationField(nn.Module):
     """Two parallel 64-wide MLPs (point embedding and pose signal) with a skip
     at block 4, applied residually to the torso branch's input."""
@@ -93,27 +107,29 @@ class DeformationField(nn.Module):
         self.fc_signal_skips = nn.ModuleList(
             [nn.Linear(dim_signal, hidden_size) for _ in range(n_skips)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """x [..., dim_embed + dim_signal] -> deformation of the same shape
-        (the caller adds it to x)."""
+        (the caller adds it to x); weights cast to ``dtype`` when given."""
         be, bs = self.blocks_embed, self.blocks_signal
-        w0 = torch.cat([be[0].weight.t(), bs[0].weight.t()], dim=1)
-        b0 = torch.cat([be[0].bias, bs[0].bias])
-        h = torch.relu(x @ w0 + b0)
+
+        def cast(t):
+            return t if dtype is None else t.to(dtype)
+
+        def pair(a, b):  # (W_a ⊕ W_b as [in, out], b_a | b_b)
+            return (cast(torch.block_diag(a.weight.t(), b.weight.t())),
+                    cast(torch.cat([a.bias, b.bias])))
+
+        w0 = cast(torch.cat([be[0].weight.t(), bs[0].weight.t()], dim=1))
+        h = torch.relu(x @ w0 + cast(torch.cat([be[0].bias, bs[0].bias])))
         skip_idx = 0
         for idx in range(1, len(be)):
-            w = torch.block_diag(be[idx].weight.t(), bs[idx].weight.t())
-            b = torch.cat([be[idx].bias, bs[idx].bias])
+            w, b = pair(be[idx], bs[idx])
             h = torch.relu(h @ w + b)
             if (idx + 1) in self.skips and idx < len(be) - 1:
-                es = self.fc_embed_skips[skip_idx]
-                ss = self.fc_signal_skips[skip_idx]
-                w_skip = torch.block_diag(es.weight.t(), ss.weight.t())
-                b_skip = torch.cat([es.bias, ss.bias])
+                w_skip, b_skip = pair(self.fc_embed_skips[skip_idx], self.fc_signal_skips[skip_idx])
                 h = h + (x @ w_skip + b_skip)
                 skip_idx += 1
-        w_out = torch.block_diag(self.out_embed.weight.t(), self.out_signal.weight.t())
-        b_out = torch.cat([self.out_embed.bias, self.out_signal.bias])
+        w_out, b_out = pair(self.out_embed, self.out_signal)
         return h @ w_out + b_out
 
 
@@ -172,54 +188,70 @@ class Decoder(nn.Module):
         signal: Optional[torch.Tensor],
         branch: str,
         expression: Optional[torch.Tensor] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Evaluate the decoder on points p_in [N, 3] (float32).
+        """Evaluate the decoder on points p_in [N, 3].
 
         signal: [dim_signal] or [N, dim_signal] ('head'), [dim_et_embed] or
         [N, dim_et_embed] ('torso'), ignored for 'head_listener'.
-        Returns feat [N, rgb_out_dim] (sigmoid'd if configured), sigma [N].
+        compute_dtype: None runs float32; a dtype (torch.bfloat16) runs the
+        layers in it, with the positional encodings computed in float32 and
+        cast after, as the reference does.
+        Returns feat [N, rgb_out_dim] (sigmoid'd if configured), sigma [N],
+        both float32.
         """
         if branch not in _IN_LAYER:
             raise ValueError(f"unknown branch {branch!r}")
-        cfg = self.cfg
+        cfg, dt = self.cfg, compute_dtype
         p = sincos_posenc(p_in.float(), cfg.n_freq_posenc, cfg.downscale_p_by)
+        if dt is not None:
+            p, z_shape, z_app = p.to(dt), z_shape.to(dt), z_app.to(dt)
         if branch != "head_listener":
             if signal is None:
                 raise ValueError(f"branch {branch!r} needs a signal")
             sig = torch.atleast_2d(signal).to(p.dtype).expand(p.shape[0], signal.shape[-1])
             p = torch.cat([p, sig], dim=-1)
         if cfg.use_deformation_field and branch == "torso":
-            p = self.deform_net(p) + p
+            p = self.deform_net(p, dt) + p
 
-        net = getattr(self, _IN_LAYER[branch])(p)
+        net = _linear(getattr(self, _IN_LAYER[branch]), p, dt)
         if cfg.z_dim > 0:
-            net = net + self.fc_z(z_shape)
+            net = net + _linear(self.fc_z, z_shape, dt)
         net = torch.relu(net)
 
         skip_layers = getattr(self, _SKIP_LAYERS[branch], None)
         skip_idx = 0
         for idx, layer in enumerate(self.blocks):
-            net = torch.relu(layer(net))
+            net = torch.relu(_linear(layer, net, dt))
             if (idx + 1) in cfg.skips and idx < len(self.blocks) - 1:
-                net = net + self.fc_z_skips[skip_idx](z_shape)
-                net = net + skip_layers[skip_idx](p)
+                net = net + _linear(self.fc_z_skips[skip_idx], z_shape, dt)
+                net = net + _linear(skip_layers[skip_idx], p, dt)
                 skip_idx += 1
 
-        sigma = self.sigma_out(net)[..., 0]
-        net = self.feat_view(net) + self.fc_z_view(z_app)
+        sigma = _linear(self.sigma_out, net, dt)[..., 0]
+        net = _linear(self.feat_view, net, dt) + _linear(self.fc_z_view, z_app, dt)
         if expression is not None and cfg.use_expression:
-            net = net + self.expnet(expression)
+            net = net + _linear(self.expnet, expression.to(net.dtype), dt)
 
         if cfg.use_viewdirs and ray_d is not None:
             ray_d = ray_d.float()
             ray_d = ray_d / torch.linalg.norm(ray_d, dim=-1, keepdim=True)
             rd = sincos_posenc(ray_d, cfg.n_freq_posenc_views, cfg.downscale_p_by)
-            net = torch.relu(net + self.fc_view(rd))
+            if dt is not None:
+                rd = rd.to(dt)
+            net = torch.relu(net + _linear(self.fc_view, rd, dt))
             if cfg.n_blocks_view > 1:
                 for layer in self.blocks_view:
-                    net = torch.relu(layer(net))
+                    net = torch.relu(_linear(layer, net, dt))
 
-        feat = self.feat_out(net).float()
+        if dt is None:
+            feat = self.feat_out(net)
+        else:
+            # the reference's jitted step keeps this last bias add in float32:
+            # under XLA's excess precision the add's rounding to the compute
+            # dtype goes with the cast to float32 that follows it
+            w, b = self.feat_out.weight.to(dt), self.feat_out.bias.to(dt)
+            feat = (net @ w.t()).float() + b.float()
         if cfg.final_sigmoid_activation:
             feat = torch.sigmoid(feat)
         return feat, sigma.float()

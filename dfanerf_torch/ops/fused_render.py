@@ -150,10 +150,14 @@ def view_bias(pw: Dict[str, torch.Tensor], rays_d: torch.Tensor) -> torch.Tensor
 
 def density_act(x: torch.Tensor, act: str = "relu") -> torch.Tensor:
     """The decoder's density activation: 'relu' (the reference's) or
-    'softplus' (stable max + log1p form)."""
+    'softplus' (stable max + log1p form). The max is torch.maximum, whose
+    gradient at x == 0 is half, as jnp.maximum's is (clamp_min passes all
+    of it); bf16 densities land on 0 exactly, where the composite blend's
+    gradient is largest."""
+    zero = x.new_zeros(())
     if act == "softplus":
-        return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
-    return torch.clamp_min(x, 0.0)
+        return torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.maximum(x, zero)
 
 
 def spatial_tile_permutation(H: int, W: int) -> torch.Tensor:

@@ -1,5 +1,4 @@
-"""Full-frame renderer (port of the fused paths of
-dfanerf_tpu/render/renderer.py).
+"""Full-frame renderer (port of dfanerf_tpu/render/renderer.py).
 
 ``make_frame_renderer`` returns render_frame(params, z_shape, z_app, pose,
 pose_torso, signal, signal_torso, bc_img) -> (rgb_head, rgb_com), each
@@ -30,11 +29,14 @@ pose_torso, signal, signal_torso, bc_img) -> (rgb_head, rgb_com), each
   ``occ_prune_carry``) act on this path (see
   ``_make_pair_compaction_renderer``).
 
+With ``use_fused_kernel=False`` both renderers run the unfused field that
+training optimises instead: render/fields.py over tiles of ``tile_rays``
+rays, in plain PyTorch.
+
 Kernels run on a CUDA device, their plain versions on the CPU. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA a
 call with no device raises. Not ported yet, each raising
-NotImplementedError: the unfused ``render_ray_batch`` path
-(``use_fused_kernel=False``) and the pair path's live levers (listed in
+NotImplementedError: the pair path's live levers (listed in
 ``_refuse_unported``).
 """
 
@@ -48,7 +50,7 @@ import torch
 from dfanerf_torch.config import ExperimentConfig, RenderConfig
 from dfanerf_torch.core.compositing import calc_volume_weights
 from dfanerf_torch.core.rays import get_rays, linspace
-from dfanerf_torch.core.sampling import hierarchical_z_vals
+from dfanerf_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
 from dfanerf_torch.device import resolve_device
 from dfanerf_torch.ops.composite import (
     _bg_epilogue, bg_blend, deferred_composite, deferred_composite_head,
@@ -63,6 +65,7 @@ from dfanerf_torch.ops.pair_field import pair2_field_eval, pair_field_eval
 from dfanerf_torch.ops.pair_hier import pair_field_eval_perz, pair_sigma_eval
 from dfanerf_torch.ops.render_head import fused_render_head
 from dfanerf_torch.ops.sigma_head import fused_sigma_head
+from dfanerf_torch.render.fields import render_head_hierarchical, render_ray_batch
 from dfanerf_torch.train.signals import encode_signal, encode_signal_torso
 
 
@@ -106,18 +109,17 @@ def budget_drop_masks(wr_h: np.ndarray, wr_t: np.ndarray,
 
 
 def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, device=None):
-    """Build the fused frame renderer on ``device`` (default CUDA): dense;
-    with ``occ_sigma_thresh > 0`` the occupancy path, its per-field tile
-    classes (``occ_tile_compaction``) or the pair-compacted path
+    """Build the frame renderer on ``device`` (default CUDA): unfused with
+    ``use_fused_kernel=False``; else fused, dense, or with
+    ``occ_sigma_thresh > 0`` the occupancy path, its per-field tile classes
+    (``occ_tile_compaction``) or the pair-compacted path
     (``occ_pair_compaction``), dispatched as the reference does (:184-205)."""
     dev = resolve_device(device)
     H, W, focal, cx, cy = hwfcxy
     H, W = int(H), int(W)
     rcfg, dcfg = cfg.render, cfg.decoder
     if not rcfg.use_fused_kernel:
-        raise NotImplementedError(
-            "use_fused_kernel=False (the render_ray_batch path) is not ported yet "
-            "(ROADMAP.md queue 1, item 2)")
+        return _make_unfused_frame_renderer(rcfg, hwfcxy, near, far, dev)
     if not rcfg.concate_bg or rcfg.n_samples % S_SLAB:
         raise ValueError("the fused renderer needs concate_bg and n_samples % 8 == 0")
     if rcfg.occ_sigma_thresh > 0 and rcfg.occ_pair_compaction:
@@ -176,6 +178,42 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         head, com = fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc_p,
                                       last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps, act=act)
         return untile(head), untile(com)
+
+    return render_frame
+
+
+def _tile_slices(n: int, tile: int):
+    return [slice(a, min(a + tile, n)) for a in range(0, n, tile)]
+
+
+def _make_unfused_frame_renderer(rcfg: RenderConfig, hwfcxy, near: float, far: float, dev):
+    """render_ray_batch over tiles of ``tile_rays`` rays in scanline order
+    (reference :459-497), the shared depths uniform. Same call and outputs
+    as the fused renderers."""
+    H, W, focal, cx, cy = hwfcxy
+    H, W = int(H), int(W)
+    tile = min(rcfg.tile_rays, H * W)
+    z_vals = stratified_z_vals(near, far, tile, rcfg.n_samples, device=dev)
+
+    def as_f32(x):
+        return torch.as_tensor(x).to(device=dev, dtype=torch.float32)
+
+    @torch.no_grad()
+    def render_frame(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
+        ro, rd = (x.reshape(-1, 3) for x in get_rays(H, W, focal, as_f32(pose), cx, cy))
+        ro_t, rd_t = (x.reshape(-1, 3) for x in get_rays(H, W, focal, as_f32(pose_torso), cx, cy))
+        bc = torch.as_tensor(bc_img).to(dev).reshape(-1, 3).float() / 255.0
+        z_shape, z_app = as_f32(z_shape), as_f32(z_app)
+        signal, signal_torso = as_f32(signal), as_f32(signal_torso)
+        heads, coms = [], []
+        for sl in _tile_slices(H * W, tile):
+            head, com = render_ray_batch(
+                params.decoder, rcfg, ro[sl], rd[sl], ro_t[sl], rd_t[sl],
+                z_vals[:sl.stop - sl.start], signal, signal_torso, z_shape[0], z_app[0],
+                z_shape[1], z_app[1], bc[sl])
+            heads.append(head)
+            coms.append(com)
+        return torch.cat(heads).reshape(H, W, 3), torch.cat(coms).reshape(H, W, 3)
 
     return render_frame
 
@@ -844,18 +882,16 @@ def make_head_hierarchical_renderer(cfg: ExperimentConfig, hwfcxy, near: float, 
     on pair lists instead (``_make_hier_pair_renderer``).
 
     ``render.stages`` holds the stage functions in order (the dense frame is
-    their composition), for timing them apart. Not ported, raising
-    NotImplementedError: ``use_fused_kernel=False`` (the render_ray_batch
-    path)."""
+    their composition), for timing them apart. With ``use_fused_kernel=False``
+    the unfused render_head_hierarchical runs instead, over tiles of
+    ``tile_rays`` rays (reference :1852-1875), and has no stages."""
     dev = resolve_device(device)
     H, W = int(hwfcxy[0]), int(hwfcxy[1])
     rcfg, dcfg = cfg.render, cfg.decoder
     if rcfg.n_importance <= 0:
         raise ValueError("the hierarchical renderer needs n_importance > 0")
     if not rcfg.use_fused_kernel:
-        raise NotImplementedError(
-            "use_fused_kernel=False (render_head_hierarchical, the render_ray_batch path) is not "
-            "ported yet (ROADMAP.md queue 1, item 2)")
+        return _make_unfused_hier_renderer(rcfg, hwfcxy, near, far, dev)
     S_c, S_f = rcfg.n_samples, rcfg.n_samples + rcfg.n_importance
     if not rcfg.concate_bg or S_c % S_SLAB or S_f % S_SLAB:
         raise ValueError("the fused hierarchical renderer needs concate_bg and n_samples and "
@@ -932,6 +968,31 @@ def make_head_hierarchical_renderer(cfg: ExperimentConfig, hwfcxy, near: float, 
 
     render.stages = {"prep": prep, "coarse_flags": coarse_flags, "sigma": sigma,
                      "resample": resample, "fine": fine, "finish": finish}
+    return render
+
+
+def _make_unfused_hier_renderer(rcfg: RenderConfig, hwfcxy, near: float, far: float, dev):
+    """render_head_hierarchical (deterministic resample) over tiles of
+    ``tile_rays`` rays in scanline order."""
+    H, W, focal, cx, cy = hwfcxy
+    H, W = int(H), int(W)
+    tile = min(rcfg.tile_rays, H * W)
+    z_vals = stratified_z_vals(near, far, tile, rcfg.n_samples, device=dev)
+
+    def as_f32(x):
+        return torch.as_tensor(x).to(device=dev, dtype=torch.float32)
+
+    @torch.no_grad()
+    def render(params, z_shape, z_app, pose, signal, bc_img):
+        ro, rd = (x.reshape(-1, 3) for x in get_rays(H, W, focal, as_f32(pose), cx, cy))
+        bc = torch.as_tensor(bc_img).to(dev).reshape(-1, 3).float() / 255.0
+        z_shape, z_app, signal = as_f32(z_shape), as_f32(z_app), as_f32(signal)
+        rgb = [render_head_hierarchical(params.decoder, rcfg, ro[sl], rd[sl],
+                                        z_vals[:sl.stop - sl.start], signal, z_shape[0],
+                                        z_app[0], bc[sl])
+               for sl in _tile_slices(H * W, tile)]
+        return torch.cat(rgb).reshape(H, W, 3)
+
     return render
 
 

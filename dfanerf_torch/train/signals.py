@@ -1,5 +1,5 @@
 """Per-frame conditioning signals (port of dfanerf_tpu/train/signals.py,
-w2l path).
+w2l path, and the half-signal image ``get_half_signals``).
 
 The smoothing window [i - w/2, i + w/2) is a clamped gather times a validity
 mask (zero outside [0, n_valid)). ``use_smoothing`` selects the attention-
@@ -48,6 +48,15 @@ def encode_signal(
         dim=-1,
     )
     return params.audattnet(feat_win, feat_win.shape[-1])
+
+
+def get_half_signals(H: int, W: int, sig_aud: torch.Tensor, sig_eye: torch.Tensor) -> torch.Tensor:
+    """Split-screen conditioning image (reference :105): the top H // 2 rows
+    carry the eye signal, the next H // 2 the audio signal; [2 * (H // 2), W, D]
+    (an odd H drops the last row, as the reference does)."""
+    top = sig_eye.expand(H // 2, W, sig_eye.shape[-1])
+    bottom = sig_aud.expand(H // 2, W, sig_aud.shape[-1])
+    return torch.cat([top, bottom], dim=0)
 
 
 def encode_signal_torso(

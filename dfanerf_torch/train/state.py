@@ -1,9 +1,10 @@
-"""Model state (port of dfanerf_tpu/train/state.py, without the optimizer).
+"""Train state (port of dfanerf_tpu/train/state.py).
 
 ``Params`` holds every network under the reference package's parameter-tree
-keys (decoder, audnet, expnet, audattnet, poseattnet); the state adds the
-per-(object, part) latents z_shape and z_app and the step counter. The
-optimizer moments come with the training slice (ROADMAP.md queue 1, item 2).
+keys (decoder, audnet, expnet, audattnet, poseattnet); the state adds each
+optimizer group's Adam moments (``opt``, train/optim.py), the
+per-(object, part) latents z_shape and z_app and the step counter, a host
+int, so that the stage gates of a step need no device read.
 """
 
 from __future__ import annotations
@@ -18,8 +19,19 @@ from dfanerf_torch.core.posenc import nerf_embed_dim
 from dfanerf_torch.device import resolve_device
 from dfanerf_torch.models import AudioAttNet, AudioNetW2L, Decoder, ExpressionEnc
 from dfanerf_torch.models.layers import init_uniform_
+from dfanerf_torch.train.optim import adam_init
 
 TrainState = Dict[str, Any]
+
+# optimizer groups: (params key, lr multiplier, gate kind); gate kinds:
+# "always", "smo" (step >= nosmo_iters), "exp" (step >= noexp_iters)
+OPT_GROUPS = (
+    ("decoder", 1.0, "always"),
+    ("audnet", 1.0, "always"),
+    ("expnet", 1.0, "exp"),
+    ("audattnet", 2.0, "smo"),
+    ("poseattnet", 2.0, "smo"),
+)
 
 
 class Params(nn.Module):
@@ -51,8 +63,10 @@ def init_train_state(cfg: ExperimentConfig, seed: int = 0, device=None) -> Train
         params = Params(cfg)
     params = init_uniform_(params.to_empty(device="cpu"), g)
     n_lat = cfg.train.n_object * 2  # (head, torso) latent pair per object
+    params = params.to(device)
     return {
-        "params": params.to(device),
+        "params": params,
+        "opt": {name: adam_init(getattr(params, name)) for name, _, _ in OPT_GROUPS},
         "z_shape": torch.randn((n_lat, cfg.train.z_dim), generator=g).to(device),
         "z_app": torch.randn((n_lat, cfg.train.z_dim), generator=g).to(device),
         "step": 0,

@@ -179,9 +179,6 @@ def test_all_empty_frame_is_the_background(setup, monkeypatch):
 def test_unported_or_invalid_configurations_raise():
     hw = (24, 24, 26.4, 12.0, 12.0)
     base = ExperimentConfig(render=RenderConfig(**BASE))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_head_hierarchical_renderer(dataclasses.replace(base, render=dataclasses.replace(
-            base.render, use_fused_kernel=False)), hw, 0.3, 0.9, device="cpu")
     for bad in ({"n_importance": 0}, {"n_importance": 12}, {"concate_bg": False}):
         with pytest.raises(ValueError):
             make_head_hierarchical_renderer(dataclasses.replace(base, render=dataclasses.replace(

@@ -51,15 +51,20 @@ def test_source_has_no_jax_import(path):
     assert not pattern.search(path.read_text())
 
 
-def test_no_silent_cpu_fallback():
+def test_no_silent_cpu_fallback(tmp_path):
     """Every entry point defaults to the card: the dense and the pair
-    renderer, the seeded state and the state converted from the reference."""
+    renderer, the seeded state and the state converted from the reference,
+    the synthetic ground truth, the device data, the train step and the
+    training loop."""
     from dfanerf_torch.compat.from_jax import state_from_jax
     from dfanerf_torch.config import ExperimentConfig, RenderConfig
     from dfanerf_torch.render.renderer import (
         make_frame_renderer, make_head_hierarchical_renderer,
     )
+    from dfanerf_torch.data.synthetic import make_synthetic_dataset, make_synthetic_scene
+    from dfanerf_torch.train.loop import train_loop
     from dfanerf_torch.train.state import init_train_state
+    from dfanerf_torch.train.step import dataset_to_device, make_train_step
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device; the check is for machines without one")
@@ -78,6 +83,12 @@ def test_no_silent_cpu_fallback():
         init_train_state(dense)
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_jax({}, dense)
+    ds = make_synthetic_scene(n_frames=2, H=8, W=8)
+    for entry in (lambda: make_synthetic_dataset(n_frames=2, H=8, W=8),
+                  lambda: dataset_to_device(ds), lambda: make_train_step(dense, ds),
+                  lambda: train_loop(dense, ds, n_iters=1, run_dir=str(tmp_path))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_serve():

@@ -99,8 +99,7 @@ def test_unported_levers_raise():
     hw = (32, 32, 35.2, 16.0, 16.0)
     base = ExperimentConfig(render=RenderConfig(**PAIRS))
     levers = [({"occ_prune_hist_decay": 0.8}, 4), ({"occ_live_keys": True}, 4),
-              ({"occ_async_refresh": True}, 4), ({"occ_pack2": True, "occ_async_refresh": True}, 4),
-              ({"use_fused_kernel": False}, 2)]
+              ({"occ_async_refresh": True}, 4), ({"occ_pack2": True, "occ_async_refresh": True}, 4)]
     for kw, item in levers:
         cfg = dataclasses.replace(base, render=dataclasses.replace(base.render, **kw))
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}\\)"):

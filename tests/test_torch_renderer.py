@@ -134,9 +134,8 @@ def test_render_video_frames(setup):
 def test_unported_configurations_raise():
     base = ExperimentConfig(render=RenderConfig(**RENDER))
     hw = (24, 24, 26.4, 12.0, 12.0)
-    for render in (dataclasses.replace(base.render, use_fused_kernel=False),
-                   dataclasses.replace(base.render, occ_sigma_thresh=0.5,
-                                       occ_pair_compaction=True, occ_async_refresh=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_frame_renderer(dataclasses.replace(base, render=render), hw, 0.3, 0.9,
-                                device="cpu")
+    render = dataclasses.replace(base.render, occ_sigma_thresh=0.5, occ_pair_compaction=True,
+                                 occ_async_refresh=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_frame_renderer(dataclasses.replace(base, render=render), hw, 0.3, 0.9,
+                            device="cpu")

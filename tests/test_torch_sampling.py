@@ -20,6 +20,7 @@ measured over these cases:
   calc_volume_weights of densities with zeros: 1e-3 (measured 3.4e-4), on
   sorted depths of the same length."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,9 +116,20 @@ def test_hierarchical_z_vals_matches_reference():
 
 
 def test_stratified_z_vals_equal_and_random_paths_raise():
+    """The uniform depths equal the reference's; the random forms, fed the
+    reference's uniform draws for a key, match its jittered depths (bit for
+    bit here) and its random resample (the positive-weight bar above); a
+    random resample without a generator raises."""
     got = ts.stratified_z_vals(0.3, 0.9, 5, S).numpy()
     np.testing.assert_array_equal(got, np.asarray(js.stratified_z_vals(0.3, 0.9, 5, S)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.stratified_z_vals(0.3, 0.9, 5, S, key=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    key = jax.random.PRNGKey(0)
+    u = _t(jax.random.uniform(key, (5, S)))
+    jit = ts.jitter_z_vals(ts.stratified_z_vals(0.3, 0.9, 5, S), u).numpy()
+    assert np.abs(jit - np.asarray(js.stratified_z_vals(0.3, 0.9, 5, S, key=key))).max() < 1e-6
+    bins = np.broadcast_to(np.linspace(0.3, 0.9, M + 1, dtype=np.float32), (20, M + 1))
+    w = np.random.RandomState(4).rand(20, M).astype(np.float32)
+    ref = np.asarray(js.sample_pdf(jnp.asarray(bins), jnp.asarray(w), N_FINE, key=key))
+    got = ts.inverse_cdf(_t(bins), _t(w), _t(jax.random.uniform(key, (20, N_FINE)))).numpy()
+    assert np.abs(got - ref).max() < 2e-5
+    with pytest.raises(ValueError, match="generator"):
         ts.sample_pdf(_t(np.zeros((2, 5), np.float32)), _t(np.ones((2, 4), np.float32)), 8)
