@@ -2875,7 +2875,10 @@ def phase_serve_epilogue_kernel_form(args):
 # training time is RECIPE_STEPS steps (12,000 with distortion from 2,000, then
 # a 2,000-step polish without).
 TRAIN_STEPS, TRAIN_WINDOW, TRAIN_DROP = 300, 20, 0.6
-TRAIN_TIMED, TRAIN_WARM = 20, 3
+# Warm ms per step: TRAIN_TURNS turns of TRAIN_TIMED steps for each setting
+# of the distortion term, in ABBA order, reported as the median and the spread
+# of the turns; then a torch.profiler trace of TRAIN_PROFILED steps.
+TRAIN_TIMED, TRAIN_TURNS, TRAIN_WARM, TRAIN_PROFILED = 50, 5, 3, 10
 PARITY_RAYS = 256
 RECIPE_STEPS = {"distortion off": 2000 + 2000, "distortion on": 12000 - 2000}
 # The trained field served by the render_rays kernel (bf16) against the
@@ -2911,76 +2914,90 @@ def _timed_steps(step, state, data, generator, n):
     return start.elapsed_time(end) / n, m
 
 
-def _train_stages(step, state, data, generator):
-    """Mean ms of a step's stages over TRAIN_TIMED steps, from CUDA events
-    recorded at their edges: the draws, the loss (signals and both fields'
-    forward render), the backward with the gradient norm, the staged Adam
-    update."""
-    import dfanerf_torch.train.step as step_mod
+def _profiled_steps(activities, step, state, data, generator):
+    """A torch.profiler trace of TRAIN_PROFILED steps and the trace window's
+    own wall time per step (CUDA events around the profiled steps)."""
+    from torch.profiler import profile
 
-    edges = []
-
-    def mark():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        edges[-1].append(ev)
-
-    loss, adam = step.loss, step_mod.adam_update
-
-    def timed_loss(*a, **k):
-        mark()
-        out = loss(*a, **k)
-        mark()
-        return out
-
-    def timed_adam(opt, *a, **k):
-        if len(edges[-1]) == 3:  # the first group's update begins
-            mark()
-        return adam(opt, *a, **k)
-
-    step.loss, step_mod.adam_update = timed_loss, timed_adam
-    try:
-        for _ in range(TRAIN_TIMED):
-            edges.append([])
-            mark()
-            step(state, data, generator)
-            mark()
-    finally:
-        del step.loss
-        step_mod.adam_update = adam
-    torch.cuda.synchronize()
-    names = ("draws", "loss (forward)", "backward", "Adam")
-    return {n: round(sum(e[k].elapsed_time(e[k + 1]) for e in edges) / len(edges), 3)
-            for k, n in enumerate(names)}
-
-
-def _train_device_time(step, state, data, generator, step_ms, card):
-    """The card's kernel time per step from a torch.profiler trace of
-    TRAIN_WARM steps, beside the step's unprofiled time: the share of a step
-    the card is busy, and the kernels that take most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRAIN_WARM):
-            step(state, data, generator)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
-    # the card's own events (kernels, copies, fills); the host ops that
-    # launched them report the same time again
-    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    device_ms = sum(r[0] for r in rows) / 1e3 / TRAIN_WARM
-    if device_ms == 0:
-        print("[train] device time per step: not measured (the profiler saw no kernel)",
-              flush=True)
-        return
-    top = [f"{k[:48]} {t / 1e3 / TRAIN_WARM:.2f} ms x{n // TRAIN_WARM}"
+        start.record()
+        for _ in range(TRAIN_PROFILED):
+            step(state, data, generator)
+        end.record()
+        torch.cuda.synchronize()
+    return prof, start.elapsed_time(end) / TRAIN_PROFILED
+
+
+def _device_rows(prof):
+    """(device us, name, count) of the card's own events (kernels, copies,
+    fills): the host ops that launched them report the same time again, and
+    the ranges' device spans are annotations, not work."""
+    from torch.autograd import DeviceType
+
+    return [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def _host_issue_ms(step, state, data, generator):
+    """The host's time to issue one step from an idle card (perf_counter
+    around the step, no sync inside it): median, min and max over
+    TRAIN_PROFILED steps. The card starts each step idle, so the host waits
+    for it only where the launch queue fills."""
+    import numpy as np
+
+    times = []
+    for _ in range(TRAIN_PROFILED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, data, generator)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times)), min(times), max(times)
+
+
+def _train_profile(step, state, data, generator, step_ms, card):
+    """Two torch.profiler traces of TRAIN_PROFILED steps (distortion on).
+    The card's events alone: the busy share of that window's own wall time
+    (the host's ops unrecorded, so the step keeps its unprofiled pace). With
+    the host's ops too: the kernel time of each stage of a step (the step's
+    profiler ranges; the backward's kernels, launched from autograd's device
+    thread, are the rest) and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from dfanerf_torch.train.step import STAGES
+
+    host = _host_issue_ms(step, state, data, generator)
+    prof, window_ms = _profiled_steps([ProfilerActivity.CUDA], step, state, data, generator)
+    device_ms = sum(r[0] for r in _device_rows(prof)) / 1e3 / TRAIN_PROFILED
+    prof, full_window_ms = _profiled_steps([ProfilerActivity.CPU, ProfilerActivity.CUDA], step,
+                                           state, data, generator)
+    rows = _device_rows(prof)
+    full_device_ms = sum(r[0] for r in rows) / 1e3 / TRAIN_PROFILED
+    if device_ms == 0 or full_device_ms == 0:
+        _fail("the profiler saw no kernel of the train step")
+    stages = {n: sum(e.device_time_total for e in prof.events()
+                     if e.name == n and e.device_type == DeviceType.CPU) / 1e3 / TRAIN_PROFILED
+              for n in STAGES}
+    stages["train.backward"] = full_device_ms - sum(v for n, v in stages.items()
+                                                    if n != "train.backward")
+    top = [f"{k[:48]} {t / 1e3 / TRAIN_PROFILED:.2f} ms x{n // TRAIN_PROFILED}"
            for t, k, n in sorted(rows, reverse=True)[:6]]
-    print(f"[train] device time per step (torch.profiler, {TRAIN_WARM} steps, distortion on): "
-          f"{device_ms:.2f} ms of kernels, {100 * device_ms / step_ms:.1f}% of the "
-          f"{step_ms:.2f} ms step (the rest the card idles, waiting for the host); "
-          f"{sum(r[2] for r in rows) // TRAIN_WARM} launches a step; top: "
-          f"{top}; {card}", flush=True)
+    print(f"[train] a profiled step (torch.profiler, {TRAIN_PROFILED} steps, distortion on, "
+          f"CUDA events around the profiled steps): the card's events alone: {window_ms:.3f} ms "
+          f"of wall time, {device_ms:.3f} ms of kernels, busy {100 * device_ms / window_ms:.1f}% "
+          f"({100 * device_ms / step_ms:.1f}% of the unprofiled median step, {step_ms:.3f} ms); "
+          f"with the host's ops: {full_window_ms:.3f} ms of wall time, {full_device_ms:.3f} ms "
+          f"of kernels, busy {100 * full_device_ms / full_window_ms:.1f}%; kernel ms by stage "
+          f"{json.dumps({n: round(v, 3) for n, v in stages.items()})}; "
+          f"{sum(r[2] for r in rows) // TRAIN_PROFILED} launches a step; top: {top}; {card}",
+          flush=True)
+    print(f"[train] the host's time to issue a step from an idle card (perf_counter, no sync, "
+          f"{TRAIN_PROFILED} steps): median {host[0]:.3f} ms, {host[1]:.3f}-{host[2]:.3f}; "
+          f"kernels {device_ms:.3f} ms; unprofiled median step {step_ms:.3f} ms; {card}",
+          flush=True)
 
 
 def phase_train(card):
@@ -3073,31 +3090,36 @@ def phase_train(card):
     if not last < TRAIN_DROP * first:
         _fail(f"no convergence: mean loss {first:.5f} -> {last:.5f}")
 
-    # warm ms per step, distortion off and on in turns (off, on, off, on)
+    # warm ms per step, distortion off and on in ABBA turns
     step = make_train_step(cfg, ds, device="cuda")
     data = dataset_to_device(ds, "cuda")
     timed = copy.deepcopy(state)
     gen = torch.Generator().manual_seed(7)
-    ms = {"distortion off": [], "distortion on": []}
-    for label, at in 2 * (("distortion off", TRAIN_STEPS),
-                          ("distortion on", cfg.train.distortion_from)):
-        timed["step"] = at
+    at = {"distortion off": TRAIN_STEPS, "distortion on": cfg.train.distortion_from}
+    ms, peak = {label: [] for label in at}, 0.0
+    for turn in range(2 * TRAIN_TURNS):
+        label = list(at)[(turn + turn // 2) % 2]
+        timed["step"] = at[label]
         for _ in range(TRAIN_WARM):
             step(timed, data, gen)
         torch.cuda.reset_peak_memory_stats()
         t, m = _timed_steps(step, timed, data, gen, TRAIN_TIMED)
         ms[label].append(t)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[train] {label}: {t:.2f} ms per step ({1e3 / t:.1f} steps/s; {TRAIN_TIMED} warm "
-              f"steps, CUDA events, no host sync); peak memory {peak:.2f} GiB; loss "
-              f"{float(m['loss']):.5f}; {card}", flush=True)
-    stages = _train_stages(step, timed, data, gen)
-    print(f"[train] where a step's time goes (distortion on, ms, CUDA events, mean of "
-          f"{TRAIN_TIMED} steps): {json.dumps(stages)}; {card}", flush=True)
-    _train_device_time(step, timed, data, gen, min(ms["distortion on"]), card)
-    projected = sum(RECIPE_STEPS[k] * min(v) for k, v in ms.items()) / 1e3
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        if not np.isfinite(float(m["loss"])):
+            _fail(f"a non-finite loss in the timed steps ({label})")
+    med = {label: float(np.median(v)) for label, v in ms.items()}
+    for label, v in ms.items():
+        print(f"[train] {label}: median {med[label]:.3f} ms per step ({1e3 / med[label]:.1f} "
+              f"steps/s), turns {min(v):.3f}-{max(v):.3f} ms (spread "
+              f"{100 * (max(v) - min(v)) / med[label]:.1f}% of the median; {TRAIN_TURNS} turns of "
+              f"{TRAIN_TIMED} warm steps, CUDA events, no host sync): {[round(x, 3) for x in v]}; "
+              f"{card}", flush=True)
+    print(f"[train] peak memory of a step {peak:.2f} GiB; {card}", flush=True)
+    _train_profile(step, timed, data, gen, med["distortion on"], card)
+    projected = sum(RECIPE_STEPS[k] * med[k] for k in med) / 1e3
     print(f"[train] projected recipe time ({RECIPE_STEPS['distortion off']} steps without the "
-          f"distortion term, {RECIPE_STEPS['distortion on']} with, at the faster turn of each): "
+          f"distortion term, {RECIPE_STEPS['distortion on']} with, at the median turn of each): "
           f"{projected:.1f} s; {card}", flush=True)
     del timed
 

@@ -17,6 +17,10 @@ The step is split in two:
 Nothing in a step reads a device value on the host: the stage gates come
 from the host step counter, the clip scale stays a tensor, and the metrics
 are returned as tensors.
+The stages are torch.profiler ranges (STAGES): the draws, the loss (the
+signals and both fields' forward render), the backward with the gradient
+norm and clip, and the staged Adam update with the metrics. The backward's
+kernels are launched from autograd's device thread, outside its range.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from dfanerf_torch.config import ExperimentConfig
 from dfanerf_torch.core.rays import rays_for_pixels
@@ -37,24 +42,20 @@ from dfanerf_torch.train.optim import adam_update, exp_decay_lr
 from dfanerf_torch.train.signals import encode_signal, encode_signal_torso
 from dfanerf_torch.train.state import OPT_GROUPS, TrainState
 
+STAGES = ("train.draws", "train.loss", "train.backward", "train.adam")
 
-def dataset_to_device(ds: FrameDataset, device=None, filter_speaking: bool = True) -> Dict:
+
+def dataset_to_device(ds: FrameDataset, device=None) -> Dict:
     """The arrays a step reads, on ``device`` (default CUDA): poses, auds,
     exps, the uint8 background and, where the dataset has them, the uint8
-    targets. ``i_train`` (restricted to speaking frames unless
-    ``filter_speaking`` is off), ``rects`` and ``speak_frames`` stay host
-    numpy arrays: the step indexes them with its host frame draw."""
+    targets. The training frames and the face rects are the step's own
+    (TrainStep), read on the host with its host frame draw."""
     dev = resolve_device(device)
     data = {k: torch.from_numpy(np.ascontiguousarray(getattr(ds, k))).to(dev)
             for k in ("poses", "auds", "exps", "bc_img")}
-    data["i_train"] = np.asarray(speaking_i_train(ds) if filter_speaking else ds.i_train)
     for key, val in (("imgs_head", ds.imgs_head), ("imgs_com", ds.imgs_com)):
         if val is not None:
             data[key] = torch.from_numpy(np.ascontiguousarray(val)).to(dev)
-    if ds.sample_rects is not None:
-        data["rects"] = np.asarray(ds.sample_rects)
-    if ds.speak_frames is not None:
-        data["speak_frames"] = np.asarray(ds.speak_frames, np.int32)
     return data
 
 
@@ -129,15 +130,18 @@ class TrainStep:
         """{"img_i": host int, "coords": [n_rand, 2] long, "z_vals":
         [n_rand, n_samples]} for one step, drawn from the host generator."""
         tcfg = self.cfg.train
-        img_i = int(self.i_train[int(torch.randint(self.n_train, (), generator=generator))])
-        g = generator
-        if self.device.type != "cpu":
-            seed = int(torch.randint(2 ** 62, (), generator=generator))
-            g = torch.Generator(device=self.device).manual_seed(seed)
-        coords = sample_pixel_coords(g, self.H, self.W, tcfg.n_rand, tcfg.sample_rate,
-                                     self.rects[img_i], device=self.device)
-        z_vals = stratified_z_vals(self.near, self.far, tcfg.n_rand, self.cfg.render.n_samples,
-                                   generator=g if tcfg.perturb else None, device=self.device)
+        with record_function(STAGES[0]):
+            img_i = int(self.i_train[int(torch.randint(self.n_train, (), generator=generator))])
+            g = generator
+            if self.device.type != "cpu":
+                seed = int(torch.randint(2 ** 62, (), generator=generator))
+                g = torch.Generator(device=self.device).manual_seed(seed)
+            coords = sample_pixel_coords(g, self.H, self.W, tcfg.n_rand, tcfg.sample_rate,
+                                         self.rects[img_i], device=self.device)
+            z_vals = stratified_z_vals(self.near, self.far, tcfg.n_rand,
+                                       self.cfg.render.n_samples,
+                                       generator=g if tcfg.perturb else None,
+                                       device=self.device)
         return {"img_i": img_i, "coords": coords, "z_vals": z_vals}
 
     def loss(self, params, state: TrainState, data: Dict, batch: Dict, use_smo: bool,
@@ -187,38 +191,40 @@ class TrainStep:
         use_smo, use_exp = step >= scfg.nosmo_iters, step >= scfg.noexp_iters
         for p in params.parameters():
             p.grad = None
-        loss, loss_head, loss_com = self.loss(params, state, data, batch, use_smo,
-                                              step >= tcfg.distortion_from)
-        loss.backward()
+        with record_function(STAGES[1]):
+            loss, loss_head, loss_com = self.loss(params, state, data, batch, use_smo,
+                                                  step >= tcfg.distortion_from)
+        with record_function(STAGES[2]):
+            loss.backward()
+            grads = [p.grad for p in params.parameters() if p.grad is not None]
+            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if tcfg.grad_clip > 0.0:
+                scale = torch.clamp_max(tcfg.grad_clip / (grad_norm + 1e-12), 1.0)
+                torch._foreach_mul_(grads, scale)
 
-        grads = [p.grad for p in params.parameters() if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        if tcfg.grad_clip > 0.0:
-            scale = torch.clamp_max(tcfg.grad_clip / (grad_norm + 1e-12), 1.0)
-            torch._foreach_mul_(grads, scale)
-
-        lr = exp_decay_lr(step, tcfg.lrate, tcfg.lrate_decay)
-        gates = {"always": True, "smo": use_smo, "exp": use_exp}
-        for name, lr_mult, gate_kind in OPT_GROUPS:
-            group = dict(getattr(params, name).named_parameters())
-            adam_update(state["opt"][name], {n: p.grad for n, p in group.items()}, group,
-                        np.float32(lr * np.float32(lr_mult)), gates[gate_kind], tcfg.adam_b1,
-                        tcfg.adam_b2, tcfg.adam_eps)
-        for p in params.parameters():
-            p.grad = None
-        state["step"] = step + 1
-        loss_head, loss_com = loss_head.detach(), loss_com.detach()
-        metrics = {
-            "loss": loss.detach(),
-            "loss_head": loss_head,
-            "loss_com": loss_com,
-            "psnr_head": -10.0 * torch.log(loss_head) / math.log(10.0),
-            "psnr_com": -10.0 * torch.log(loss_com) / math.log(10.0),
-            "lr": float(lr),
-            "img_i": batch["img_i"],
-            # before clipping, so spikes stay visible with grad_clip on
-            "grad_norm": grad_norm,
-        }
+        with record_function(STAGES[3]):
+            lr = exp_decay_lr(step, tcfg.lrate, tcfg.lrate_decay)
+            gates = {"always": True, "smo": use_smo, "exp": use_exp}
+            for name, lr_mult, gate_kind in OPT_GROUPS:
+                group = dict(getattr(params, name).named_parameters())
+                adam_update(state["opt"][name], {n: p.grad for n, p in group.items()}, group,
+                            np.float32(lr * np.float32(lr_mult)), gates[gate_kind],
+                            tcfg.adam_b1, tcfg.adam_b2, tcfg.adam_eps)
+            for p in params.parameters():
+                p.grad = None
+            state["step"] = step + 1
+            loss_head, loss_com = loss_head.detach(), loss_com.detach()
+            metrics = {
+                "loss": loss.detach(),
+                "loss_head": loss_head,
+                "loss_com": loss_com,
+                "psnr_head": -10.0 * torch.log(loss_head) / math.log(10.0),
+                "psnr_com": -10.0 * torch.log(loss_com) / math.log(10.0),
+                "lr": float(lr),
+                "img_i": batch["img_i"],
+                # before clipping, so spikes stay visible with grad_clip on
+                "grad_norm": grad_norm,
+            }
         return state, metrics
 
 

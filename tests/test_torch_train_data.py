@@ -37,6 +37,7 @@ from dfanerf_tpu.data.dataset import speaking_i_train as j_speaking_i_train
 from dfanerf_tpu.data.synthetic import analytic_field as j_analytic_field
 from dfanerf_tpu.train import optim as jo
 from dfanerf_tpu.train.signals import get_half_signals as j_get_half_signals
+from dfanerf_torch.config import ExperimentConfig
 from dfanerf_torch.core import losses as tl
 from dfanerf_torch.core import sampling as ts
 from dfanerf_torch.core.rays import get_rays, rays_for_pixels
@@ -44,7 +45,7 @@ from dfanerf_torch.data.dataset import FrameDataset, speaking_i_train
 from dfanerf_torch.data.synthetic import analytic_field, make_synthetic_dataset
 from dfanerf_torch.train import optim as to
 from dfanerf_torch.train.signals import get_half_signals
-from dfanerf_torch.train.step import dataset_to_device
+from dfanerf_torch.train.step import dataset_to_device, make_train_step
 
 
 def _t(x):
@@ -169,9 +170,13 @@ def test_speaking_frames_and_device_data():
         got = speaking_i_train(FrameDataset(**base, speak_frames=speak))
         np.testing.assert_array_equal(got, j_speaking_i_train(JFrameDataset(
             **base, speak_frames=speak)))
-    data = dataset_to_device(FrameDataset(**base, speak_frames=speak), "cpu")
-    np.testing.assert_array_equal(data["i_train"], [1, 2, 4])
-    assert "imgs_head" not in data and "rects" not in data
+    ds = FrameDataset(**base, speak_frames=speak)
+    data = dataset_to_device(ds, "cpu")
+    assert set(data) == {"poses", "auds", "exps", "bc_img"}
+    # the step owns the training frames (speaking ones only) and the rects
+    step = make_train_step(ExperimentConfig(), ds, device="cpu")
+    np.testing.assert_array_equal(step.i_train, [1, 2, 4])
+    np.testing.assert_array_equal(step.rects, np.zeros((6, 4), np.int32))
     assert data["bc_img"].dtype == torch.uint8 and data["poses"].dtype == torch.float32
     assert [f.name for f in dataclasses.fields(FrameDataset)] == [
         f.name for f in dataclasses.fields(JFrameDataset)]
