@@ -59,27 +59,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (full, carried x3, full); slot, forced-far, carried-refresh and steady
    frames against the plain versions; errors against the dense no-skip
    frames printed;
-11. hold the hierarchical head render's kernels (sigma_head, render_head,
+11. drive BASELINE config 3's live serving config (cfg2 of
+   benchmarks/serve_trained.py:313-321, verbatim: cfg1 with the async
+   refresh worker every 4 frames, carry off, the decayed prune history and
+   the served frames' own prune keys) on the recipe, scene and weights of
+   10: 17 warm frames, unpaced frames timed as bench_fps times them (ms per
+   frame, spread, swaps), the paced protocol at 25 fps with a ring of 4
+   frames in flight (32 settle + 120 measured frames: misses, swaps, each
+   frame's error against the dense no-skip frames), every served frame
+   under sync debug mode "error" and launching pair_field twice (and the
+   far kernels once each where its state keeps the far plane), a frame
+   just after a swap against the plain versions; a renderer at budget 2e-2
+   whose worker is joined after each frame prints the pairs each derive
+   drops, and a keys derive must drop some; the worker must never raise
+   and a swap must land in the paced window;
+12. hold the hierarchical head render's kernels (sigma_head, render_head,
    pair_sigma, pair_field_perz) against their plain versions at a 450x450
    frame's rays and 64 + 128 samples, with ERT slab counts, exact zeros in
    clear slabs, pair lists with gaps and empty ones; cross-check the pair
    kernels with every pair listed against the dense kernels (pair_sigma
    against sigma_head bit for bit);
-12. drive the hierarchical render (BASELINE config 2) through
+13. drive the hierarchical render (BASELINE config 2) through
    encode_frame_signals and make_head_hierarchical_renderer: no-skip for 5
    frames (sigma_head and render_head once per frame), then the
    pair-compacted serving recipe for 12 frames across three refreshes
    (pair_sigma and pair_field_perz once per steady frame, no host sync);
    check the frames, the flags and lists, a frame of each kind against the
    plain versions; time the frames, each stage and each kernel;
-13. hold the four render_rays instantiations (both fields with the
+14. hold the four render_rays instantiations (both fields with the
    background in the kernel; the epilogue mode with both fields, the head
    only, the torso only) and far_joint against their plain versions at a
    450x450 frame's rays and 64 samples (flags with gaps, tiles without a
    flag, a saturating field for ERT) and far_joint (77, 4096, 4173 rays and
    the frame's, relu and softplus), far_joint also against far_head +
    far_torso bit for bit;
-14. drive the shipped serving config (configs/obama_serve_tpu.json) through
+15. drive the shipped serving config (configs/obama_serve_tpu.json) through
    encode_frame_signals and make_frame_renderer: its tile-class branch for
    12 frames across three refreshes (one render_rays per non-empty class
    segment in a steady frame, no host sync), then its plain occupancy branch
@@ -87,10 +101,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    check the classes, the flags, a refresh and a steady frame of each branch
    against the plain versions; print each branch's error against the dense
    no-skip frames; time the frames, each stage and each segment's kernel;
-15. the tile-class branch with its epilogue in its kernel form
+16. the tile-class branch with its epilogue in its kernel form
    (bg_epilogue_fused, one far_joint per epilogue) against the shipped
    epilogue; far_joint's times;
-16. train, the second half of the main path, at benchmarks/serve_trained.py
+17. train, the second half of the main path, at benchmarks/serve_trained.py
    run()'s shape (softplus, 64 samples, bf16, 2048 rays, distortion 3e-3 from
    step 2000): the synthetic scene's ground truth (8 frames, 450x450) built
    on the card and one frame held against the CPU (1 LSB); one float32 step
@@ -101,9 +115,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    memory and the recipe's projected time; a held-out frame of the trained
    weights from render_rays against the unfused float32 renderer, with the
    val PSNR of both (render_rays' launches join its entry below);
-17. print the card's name and power limit, then one JSON line listing every
-   ported kernel with its launches, error and times, and last a JSON status
-   line.
+18. print the script's total time, the card's name and power limit, then
+   one JSON line listing every ported kernel with its launches, error and
+   times, and last a JSON status line.
 
 Imports torch, numpy and dfanerf_torch only. Exits non-zero, printing no
 result, when CUDA is unavailable or the package is missing.
@@ -123,6 +137,7 @@ import warnings
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()  # the script's start, for its total time
 H = W = 450
 N_SAMPLES = 64
 N_FRAMES = 5
@@ -1730,6 +1745,254 @@ def _cfg1_far_times(render, a, far):
           f"{_cuda_ms(stage, 20):.3f} ms", flush=True)
 
 
+# BASELINE config 3's live serving config, cfg2 of
+# benchmarks/serve_trained.py:313-321, verbatim: cfg1 with the async refresh
+# worker every 4 frames, carry off, the decayed prune history and the served
+# frames' own prune keys.
+CFG2_RENDER = dict(CFG1_RENDER, occ_async_refresh=True, occ_refresh_every=4, occ_prune_carry=0,
+                   occ_prune_hist_decay=0.8, occ_live_keys=True)
+CFG2_WINDOW = 8      # the frames served, cycled (serve_trained's 8-frame window)
+CFG2_WARM = 17       # two refresh cycles before timing (serve_trained.py:325)
+CFG2_TIMED, CFG2_PASSES = 20, 3  # bench_fps (serve_trained.py:78)
+# paced_live_protocol (serve_trained.py:430-487): 25 fps arrivals, a ring of
+# 4 frames in flight, 32 settle frames, 120 measured
+CFG2_FPS, CFG2_DEPTH, CFG2_SETTLE, CFG2_PACED = 25.0, 4, 32, 120
+CFG2_DROP_FRAMES = 24  # the budget-2e-2 renderer's frames, its worker joined
+
+
+def _sync_error(fn):
+    """fn() with torch's sync debug mode at "error" (a host sync raises its
+    "called a synchronizing CUDA operation"; any other error passes on)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        if "synchronizing CUDA operation" not in str(e):
+            raise
+        _fail(f"a served frame synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_cfg2(card):
+    """BASELINE config 3's live serving config (cfg2) at full width, on phase
+    10's recipe, scene and weights: 17 warm frames, then unpaced frames timed
+    as bench_fps times them (ms per frame, spread, swaps), then the paced
+    protocol at 25 fps (misses, swaps, the error of every frame against the
+    dense no-skip frames); every served frame under sync debug mode "error";
+    the launches of each served frame; a frame just after a swap against the
+    plain versions in the swapped state; a second renderer at budget 2e-2
+    whose worker is joined, with the pairs each derive drops. Returns the
+    launches of the phase, the worker's included."""
+    from collections import deque
+
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.pair_field import pair_field_kernel
+
+    t_phase = time.perf_counter()
+
+    def config(**kw):
+        return ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                                render=RenderConfig(**dict(CFG2_RENDER, **kw)))
+
+    cfg = config()
+    scene, args = _pair_scene(cfg, n_frames=CFG2_WINDOW)
+    kernels = {"pair_field": pair_field_kernel, "far_head": far_head_kernel,
+               "far_torso": far_torso_kernel}
+    noskip = _serve_noskip_frames(cfg, args, CFG2_WINDOW)
+    ref_com = [com for _, com in noskip]
+    del noskip
+    for k in kernels.values():
+        k.launches, k.worker_launches = 0, 0
+    render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
+    c, wk = render.cache, render.worker
+    launches = []  # (served frame's launches, far_skip of its state)
+
+    def worker_ok():
+        # render() takes a worker's error in, counts it in "fails" and serves
+        # the frame stale: either way the worker raised
+        if wk["error"] is not None or wk["fails"]:
+            _fail(f"the refresh worker raised: {wk['error']!r}, fails {wk['fails']}")
+
+    def frame(i):
+        a = args(i % CFG2_WINDOW)
+        worker_ok()
+        before = {n: k.launches for n, k in kernels.items()}
+        out = render(*a) if c["lists"] is None else _sync_error(lambda: render(*a))
+        launches.append(({n: k.launches - before[n] for n, k in kernels.items()},
+                         c["far_skip"]))
+        worker_ok()
+        return out
+
+    def join_worker():
+        th = wk["thread"]
+        if th is not None:
+            th.join(timeout=120.0)
+            if th.is_alive():
+                _fail("the refresh worker did not finish in 120 s")
+        worker_ok()
+
+    # warm-up: the first frame refreshes in the serving thread, the rest are
+    # served while the worker refreshes
+    t0 = time.perf_counter()
+    for i in range(CFG2_WARM):
+        frame(i)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    join_worker()
+    print(f"[cfg2] {CFG2_WARM} warm frames {warm_s:.2f} s: swaps {c.get('swaps', 0)}, derives "
+          f"{c.get('derive_ct', 0)}, key frames {len(c.get('key_frames', ()))}, lists "
+          f"{tuple(int(t.numel()) for t, _ in c['lists'])}, far_skip {c['far_skip']}", flush=True)
+
+    # unpaced: bench_fps's passes, each frame between CUDA events
+    rates, frame_ms, swaps0 = [], [], c.get("swaps", 0)
+    for p in range(CFG2_PASSES):
+        marks = []
+        t0 = time.perf_counter()
+        for i in range(CFG2_TIMED):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            frame(i)
+            e1.record()
+            marks.append((e0, e1))
+        torch.cuda.synchronize()
+        rates.append(CFG2_TIMED / (time.perf_counter() - t0))
+        frame_ms += [e0.elapsed_time(e1) for e0, e1 in marks]
+    unpaced_swaps = c.get("swaps", 0) - swaps0
+    per = sorted(1e3 / r for r in rates)
+    print(f"[cfg2] unpaced ({card}): {CFG2_PASSES} passes of {CFG2_TIMED} frames {H}x{W}, "
+          f"{N_SAMPLES} samples: median {per[len(per) // 2]:.2f} ms per frame "
+          f"({', '.join(f'{m:.2f}' for m in per)} ms per frame by pass, wall clock; "
+          f"{', '.join(f'{r:.2f}' for r in rates)} fps); each frame's span on the serving "
+          f"stream (CUDA events) min {min(frame_ms):.2f} / median "
+          f"{sorted(frame_ms)[len(frame_ms) // 2]:.2f} / max {max(frame_ms):.2f} ms; "
+          f"{unpaced_swaps} swaps landed", flush=True)
+
+    # paced: serve_trained.py's paced_live_protocol; a frame misses when its
+    # bytes land on the host after its arrival + CFG2_DEPTH frame times
+    frame_dt, n_total = 1.0 / CFG2_FPS, CFG2_SETTLE + CFG2_PACED
+    ring, errs_dev, misses = deque(), [], [0, 0]  # misses: settle, measured
+    swaps0 = None
+    t_start = time.perf_counter()
+    t_measure = None
+
+    def present():
+        j, deadline, done, _ = ring.popleft()
+        done.synchronize()
+        if time.perf_counter() > deadline:
+            misses[j >= CFG2_SETTLE] += 1
+
+    for i in range(n_total):
+        lag = t_start + i * frame_dt - time.perf_counter()
+        if lag > 0:
+            time.sleep(lag)  # the frame's signal has not arrived yet
+        if i == CFG2_SETTLE:
+            swaps0, t_measure = c.get("swaps", 0), time.perf_counter()
+        _, com = frame(i)
+        if i >= CFG2_SETTLE:
+            errs_dev.append((com - ref_com[i % CFG2_WINDOW]).abs().amax())
+        u8 = (com.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(u8, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        ring.append((i, t_start + (i + CFG2_DEPTH) * frame_dt, done, host))
+        while len(ring) > CFG2_DEPTH:
+            present()
+    while ring:
+        present()
+    paced_s = time.perf_counter() - t_measure
+    paced_swaps = c.get("swaps", 0) - swaps0
+    errs = torch.stack(errs_dev).cpu().tolist()
+    print(f"[cfg2] paced at {CFG2_FPS:g} fps ({card}), depth {CFG2_DEPTH}, {CFG2_SETTLE} settle + "
+          f"{CFG2_PACED} measured frames: {misses[1]} misses ({misses[0]} in the settle "
+          f"frames), {paced_swaps} swaps landed, measured "
+          f"rate {CFG2_PACED / paced_s:.2f} fps; error vs the dense no-skip frames (random "
+          f"weights set no bar) max {max(errs):.4e}, max of the last 24 {max(errs[-24:]):.4e}; "
+          f"per frame {', '.join(f'{e:.2e}' for e in errs)}", flush=True)
+    if not paced_swaps:
+        _fail("no swap landed in the paced window")
+
+    # every served frame launched pair_field twice and, where its state
+    # keeps the far plane, far_head and far_torso once each
+    bad = [(n, fs) for n, fs in launches[1:]
+           if n != {"pair_field": 2, "far_head": 1 - fs, "far_torso": 1 - fs}]
+    print(f"[cfg2] {len(launches) - 1} served frames' launches: pair_field 2 each, far "
+          f"{sum(n['far_head'] for n, _ in launches[1:])} (far_skip in "
+          f"{sum(fs for _, fs in launches[1:])} frames); {len(bad)} frames otherwise", flush=True)
+    if bad:
+        _fail(f"served frames launched {bad[:4]}")
+
+    # a frame just after a swap against the plain versions in its state
+    for i in range(2 * CFG2_WINDOW):
+        if wk["thread"] is not None:
+            break
+        frame(i)
+    join_worker()
+    torch.cuda.synchronize()
+    swaps0 = c.get("swaps", 0)
+    a = args(0)
+    head, com = _sync_error(lambda: render(*a))
+    if c.get("swaps", 0) != swaps0 + 1 or wk["thread"] is not None:
+        _fail(f"the frame after the worker ended: swaps {swaps0} -> {c.get('swaps', 0)}, a "
+              f"worker running {wk['thread'] is not None}")
+    _check_frame("cfg2 frame after a swap", head, com)
+    kf = c["key_frames"]
+    kept = list(kf)
+    captured = {}
+    with _plain_pair_path(captured):
+        head_r, com_r = render.run_fast(*a)
+        torch.cuda.synchronize()
+    kf.clear()
+    kf.extend(kept)  # the plain frame's keys are not a served frame's
+    err = _check_pair("cfg2 frame after a swap, kernels vs plain", head, com, head_r, com_r,
+                      captured.get("sh", torch.full((H, W), float("inf"), device="cuda")))
+    join_worker()
+    print(f"[cfg2] budget {CFG2_RENDER['occ_prune_budget']:g}: swaps {c['swaps']}, derives "
+          f"{c['derive_ct']}, lists {tuple(int(t.numel()) for t, _ in c['lists'])}; launches "
+          f"served {({n: k.launches for n, k in kernels.items()})}, worker "
+          f"{({n: k.worker_launches for n, k in kernels.items()})}", flush=True)
+    del render, c, wk, kf, kept, ref_com
+
+    # the keys-derived prune at work: budget 2e-2, the worker joined after
+    # each frame so that each derive's drops can be read
+    dropper = renderer.make_frame_renderer(config(occ_prune_budget=CFG1_DROP_BUDGET),
+                                           scene.hwfcxy, scene.near, scene.far)
+    dc, dw = dropper.cache, dropper.worker
+    runs, derives = [], []
+    with _spy("conservative_occupancy", runs):
+        for i in range(CFG2_DROP_FRAMES):
+            n_derive = dc.get("derive_ct", 0)
+            dropper(*args(i % CFG2_WINDOW))
+            th = dw["thread"]
+            if th is not None:
+                th.join(timeout=120.0)
+            if dw["error"] is not None or dw["fails"]:
+                _fail(f"the refresh worker raised: {dw['error']!r}, fails {dw['fails']}")
+            if dc.get("derive_ct", 0) > n_derive:
+                flags = runs[-1][2]
+                st = dw["result"][0]
+                kind = "full" if n_derive % cfg.render.occ_live_remeasure == 0 else "keys"
+                pairs = tuple(int(t.numel()) for t, _ in st["lists"])
+                derives.append((kind, int(flags.sum()) - sum(pairs)))
+                print(f"[cfg2] budget {CFG1_DROP_BUDGET:g}, derive {n_derive} ({kind}) at frame "
+                      f"{i}: {int(flags[0].sum())} + {int(flags[1].sum())} flagged pairs, "
+                      f"{pairs[0]} + {pairs[1]} kept, {derives[-1][1]} dropped", flush=True)
+    if dw["error"] is not None or dw["fails"]:
+        _fail(f"the refresh worker raised: {dw['error']!r}, fails {dw['fails']}")
+    got = {n: k.launches + k.worker_launches for n, k in kernels.items()}
+    print(f"[cfg2] launches over the phase's driving {got}; frame-level error vs plain "
+          f"{err:.3e}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not any(d > 0 for kind, d in derives if kind == "keys"):
+        _fail(f"no keys derive dropped a pair at budget {CFG1_DROP_BUDGET:g}: {derives}")
+    if min(got.values()) == 0:
+        _fail(f"a kernel of the cfg2 path never launched: {got}")
+    return got
+
+
 # Hierarchical head render, BASELINE config 2 (benchmarks/serve_trained.py:
 # 654-662): 64 coarse + 128 fine samples, bf16, softplus density; no-skip
 # (dense, occ_sigma_thresh 0, ert_eps 0) and the pair-compacted serving
@@ -3195,10 +3458,14 @@ def main() -> int:
         # the largest error of the kernel's checks: on the main path and alone
         entry["max_abs_err"] = max(entry["max_abs_err"], pair2_errs[entry["name"]])
     phase_refresh_union()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
     cfg1_launches = phase_cfg1()
+    cfg2_launches = phase_cfg2(card)
     for entry in pair_kernels:
-        # the pair path's launches and those of the cfg1 path
-        entry["launches"] += cfg1_launches[entry["name"]]
+        # the pair path's launches and those of the cfg1 and cfg2 paths
+        entry["launches"] += cfg1_launches[entry["name"]] + cfg2_launches[entry["name"]]
     phase_hier_kernels_vs_plain()
     hier_dense, noskip_frames = phase_hier_dense_main_path()
     hier_pairs = phase_hier_pair_main_path(noskip_frames[:N_FRAMES])
@@ -3218,10 +3485,9 @@ def main() -> int:
     missing = set(CLASS_VARIANTS) - {e["name"] for e in serve}
     if missing:
         _fail(f"the serving path ran no segment of {sorted(missing)}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    kernel["launches"] += phase_train(smi.splitlines()[0])
-    print(smi.splitlines()[0], flush=True)
+    kernel["launches"] += phase_train(card)
+    print(f"[total] chip_smoke.py {time.perf_counter() - T_START:.1f} s", flush=True)
+    print(card, flush=True)
     print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + hier_dense + hier_pairs
                       + serve + [far_joint]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

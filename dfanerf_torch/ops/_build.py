@@ -19,8 +19,10 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -242,20 +244,40 @@ def check_cuda_operands(name: str, operands: Dict[str, Tuple]) -> torch.device:
     return dev
 
 
+_WORKER = threading.local()
+
+
+@contextmanager
+def worker_launches() -> Iterator[None]:
+    """Within this block, launches made by this thread count in each
+    binding's ``worker_launches`` instead of ``launches``: the async refresh
+    worker's launches, kept apart from the served frames'."""
+    _WORKER.on = True
+    try:
+        yield
+    finally:
+        _WORKER.on = False
+
+
 class Binding:
     """ctypes binding of kernel library ``name``, built and loaded at its
-    first use (never at import). ``launches`` counts the launches of the
-    kernel the subclass wraps, and ``variant_launches`` those of each
-    template instantiation a launch names: ``launch`` raises them where the
-    kernel is launched, and nothing else does."""
+    first use (never at import), under a lock, so two threads never build or
+    load it twice. ``launches`` counts the launches of the kernel the
+    subclass wraps, and ``variant_launches`` those of each template
+    instantiation a launch names; a launch inside ``worker_launches()``
+    counts in ``worker_launches`` instead. ``launch`` raises them
+    where the kernel is launched, under the same lock, and nothing else
+    does."""
 
     def __init__(self, name: str, launchers: Dict[str, Sequence]):
         self.name = name
         self.launches = 0
         self.variant_launches: Dict[str, int] = {}
+        self.worker_launches = 0
         self._launchers = launchers
         self._lib = None
         self._layout = None
+        self._lock = threading.Lock()
 
     def _library(self) -> Path:
         """Path of the built shared library (built on first use)."""
@@ -263,8 +285,21 @@ class Binding:
 
     def _load(self) -> ctypes.CDLL:
         if self._lib is None:
-            self._lib, self._layout = load(self._library(), self.name, self._launchers)
+            with self._lock:
+                if self._lib is None:
+                    lib, self._layout = load(self._library(), self.name, self._launchers)
+                    self._lib = lib
         return self._lib
+
+    def _count_launch(self, variant: str = None) -> None:
+        """Count one launch of this thread (see the class docstring)."""
+        with self._lock:
+            if getattr(_WORKER, "on", False):
+                self.worker_launches += 1
+                return
+            self.launches += 1
+            if variant is not None:
+                self.variant_launches[variant] = self.variant_launches.get(variant, 0) + 1
 
     def blobs(self, pw: Dict[str, torch.Tensor], branch: str,
               dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -294,6 +329,4 @@ class Binding:
                                stream)
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch {fn} failed with cudaError {err}")
-        self.launches += 1
-        if variant is not None:
-            self.variant_launches[variant] = self.variant_launches.get(variant, 0) + 1
+        self._count_launch(variant)

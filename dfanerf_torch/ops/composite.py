@@ -47,16 +47,21 @@ def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
     slabs and the background): per channel |sum w c - (sum w) c_behind|,
     the largest over channels and, for the head, over both stacks.
 
+    With ``with_keys`` (occ_live_keys, the served frame's own prune keys;
+    reference :1815-1860) the outputs are (acc_head, acc_com, t_head, t_com,
+    keys), whatever ``with_diagnostics`` says: keys holds four [T, J]
+    per-(tile, slab) maxima over each tile's rays, the slab-start
+    transmittances of the head-only and composite stacks and each field's
+    drop cost, the colour-error estimate of ``with_ray_diag`` summed over a
+    slab's samples, or without ``ray_err_bc`` the slab's compositing mass
+    over both stacks.
+
     The packed-2 kernel's second quartets ``buf_h2``/``buf_t2`` come with
     their flag partition ``occ2`` (disjoint from ``occ``): each partition is
     unpacked under its own flags and the two are summed (reference
-    :1767-1777). Live prune keys (``with_keys``) serve a lever that is not
-    ported yet and raise."""
+    :1767-1777)."""
     if (buf_h2 is None) != (occ2 is None) or (buf_h2 is None) != (buf_t2 is None):
         raise ValueError("buf_h2, buf_t2 and occ2 come together")
-    if with_keys:
-        raise NotImplementedError(
-            "live prune keys (occ_live_keys) are not ported yet (ROADMAP.md queue 1, item 4)")
     J = buf_h[0].shape[0]
     NT = buf_h[0].shape[2]
     n = rays_d.shape[0]
@@ -111,51 +116,59 @@ def deferred_composite(buf_h, buf_t, occ: torch.Tensor, rays_d: torch.Tensor,
     c_mix = tuple((sig_h * ch + sig_t * ct) / denom for ch, ct in zip(rgb_h, rgb_t))
     alpha_c = 1.0 - torch.exp(-(ssum + 1e-6) * dists_for(rays_d_t))
     acc_com, tl_c, starts_c, w_c = march(alpha_c, c_mix)
-    if not with_diagnostics:
+    if not (with_diagnostics or with_keys):
         return acc_head, acc_com, tl_h, tl_c
 
-    def tile_trans(starts):  # [J, n] -> [T, J]
-        return starts.reshape(J, T, R_T).amax(dim=2).t()
-
-    def tile_contrib(w):  # [S, n] -> [T, J]: max-ray summed slab weight
-        return w.reshape(J, sp, T, R_T).sum(dim=1).amax(dim=2).t()
-
-    frac_h = sig_h / denom
-    frac_t = 1.0 - frac_h
-    mass_h, mass_t = w_h + w_c * frac_h, w_c * frac_t
-    out = (acc_head, acc_com, tl_h, tl_c, tile_trans(starts_h), tile_trans(starts_c),
-           tile_contrib(mass_h), tile_contrib(mass_t))
-    if not with_ray_diag:
-        return out
+    def tile_max(x):  # [J, T, R_T] -> [T, J]
+        return x.amax(dim=2).t()
 
     def slab_sum(x):  # [S, n] -> [J, T, R_T]
         return x.reshape(J, sp, T, R_T).sum(dim=1)
 
+    def color_costs(m_hs, m_ch, m_ct):
+        """Each field's per-(slab, tile, ray) first-order colour error of
+        dropping the pair: it renormalizes the ray's remaining transmittance
+        onto what lies behind it (later slabs, then the background)."""
+        def behind(slab_x, tail):  # the sum over later slabs, plus tail
+            rev = torch.cumsum(slab_x.flip(0), dim=0).flip(0)
+            return torch.cat([rev[1:], torch.zeros_like(rev[:1])]) + tail
+
+        bc_r = ray_err_bc.float().t().reshape(3, T, R_T)
+        tlh, tlc = tl_h[:, 0].reshape(T, R_T), tl_c[:, 0].reshape(T, R_T)
+        bm_h = behind(m_hs, tlh)        # the mass behind a pair that replaces it
+        bm_c = behind(m_ch + m_ct, tlc)
+        e_h, e_t = torch.zeros_like(m_hs), torch.zeros_like(m_ct)
+        for c in range(3):
+            col_hs = slab_sum(w_h * rgb_h[c])
+            col_ch = slab_sum(w_c * frac_h * rgb_h[c])
+            col_ct = slab_sum(w_c * frac_t * rgb_t[c])
+            cb_h = behind(col_hs, tlh * bc_r[c]) / torch.clamp(bm_h, min=1e-8)
+            cb_c = behind(col_ch + col_ct, tlc * bc_r[c]) / torch.clamp(bm_c, min=1e-8)
+            e_h = torch.maximum(e_h, (col_hs - m_hs * cb_h).abs())
+            e_h = torch.maximum(e_h, (col_ch - m_ch * cb_c).abs())
+            e_t = torch.maximum(e_t, (col_ct - m_ct * cb_c).abs())
+        return e_h, e_t
+
+    frac_h = sig_h / denom
+    frac_t = 1.0 - frac_h
+    if with_keys:
+        m_hs = slab_sum(w_h)            # head-stack mass of head pairs
+        m_ch = slab_sum(w_c * frac_h)   # composite-stack mass, head share
+        m_ct = slab_sum(w_c * frac_t)   # composite-stack mass, torso share
+        e_h, e_t = (m_hs + m_ch, m_ct) if ray_err_bc is None else color_costs(m_hs, m_ch, m_ct)
+        keys = (tile_max(starts_h.reshape(J, T, R_T)), tile_max(starts_c.reshape(J, T, R_T)),
+                tile_max(e_h), tile_max(e_t))
+        return acc_head, acc_com, tl_h, tl_c, keys
+
+    mass_h, mass_t = w_h + w_c * frac_h, w_c * frac_t
+    out = (acc_head, acc_com, tl_h, tl_c, tile_max(starts_h.reshape(J, T, R_T)),
+           tile_max(starts_c.reshape(J, T, R_T)), tile_max(slab_sum(mass_h)),
+           tile_max(slab_sum(mass_t)))
+    if not with_ray_diag:
+        return out
     if ray_err_bc is None:
         return out + (slab_sum(mass_h), slab_sum(mass_t))
-
-    def behind(slab_x, tail):  # the sum over later slabs, plus tail
-        rev = torch.cumsum(slab_x.flip(0), dim=0).flip(0)
-        return torch.cat([rev[1:], torch.zeros_like(rev[:1])]) + tail
-
-    bc_r = ray_err_bc.float().t().reshape(3, T, R_T)
-    m_hs = slab_sum(w_h)            # head-stack mass of head pairs
-    m_ch = slab_sum(w_c * frac_h)   # composite-stack mass, head share
-    m_ct = slab_sum(w_c * frac_t)   # composite-stack mass, torso share
-    tlh, tlc = tl_h[:, 0].reshape(T, R_T), tl_c[:, 0].reshape(T, R_T)
-    bm_h = behind(m_hs, tlh)        # the mass behind a pair that replaces it
-    bm_c = behind(m_ch + m_ct, tlc)
-    e_h, e_t = torch.zeros_like(m_hs), torch.zeros_like(m_ct)
-    for c in range(3):
-        col_hs = slab_sum(w_h * rgb_h[c])
-        col_ch = slab_sum(w_c * frac_h * rgb_h[c])
-        col_ct = slab_sum(w_c * frac_t * rgb_t[c])
-        cb_h = behind(col_hs, tlh * bc_r[c]) / torch.clamp(bm_h, min=1e-8)
-        cb_c = behind(col_ch + col_ct, tlc * bc_r[c]) / torch.clamp(bm_c, min=1e-8)
-        e_h = torch.maximum(e_h, (col_hs - m_hs * cb_h).abs())
-        e_h = torch.maximum(e_h, (col_ch - m_ch * cb_c).abs())
-        e_t = torch.maximum(e_t, (col_ct - m_ct * cb_c).abs())
-    return out + (e_h, e_t)
+    return out + color_costs(slab_sum(w_h), slab_sum(w_c * frac_h), slab_sum(w_c * frac_t))
 
 
 def bg_blend(sh, ct, rays_d, rays_d_t, bc_rgb, last_dist, acc_head, acc_com, t_head, t_com):

@@ -26,7 +26,8 @@ pose_torso, signal, signal_torso, bc_img) -> (rgb_head, rgb_com), each
   are rebuilt every ``occ_refresh_every`` frames, or pinned over a window
   by ``render.refresh_union``; the serving levers of BASELINE config 3
   (the budgeted prune, ``far_skip_tol``, ``far_subsample``,
-  ``occ_prune_carry``) act on this path (see
+  ``occ_prune_carry``, and the live ones: ``occ_async_refresh``,
+  ``occ_live_keys``, ``occ_prune_hist_decay``) act on this path (see
   ``_make_pair_compaction_renderer``).
 
 With ``use_fused_kernel=False`` both renderers run the unfused field that
@@ -35,13 +36,15 @@ rays, in plain PyTorch.
 
 Kernels run on a CUDA device, their plain versions on the CPU. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA a
-call with no device raises. Not ported yet, each raising
-NotImplementedError: the pair path's live levers (listed in
-``_refuse_unported``).
+call with no device raises. Not ported: the pair renderer's
+``precompile_headroom``, which raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from collections import deque
 from typing import Sequence
 
 import numpy as np
@@ -52,6 +55,7 @@ from dfanerf_torch.core.compositing import calc_volume_weights
 from dfanerf_torch.core.rays import get_rays, linspace
 from dfanerf_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
 from dfanerf_torch.device import resolve_device
+from dfanerf_torch.ops._build import worker_launches
 from dfanerf_torch.ops.composite import (
     _bg_epilogue, bg_blend, deferred_composite, deferred_composite_head,
 )
@@ -122,8 +126,6 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         return _make_unfused_frame_renderer(rcfg, hwfcxy, near, far, dev)
     if not rcfg.concate_bg or rcfg.n_samples % S_SLAB:
         raise ValueError("the fused renderer needs concate_bg and n_samples % 8 == 0")
-    if rcfg.occ_sigma_thresh > 0 and rcfg.occ_pair_compaction:
-        _refuse_unported(rcfg)
 
     act = dcfg.density_activation
     use_tiles = rcfg.spatial_tiles or rcfg.occ_sigma_thresh > 0
@@ -240,20 +242,6 @@ def _tiled_ray_fn(hwfcxy, perm: torch.Tensor):
         return pose[:3, -1].expand(rd.shape).contiguous(), rd
 
     return tiled_rays
-
-
-def _refuse_unported(rcfg: RenderConfig) -> None:
-    """The pair path's levers that are not ported yet raise, each naming its
-    ROADMAP.md item."""
-    unported = [
-        (rcfg.occ_prune_hist_decay > 0 or rcfg.occ_live_keys,
-         "occ_prune_hist_decay and occ_live_keys (the live prune keys)"),
-        (rcfg.occ_async_refresh, "occ_async_refresh (the async refresh worker)"),
-    ]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1, item 4)")
 
 
 # The flag state a per-window slot holds (reference _SLOT_KEYS :935, less
@@ -376,7 +364,44 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     ``render(..., window_slot=i)`` renders under slot ``i % len(slots)``.
     ``render.inputs_fn`` is the frame-input builder and ``render.run_fast``
     renders a fast frame under the current flags without advancing the
-    cadence."""
+    cadence.
+
+    The live levers (cfg2 of benchmarks/serve_trained.py:313-321):
+    - ``occ_prune_hist_decay`` = d > 0: a live refresh's prune reads and
+      updates ``cache["hist"]``, running maxima of its keys decayed by d
+      (``prune_flags``);
+    - ``occ_async_refresh``: after the first (synchronous) refresh, frames
+      are served as fast frames under the flags in force while a worker
+      thread (``render.worker``: thread, result, error, fails, stream)
+      builds the next state from a snapshot of one frame's inputs (the
+      occupancy, the far_skip decision and the prune); the next frame that
+      finds it finished swaps it in (``cache["swaps"]`` counts them). A
+      refresh is due past ``occ_refresh_every`` frames plus a jitter
+      ``cache["rjit"]`` cycling 0, 1, 2. On the card the worker runs on a
+      stream of its own, waits on an event recorded after the snapshot,
+      copies to and from the host through pinned memory and event waits
+      (the serving thread copies nothing in a steady frame, and its copies
+      elsewhere stay plain, seen by torch's sync debug mode), marks its state
+      used by the serving stream, and the swap waits for an event recorded
+      after the state, polled, never waited on. Its kernel launches count
+      in each binding's ``worker_launches``. A worker failure is
+      served stale and retried at the next refresh; the third in a row
+      raises;
+    - ``occ_live_keys`` (with the worker and a trans or budget prune):
+      each fast frame's composite also reports its per-(tile, slab) prune
+      keys, kept on the device in ``cache["key_frames"]`` (the last 12,
+      each with its union tiles and an event); the worker derives the
+      keep-masks from their running max and the history with no
+      diagnostic render, except every ``occ_live_remeasure``-th derive
+      (``cache["derive_ct"]``), which renders the snapshot under the
+      unpruned lists and measures every pair. Pairs never measured
+      (``cache["ever_measured"]``) are not dropped by a keys derive.
+    - ``occ_class_clamp``: the reference re-pads a fresh state onto a
+      program class XLA has compiled, bit for bit the same frames, and its
+      worker renders a throwaway frame to compile a class it has not run.
+      The port lists exactly K pairs and compiles nothing per class, so
+      the clamp changes nothing and the worker renders no throwaway frame
+      (whose keys the reference also stashes)."""
     dev = z_vals_c.device
     pack2 = rcfg.occ_pack2
     sp = 4 if pack2 else S_SLAB
@@ -389,6 +414,39 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     up_A = torch.from_numpy(far_upsample_matrix(ss)).to(dev) if ss > 1 else None
     cache = {"age": 0, "lists": None, "occ": None, "tiles_u": None, "tiles_sel": None,
              "occ_sub": None}
+    cuda = dev.type == "cuda"
+    # occ_live_keys: fast frames report their own prune keys, from which the
+    # async worker derives keep-masks (reference :1176-1177)
+    live_keys = (rcfg.occ_async_refresh and rcfg.occ_live_keys
+                 and (rcfg.occ_prune_trans > 0 or budget_on))
+    cache_lock = threading.Lock()  # the cache entries both threads touch
+    worker = {"thread": None, "result": None, "error": None, "fails": 0, "stream": None}
+
+    def on_worker() -> bool:
+        return cuda and torch.cuda.current_stream(dev) == worker["stream"]
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        """A host array on the device; on the refresh worker's stream through
+        pinned memory, a copy the host does not wait for (see download)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory().to(dev, non_blocking=True) if on_worker() else t.to(dev)
+
+    def download(*xs: torch.Tensor):
+        """Device tensors as host arrays. On the refresh worker's stream:
+        copies into pinned memory and one wait on an event recorded after
+        them, since the serving thread may be in a steady frame under torch's
+        sync debug mode, which is process-wide and flags stream and device
+        synchronizes, not event waits. Elsewhere plain copies, which that
+        mode sees."""
+        if not on_worker():
+            return [x.cpu().numpy() for x in xs]
+        outs = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in xs]
+        for o, x in zip(outs, xs):
+            o.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return [o.numpy() for o in outs]
 
     def occ_fn(inputs):
         pw_h, pw_t, ro, rd, ro_t, rd_t, _ = inputs
@@ -397,7 +455,7 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
                                       s_slab=sp)
 
     def to_dev(x):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+        return upload(np.asarray(x, dtype=np.int32))
 
     def set_flags(occ_np, st=None):
         """Pair lists and union tiles of host flags [2, T, J] into the state
@@ -421,12 +479,10 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
                 for h, (t_h, j_h) in enumerate(halves):
                     occ_ab[h, f, t_h, j_h] = occ_sub[f, t_h, j_h]
                 lists2.append(tuple(to_dev(x) for half in halves for x in half))
-        st.update(age=0, lists=lists, occ=torch.from_numpy(occ_np).to(dev), tiles_u=tiles_u,
-                  tiles_sel=torch.from_numpy(tiles_u).to(dev),
-                  occ_sub=torch.from_numpy(occ_sub).to(dev))
+        st.update(age=0, lists=lists, occ=upload(occ_np), tiles_u=tiles_u,
+                  tiles_sel=upload(tiles_u), occ_sub=upload(occ_sub))
         if pack2:
-            st.update(lists2=lists2, occ_sub_a=torch.from_numpy(occ_ab[0]).to(dev),
-                      occ_sub_b=torch.from_numpy(occ_ab[1]).to(dev))
+            st.update(lists2=lists2, occ_sub_a=upload(occ_ab[0]), occ_sub_b=upload(occ_ab[1]))
 
     def set_pruned(occ_np, keeps, st=None):
         set_flags(np.stack([occ_np[0] * keeps[0], occ_np[1] * keeps[1]]), st)
@@ -467,11 +523,14 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             occ, extra = st["occ_sub"], {}
         far_skip = st.get("far_skip", False)
         far_vals = None if far_skip else far_plane(inputs, fast)
-        if diag and budget_on:
-            extra.update(with_ray_diag=True,
-                         ray_err_bc=gather(bc_p) if rcfg.occ_budget_color else None)
+        keyed = fast and live_keys
+        if (diag and budget_on) or keyed:
+            extra.update(ray_err_bc=gather(bc_p) if rcfg.occ_budget_color else None,
+                         **({"with_keys": True} if keyed else {"with_ray_diag": True}))
         out = deferred_composite(buf_h, buf_t, occ, rd_g, rd_t_g, z_vals_c, with_diagnostics=diag,
                                  s_slab=sp, **extra)
+        if keyed:
+            stash_keys(out[4], st["tiles_u"])
 
         def scatter(x, fill):
             full = x.new_full((T, R_T, x.shape[-1]), fill)
@@ -503,7 +562,7 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             bc = inputs[6].float()
             ssum = sh + 1e-6
             c_mix = (sh * bc + 1e-6 * ct) / torch.where(ssum == 0.0, 1e-4, ssum)
-            err = max(err, float((c_mix - bc).abs().max()))
+            err = max(err, float(download((c_mix - bc).abs().max())[0]))
         st["far_cmix_err"] = err
         st["far_skip"] = err <= rcfg.far_skip_tol
 
@@ -511,32 +570,62 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         """[K_u, J] union-tile diagnostic -> [T, J] on the host, zero off
         the union (reference expand_tiles :831)."""
         full = np.zeros((T, J), np.float32)
-        full[st["tiles_u"]] = x_sub.cpu().numpy()
+        full[st["tiles_u"]] = download(x_sub)[0]
         return full
 
-    def prune_flags(st, tm_h, tm_c, cb_h, cb_t, wr_h=None, wr_t=None, base_led=None):
+    def prune_flags(st, tm_h, tm_c, cb_h, cb_t, wr_h=None, wr_t=None, base_led=None,
+                    hist=None):
         """Keep-masks [T, J] from one frame's composite diagnostics under the
-        flag state ``st`` (reference prune_flags :839-933, without the live
-        history): the transmittance prune, then the budgeted prune when
-        per-ray costs wr_h/wr_t [J, K_u, R_T] are given, else the
-        contribution prune. ``base_led`` [T, R_T] seeds each ray's budget
-        ledger with a measured error (the refinement rounds)."""
+        flag state ``st`` (reference prune_flags :839-933): the transmittance
+        prune, then the budgeted prune when per-ray costs wr_h/wr_t [J, K_u,
+        R_T] are given, else the contribution prune. ``base_led`` [T, R_T]
+        seeds each ray's budget ledger with a measured error (the refinement
+        rounds).
+
+        ``hist`` (the live refreshes; the offline preps pass none) is a dict
+        read and updated in place: with occ_prune_hist_decay = d > 0 it keeps
+        per-key running maxima in full tile coordinates, and the prune uses
+        max(current, d * history) for the transmittances and, per pair (the
+        largest over the tile's rays), for the budget's costs, so a pair
+        visible on a recent frame keeps its key when this frame's estimate
+        is near 0."""
         keep_h = np.ones((T, J), bool)
         keep_t = np.ones((T, J), bool)
+        dk = rcfg.occ_prune_hist_decay
+
+        def histmax(name, full):
+            if hist is None or dk <= 0:
+                return full
+            if name in hist:
+                full = np.maximum(full, hist[name] * dk)
+            hist[name] = full
+            return full
+
         if rcfg.occ_prune_trans > 0:
             eps = rcfg.occ_prune_trans
-            tm_h_f, tm_c_f = expand_tiles(tm_h, st), expand_tiles(tm_c, st)
+            tm_h_f = histmax("tm_h", expand_tiles(tm_h, st))
+            tm_c_f = histmax("tm_c", expand_tiles(tm_c, st))
             keep_h &= np.maximum(tm_h_f, tm_c_f) > eps
             keep_t &= tm_c_f > eps
         if budget_on and wr_h is not None:
             # candidates: the occupied pairs the trans prune kept (pairs
             # behind saturated opacity drop anyway and spend no budget)
             tiles_u = st["tiles_u"]
-            cand = st["occ_sub"].cpu().numpy().astype(bool)  # [2, K_u, J]
+            occ_sub, wr_h, wr_t = download(st["occ_sub"], wr_h, wr_t)
+            if hist is not None and dk > 0:
+                # every ray of a pair floored at the pair's decayed
+                # historical max-ray cost (never at this frame's own)
+                wr_h, wr_t = wr_h.copy(), wr_t.copy()
+                for name, w in (("wr_h", wr_h), ("wr_t", wr_t)):
+                    cur = np.zeros((J, T), np.float32)
+                    cur[:, tiles_u] = w.max(axis=2)
+                    old = hist[name] * dk if name in hist else np.zeros_like(cur)
+                    hist[name] = np.maximum(cur, old)
+                    w[:] = np.maximum(w, old[:, tiles_u, None])
+            cand = occ_sub.astype(bool)  # [2, K_u, J]
             cand &= np.stack([keep_h[tiles_u], keep_t[tiles_u]])
             base = None if base_led is None else base_led[tiles_u]
-            drop = budget_drop_masks(wr_h.cpu().numpy(), wr_t.cpu().numpy(), cand,
-                                     rcfg.occ_prune_budget, base=base)
+            drop = budget_drop_masks(wr_h, wr_t, cand, rcfg.occ_prune_budget, base=base)
             keep_h[tiles_u] &= ~drop[0]
             keep_t[tiles_u] &= ~drop[1]
         elif rcfg.occ_prune_contrib > 0:
@@ -551,21 +640,34 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         (reference err_led_fn :940)."""
         e = torch.maximum((imgs1[0] - imgs0[0]).abs().amax(-1),
                           (imgs1[1] - imgs0[1]).abs().amax(-1))
-        return tile_order(e[..., None]).reshape(T, R_T).cpu().numpy()
+        return download(tile_order(e[..., None]).reshape(T, R_T))[0]
 
-    def refresh(inputs, st):
+    def refresh(inputs, st, hist=None, derive=None, frame=True):
         """A full refresh into ``st``: fresh flags and the far_skip
         decision, the frame rendered under the unpruned lists; with pruning,
-        the pruned state. Returns (imgs, host flags, keep-masks or None)."""
-        occ_np = occ_fn(inputs).cpu().numpy()
+        the pruned state (``hist``: prune_flags'). ``derive`` (the live
+        worker's keys derive) maps the host flags to keep-masks, or to None
+        for the diagnostic render and prune; ``frame=False`` renders no
+        frame where nothing is measured. Returns (imgs or None, host flags,
+        keep-masks or None)."""
+        occ_np = download(occ_fn(inputs))[0]
         set_flags(occ_np, st)
         update_far_skip([inputs], st)
         if not prune_on:
-            return run(inputs, st), occ_np, None
-        imgs, *diags = run(inputs, st, diag=True)
-        keeps = prune_flags(st, *diags)
+            return (run(inputs, st) if frame else None), occ_np, None
+        imgs = None
+        keeps = None if derive is None else derive(occ_np)
+        if keeps is None:
+            imgs, *diags = run(inputs, st, diag=True)
+            keeps = prune_flags(st, *diags, hist=hist)
         set_pruned(occ_np, keeps, st)
         return imgs, occ_np, keeps
+
+    def carry_refresh(inputs, st, keeps):
+        """A cheap refresh into ``st``: fresh conservative flags times the
+        carried keep-masks (reference :1485-1491, :1621-1636)."""
+        set_pruned(download(occ_fn(inputs))[0], keeps, st)
+        update_far_skip([inputs], st)
 
     def refine(inputs, st, imgs0, occ_np, keeps, prep):
         """One refinement round of a slot's budgeted prune (reference
@@ -593,6 +695,180 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     def pair_counts(st):
         return tuple(int(t.numel()) for t, _ in st["lists"])
 
+    def stash_keys(keys, tiles_u):
+        """A fast frame's prune keys, kept on the device with the union tiles
+        that place them and, on the card, an event recorded after them on
+        the serving stream (reference run_fast :1299-1319)."""
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+        with cache_lock:
+            cache.setdefault("key_frames", deque(maxlen=12)).append((keys, tiles_u, done))
+
+    def derive_keeps_from_keys(occ_np):
+        """Keep-masks from the running max of the keys the recent served
+        frames reported and the decayed history, with no diagnostic render
+        (reference _derive_keeps_from_keys :1391-1440): the trans prune,
+        then the budget per pair (every ray floored at the pair's max-ray
+        key, so the ledger is the tile's summed key: budget_drop_masks with
+        R = 1) over the flags ``occ_np`` that were measured at least once.
+        None when no frame has reported keys yet."""
+        with cache_lock:
+            frames = list(cache.get("key_frames", ()))
+        if not frames:
+            return None
+        if cuda:
+            stream = torch.cuda.current_stream(dev)
+            for keys, _, done in frames:
+                stream.wait_event(done)
+                for k in keys:
+                    k.record_stream(stream)
+        host = download(*(k for keys, _, _ in frames for k in keys))
+        agg = [np.zeros((T, J), np.float32) for _ in range(4)]
+        for i, (_, tiles_u_f, _) in enumerate(frames):
+            for a, x in zip(agg, host[4 * i:4 * i + 4]):
+                a[tiles_u_f] = np.maximum(a[tiles_u_f], x)
+        dk = max(rcfg.occ_prune_hist_decay, 0.0)
+        hist = cache.setdefault("hist", {})
+        for name, a in zip(("ktm_h", "ktm_c", "ke_h", "ke_t"), agg):
+            if dk > 0 and name in hist:
+                np.maximum(a, hist[name] * dk, out=a)
+            hist[name] = a
+        tm_h_k, tm_c_k, e_h_k, e_t_k = agg
+        keep_h = np.ones((T, J), bool)
+        keep_t = np.ones((T, J), bool)
+        if rcfg.occ_prune_trans > 0:
+            eps = rcfg.occ_prune_trans
+            keep_h &= np.maximum(tm_h_k, tm_c_k) > eps
+            keep_t &= tm_c_k > eps
+        if budget_on:
+            cand = occ_np.astype(bool)
+            cand[0] &= keep_h
+            cand[1] &= keep_t
+            em = cache.get("ever_measured")
+            if em is not None:
+                cand &= em  # pairs never measured (new geometry) are kept
+            drop = budget_drop_masks(e_h_k.T[:, :, None], e_t_k.T[:, :, None], cand,
+                                     rcfg.occ_prune_budget)
+            keep_h &= ~drop[0]
+            keep_t &= ~drop[1]
+        return keep_h, keep_t
+
+    def measured(occ_np):
+        em = cache.get("ever_measured")
+        return occ_np > 0 if em is None else em | (occ_np > 0)
+
+    def tensors_of(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (dict, list, tuple)):
+            for v in (x.values() if isinstance(x, dict) else x):
+                yield from tensors_of(v)
+
+    def live_derive(occ_np):
+        """The worker's keys derive (derive_keeps_from_keys), or None on the
+        turn of a full diagnostic derive: every ``occ_live_remeasure``-th,
+        counted by ``cache["derive_ct"]`` (reference :1497-1503)."""
+        n_der = cache.get("derive_ct", 0)
+        cache["derive_ct"] = n_der + 1
+        rm = rcfg.occ_live_remeasure
+        return derive_keeps_from_keys(occ_np) if rm <= 0 or n_der % rm != 0 else None
+
+    def refresh_async(inputs, keeps, keep_age, ready, serving):
+        """The worker: the next flag state from the snapshot ``inputs``
+        (reference _refresh_async :1478-1544), a carried or a full refresh
+        with no served frame, on its own stream on the card, its launches
+        counted apart (worker_launches). It waits on ``ready``, recorded on
+        the serving stream after the inputs; the state it builds is marked
+        used by the serving stream, and an event recorded after it tells
+        render when the swap may land. A full diagnostic derive marks every
+        flagged pair measured (``cache["ever_measured"]``), a keys derive the
+        pairs it keeps."""
+        try:
+            stream = worker["stream"]
+            with torch.no_grad(), worker_launches(), (
+                    torch.cuda.stream(stream) if cuda else contextlib.nullcontext()):
+                if cuda:
+                    stream.wait_event(ready)
+                    for x in tensors_of(inputs):
+                        x.record_stream(stream)
+                st = {}
+                if (prune_on and rcfg.occ_prune_carry > 0 and keeps is not None
+                        and keep_age < rcfg.occ_prune_carry):
+                    carry_refresh(inputs, st, keeps)
+                    keep_age += 1
+                else:
+                    imgs, occ_np, kk = refresh(inputs, st, hist=cache.setdefault("hist", {}),
+                                               derive=live_derive if live_keys else None,
+                                               frame=False)
+                    if kk is not None:
+                        keeps, keep_age = kk, 0
+                        pruned = np.stack([occ_np[0] * kk[0], occ_np[1] * kk[1]])
+                        cache["ever_measured"] = measured(occ_np if imgs is not None else pruned)
+                done = None
+                if cuda:
+                    for x in tensors_of(st):
+                        x.record_stream(serving)
+                    done = torch.cuda.Event()
+                    done.record()
+            worker["result"] = (st, keeps, keep_age, done)
+        except Exception as e:  # noqa: BLE001 -- raised by poll_worker
+            worker["error"] = e
+
+    def poll_worker():
+        """Swap a finished worker's state in (reference _poll_worker
+        :1546-1570), once its device work is done: a failure is served
+        stale and retried at the next trigger; the third in a row
+        raises."""
+        th = worker["thread"]
+        if th is None or th.is_alive():
+            return
+        if worker["error"] is not None:
+            worker["thread"] = None
+            err, worker["error"] = worker["error"], None
+            worker["fails"] += 1
+            if worker["fails"] >= 3:
+                raise err
+            return
+        st, keeps, keep_age, done = worker["result"]
+        if done is not None and not done.query():
+            return
+        worker.update(thread=None, result=None, fails=0)
+        with cache_lock:
+            cache.update({k: st[k] for k in SLOT_KEYS if k in st})
+            cache.update(keeps=keeps, keep_age=keep_age, age=1, swaps=cache.get("swaps", 0) + 1)
+
+    def serve_async(inputs):
+        """A frame of the async live mode (reference render :1582-1610):
+        swap in a finished refresh, advance the age and serve the frame
+        under the flags in force. Past occ_refresh_every plus the trigger
+        jitter rjit (0, 1, 2 in turn, so the snapshots do not lock onto the
+        phase of a periodic input), this frame's inputs go to a new worker
+        thread, started once the frame is served: its keys derive then
+        always includes this frame's keys (the reference starts its worker
+        first, and what the derive sees depends on which thread is
+        faster)."""
+        poll_worker()
+        cache["age"] += 1
+        if not (cache["age"] > max(rcfg.occ_refresh_every, 1) + cache.get("rjit", 0)
+                and worker["thread"] is None):
+            return run(inputs, cache, fast=True)
+        cache["rjit"] = (cache.get("rjit", 0) + 1) % 3
+        args = (inputs, cache.get("keeps"), cache.get("keep_age", 0))
+        ready = serving = None
+        if cuda:
+            if worker["stream"] is None:
+                worker["stream"] = torch.cuda.Stream(dev)
+            serving = torch.cuda.current_stream(dev)
+            ready = torch.cuda.Event()
+            ready.record()
+        imgs = run(inputs, cache, fast=True)
+        worker["thread"] = threading.Thread(target=refresh_async, args=args + (ready, serving),
+                                            daemon=True)
+        worker["thread"].start()
+        return imgs
+
     @torch.no_grad()
     def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img,
                window_slot=None):
@@ -602,20 +878,20 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         if window_slot is not None and slots:
             # pinned per-slot serving: window frame i under its own lists
             return run(inputs, slots[window_slot % len(slots)], fast=True)
+        if rcfg.occ_async_refresh and cache["lists"] is not None and not cache.get("pinned"):
+            return serve_async(inputs)
         if cache["lists"] is not None and (cache.get("pinned")
                                            or cache["age"] < max(rcfg.occ_refresh_every, 1)):
             cache["age"] += 1
             return run(inputs, cache, fast=True)
         if (prune_on and rcfg.occ_prune_carry > 0 and cache.get("keeps") is not None
                 and cache["keep_age"] < rcfg.occ_prune_carry):
-            # cheap refresh: fresh conservative flags times the carried
-            # keep-masks, rendered as a fast frame (reference :1621-1636)
-            set_pruned(occ_fn(inputs).cpu().numpy(), cache["keeps"])
+            # cheap refresh, rendered as a fast frame
+            carry_refresh(inputs, cache, cache["keeps"])
             cache["keep_age"] += 1
-            update_far_skip([inputs], cache)
             cache["age"] = 1
             return run(inputs, cache, fast=True)
-        imgs, _, keeps = refresh(inputs, cache)
+        imgs, _, keeps = refresh(inputs, cache, hist=cache.setdefault("hist", {}))
         if keeps is not None:
             cache.update(keeps=keeps, keep_age=0)
         cache["age"] = 1  # this frame consumed the refresh
@@ -649,7 +925,7 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         occ = occ_fn(window_inputs[0])
         for inp in window_inputs[1:]:
             occ = torch.maximum(occ, occ_fn(inp))
-        occ_np = occ.cpu().numpy()
+        occ_np = download(occ)[0]
         set_flags(occ_np)
         update_far_skip(window_inputs, cache)
         if prune_on:
@@ -663,10 +939,12 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
 
     def precompile_headroom(*_, **__):
         raise NotImplementedError(
-            "precompile_headroom and occ_class_clamp (the async worker's program classes) are "
-            "not ported yet (ROADMAP.md queue 1, item 4)")
+            "precompile_headroom (the reference's off-stream compile of program classes) is not "
+            "ported; a torch analogue, such as one CUDA-graph capture per pair-count class, is "
+            "to be measured before it is built (ROADMAP.md queue 2, R10)")
 
     render.cache = cache
+    render.worker = worker
     render.inputs_fn = frame_inputs
     render.run_fast = run_fast
     render.refresh_union = refresh_union

@@ -88,3 +88,65 @@ def test_launchers_match_their_sources(binding):
         decl = re.search(rf"\bint {fn}\(([^)]*)\)\s*{{", src)
         assert decl, f"{fn} is not defined in {binding.name}.cu"
         assert len(decl.group(1).split(",")) == len(argtypes), fn
+
+
+def test_launch_counts_from_two_threads(monkeypatch):
+    """A serving thread and a refresh worker launching one kernel at once:
+    the library is loaded once, every launch is counted once, and the
+    worker's launches (inside worker_launches()) count in worker_launches,
+    apart from the served frames' launches and variants.
+    The launch itself is a stand-in: nothing is built or run."""
+    import contextlib
+    import sys
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    import torch
+
+    loads = []
+
+    class Library:
+        def demo_launch(self, *args):
+            return 0
+
+    def load(path, name, launchers):
+        loads.append(name)
+        time.sleep(0.05)  # both threads reach the first use together
+        return Library(), (0,) * _build.LAYOUT_SIZES
+
+    binding = _build.Binding("pair_field", {"demo_launch": ()})
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(binding, "_library", lambda: None)
+    monkeypatch.setattr(_build.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(_build.torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    n, dev = 3000, torch.device("cpu")
+    start = threading.Barrier(2)
+
+    def serve():
+        start.wait()
+        for _ in range(n):
+            binding.launch("demo_launch", dev, variant="sp8")
+
+    def work():
+        start.wait()
+        with _build.worker_launches():
+            for _ in range(n):
+                binding.launch("demo_launch", dev, variant="sp8")
+        binding.launch("demo_launch", dev)  # out of the block: a served launch
+
+    threads = [threading.Thread(target=serve), threading.Thread(target=work)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert loads == ["pair_field"]
+    assert binding.launches == n + 1 and binding.variant_launches == {"sp8": n}
+    assert binding.worker_launches == n

@@ -130,9 +130,20 @@ def test_bg_blend_matches(setup):
 
 
 def test_unported_options_raise(setup):
-    args = (setup["buf_h"], setup["buf_t"], setup["occ"], setup["rd"], setup["rd_t"], setup["z"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        deferred_composite(*args, with_keys=True)
+    """Every option of deferred_composite is ported (the live keys of
+    with_keys are held in tests/test_torch_live_serving.py); what it still
+    refuses are operands that do not fit: a second quartet without its flag
+    partition, and buffers of another sample count than the depths."""
+    bufs = tuple(tuple(torch.from_numpy(b) for b in setup[k]) for k in ("buf_h", "buf_t"))
+    rays = tuple(torch.from_numpy(setup[k]) for k in ("rd", "rd_t"))
+    z = torch.from_numpy(setup["z"])
+    occ = torch.from_numpy(setup["occ"])
+    with pytest.raises(ValueError, match="come together"):
+        deferred_composite(*bufs, occ, *rays, z, buf_h2=bufs[0], buf_t2=bufs[1])
+    with pytest.raises(ValueError, match="samples"):
+        deferred_composite(*bufs, occ, *rays, z[:8])
+    out = deferred_composite(*bufs, occ, *rays, z, with_keys=True)
+    assert len(out) == 5 and [tuple(k.shape) for k in out[4]] == [(2, 2)] * 4
 
 
 def _partition(occ):

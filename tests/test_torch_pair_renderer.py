@@ -34,6 +34,7 @@ from dfanerf_tpu.train import dataset_to_device
 from dfanerf_tpu.train import init_train_state as j_init_train_state
 from dfanerf_torch.compat.from_jax import state_from_jax
 from dfanerf_torch.config import ExperimentConfig, RenderConfig
+from dfanerf_torch.models import DecoderConfig
 from dfanerf_torch.ops.fused_render import field_flops_per_sample, render_flops_per_sample
 from dfanerf_torch.render.renderer import make_frame_renderer
 
@@ -95,19 +96,34 @@ def test_pair_renderer_matches_reference(setup, monkeypatch, prune):
         assert any(k_h == 0 for k_h, _ in pair_counts)
 
 
+# cfg2 of benchmarks/serve_trained.py:313-321, verbatim: cfg1 (:246-259,
+# with run()'s defaults :129-132) and the live levers
+CFG2 = dict(n_samples=64, use_fused_kernel=True, compute_dtype="bfloat16", ert_eps=1e-4,
+            spatial_tiles=True, occ_sigma_thresh=2.0, occ_grid_res=96, occ_refresh_every=4,
+            occ_pair_compaction=True, occ_prune_contrib=0.0, occ_prune_budget=2e-3,
+            occ_budget_color=True, occ_budget_iters=2, occ_prune_trans=0.1, far_skip_tol=2e-3,
+            far_subsample=8, occ_prune_carry=0, occ_async_refresh=True,
+            occ_prune_hist_decay=0.8, occ_live_keys=True)
+
+
 def test_unported_levers_raise():
+    """Config 3's live levers are ported: cfg2 builds, with its refresh
+    worker exposed (tests/test_torch_live_serving.py drives them). What is
+    left is precompile_headroom, the reference's off-stream compile of
+    program classes, which raises naming its ROADMAP place."""
     hw = (32, 32, 35.2, 16.0, 16.0)
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**CFG2))
+    render = make_frame_renderer(cfg, (450, 450, 1200.0, 225.0, 225.0), 0.3, 0.9, device="cpu")
+    assert render.cache["lists"] is None
+    assert render.worker["thread"] is None and render.worker["fails"] == 0
     base = ExperimentConfig(render=RenderConfig(**PAIRS))
-    levers = [({"occ_prune_hist_decay": 0.8}, 4), ({"occ_live_keys": True}, 4),
-              ({"occ_async_refresh": True}, 4), ({"occ_pack2": True, "occ_async_refresh": True}, 4)]
-    for kw, item in levers:
-        cfg = dataclasses.replace(base, render=dataclasses.replace(base.render, **kw))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}\\)"):
-            make_frame_renderer(cfg, hw, 0.3, 0.9, device="cpu")
-    render = make_frame_renderer(base, hw, 0.3, 0.9, device="cpu")
-    for args in ((), (0, 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4\\)"):
-            render.precompile_headroom(*args)
+    for lever in ({}, {"occ_pack2": True, "occ_async_refresh": True}):
+        cfg = dataclasses.replace(base, render=dataclasses.replace(base.render, **lever))
+        render = make_frame_renderer(cfg, hw, 0.3, 0.9, device="cpu")
+        for args in ((), (0, 1)):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, R10\\)"):
+                render.precompile_headroom(*args)
 
 
 def test_flop_counts_per_field_and_kernel():
