@@ -73,27 +73,40 @@ Phases, in order; any failure ends the run with a non-zero exit:
    whose worker is joined after each frame prints the pairs each derive
    drops, and a keys derive must drop some; the worker must never raise
    and a swap must land in the paced window;
-12. hold the hierarchical head render's kernels (sigma_head, render_head,
+12. drive BASELINE config 4, audio to video (benchmarks/serve_trained.py:
+   490-640 over cfg2): the audio nets at full width on the card and on the
+   CPU, same module and same synthesized 3.6 s wav (mel within 1e-4; the
+   wav2exp features and the DeepSpeech logits and features, n_hidden 2048,
+   within rtol 1e-4 / atol 1e-4; each stage's ms); e2e_audio_video over
+   cfg2 on the recipe, scene and weights of 11 at its 80 frames (stage
+   seconds, fps_e2e, render_fps, swaps), every driven frame under sync debug
+   mode "error" and launching pair_field twice (the far kernels once each
+   where its state keeps the far plane), the .y4m read back (header, 80
+   frames of 450x450, Y' within 1 of the frames' luma), a frame after a
+   swap against the plain versions; then 2 dense frames (render_rays
+   <1,1,1>) driven by the card's DeepSpeech features through AudioNet, their
+   signals within 1e-5 of the CPU's;
+13. hold the hierarchical head render's kernels (sigma_head, render_head,
    pair_sigma, pair_field_perz) against their plain versions at a 450x450
    frame's rays and 64 + 128 samples, with ERT slab counts, exact zeros in
    clear slabs, pair lists with gaps and empty ones; cross-check the pair
    kernels with every pair listed against the dense kernels (pair_sigma
    against sigma_head bit for bit);
-13. drive the hierarchical render (BASELINE config 2) through
+14. drive the hierarchical render (BASELINE config 2) through
    encode_frame_signals and make_head_hierarchical_renderer: no-skip for 5
    frames (sigma_head and render_head once per frame), then the
    pair-compacted serving recipe for 12 frames across three refreshes
    (pair_sigma and pair_field_perz once per steady frame, no host sync);
    check the frames, the flags and lists, a frame of each kind against the
    plain versions; time the frames, each stage and each kernel;
-14. hold the four render_rays instantiations (both fields with the
+15. hold the four render_rays instantiations (both fields with the
    background in the kernel; the epilogue mode with both fields, the head
    only, the torso only) and far_joint against their plain versions at a
    450x450 frame's rays and 64 samples (flags with gaps, tiles without a
    flag, a saturating field for ERT) and far_joint (77, 4096, 4173 rays and
    the frame's, relu and softplus), far_joint also against far_head +
    far_torso bit for bit;
-15. drive the shipped serving config (configs/obama_serve_tpu.json) through
+16. drive the shipped serving config (configs/obama_serve_tpu.json) through
    encode_frame_signals and make_frame_renderer: its tile-class branch for
    12 frames across three refreshes (one render_rays per non-empty class
    segment in a steady frame, no host sync), then its plain occupancy branch
@@ -101,10 +114,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    check the classes, the flags, a refresh and a steady frame of each branch
    against the plain versions; print each branch's error against the dense
    no-skip frames; time the frames, each stage and each segment's kernel;
-16. the tile-class branch with its epilogue in its kernel form
+17. the tile-class branch with its epilogue in its kernel form
    (bg_epilogue_fused, one far_joint per epilogue) against the shipped
    epilogue; far_joint's times;
-17. train, the second half of the main path, at benchmarks/serve_trained.py
+18. train, the second half of the main path, at benchmarks/serve_trained.py
    run()'s shape (softplus, 64 samples, bf16, 2048 rays, distortion 3e-3 from
    step 2000): the synthetic scene's ground truth (8 frames, 450x450) built
    on the card and one frame held against the CPU (1 LSB); one float32 step
@@ -115,7 +128,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    memory and the recipe's projected time; a held-out frame of the trained
    weights from render_rays against the unfused float32 renderer, with the
    val PSNR of both (render_rays' launches join its entry below);
-18. print the script's total time, the card's name and power limit, then
+19. print the script's total time, the card's name and power limit, then
    one JSON line listing every ported kernel with its launches, error and
    times, and last a JSON status line.
 
@@ -690,19 +703,27 @@ SIGMA_SHIFT = -0.4593
 PAIR_FRACTION = (0.05, 0.95)  # each field's listed share of its T * J pairs
 
 
+def _pair_state(cfg, shift=SIGMA_SHIFT, head_latent_scale=1.0):
+    """The seeded state on the card with the sigma_out bias shifted by
+    ``shift`` and the head's shape latent scaled by ``head_latent_scale``."""
+    from dfanerf_torch.train.state import init_train_state
+
+    state = init_train_state(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        state["params"].decoder.sigma_out.bias += shift
+    state["z_shape"][0] *= head_latent_scale
+    return state
+
+
 def _pair_scene(cfg, shift=SIGMA_SHIFT, n_frames=PAIR_FRAMES, head_latent_scale=1.0):
     """(scene, args): the synthetic scene and args(i), frame i's arguments
     to a frame renderer, with the seeded weights' sigma_out bias shifted by
     ``shift`` and the head's shape latent scaled by ``head_latent_scale``."""
     import dfanerf_torch.render.renderer as renderer
     from dfanerf_torch.data.synthetic import make_synthetic_scene
-    from dfanerf_torch.train.state import init_train_state
 
     scene = make_synthetic_scene(n_frames=n_frames, H=H, W=W, seed=0)
-    state = init_train_state(cfg, seed=0, device="cuda")
-    with torch.no_grad():
-        state["params"].decoder.sigma_out.bias += shift
-    state["z_shape"][0] *= head_latent_scale
+    state = _pair_state(cfg, shift, head_latent_scale)
     params = state["params"]
     auds, exps, poses = (torch.from_numpy(x).cuda() for x in (scene.auds, scene.exps, scene.poses))
     bc_img = torch.from_numpy(scene.bc_img).cuda()
@@ -1774,6 +1795,55 @@ def _sync_error(fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def _worker_ok(wk):
+    """render() takes a worker's error in, counts it in "fails" and serves
+    the frame stale: either way the worker raised."""
+    if wk["error"] is not None or wk["fails"]:
+        _fail(f"the refresh worker raised: {wk['error']!r}, fails {wk['fails']}")
+
+
+def _join_worker(wk):
+    th = wk["thread"]
+    if th is not None:
+        th.join(timeout=120.0)
+        if th.is_alive():
+            _fail("the refresh worker did not finish in 120 s")
+    _worker_ok(wk)
+
+
+def _after_swap_vs_plain(tag, render, a, serve):
+    """A frame just after a swap against the plain versions in its state:
+    ``serve(i)`` serves frames until the live renderer's worker runs, the
+    worker is joined, the frame of args ``a`` must swap its state in (under
+    sync debug "error"), and is held against the plain versions under the
+    swapped lists. Returns the frame-level error."""
+    c, wk = render.cache, render.worker
+    for i in range(2 * CFG2_WINDOW):
+        if wk["thread"] is not None:
+            break
+        serve(i)
+    _join_worker(wk)
+    torch.cuda.synchronize()
+    swaps0 = c.get("swaps", 0)
+    head, com = _sync_error(lambda: render(*a))
+    if c.get("swaps", 0) != swaps0 + 1 or wk["thread"] is not None:
+        _fail(f"the frame after the worker ended: swaps {swaps0} -> {c.get('swaps', 0)}, a "
+              f"worker running {wk['thread'] is not None}")
+    _check_frame(tag, head, com)
+    kf = c["key_frames"]
+    kept = list(kf)
+    captured = {}
+    with _plain_pair_path(captured):
+        head_r, com_r = render.run_fast(*a)
+        torch.cuda.synchronize()
+    kf.clear()
+    kf.extend(kept)  # the plain frame's keys are not a served frame's
+    err = _check_pair(f"{tag}, kernels vs plain", head, com, head_r, com_r,
+                      captured.get("sh", torch.full((H, W), float("inf"), device="cuda")))
+    _join_worker(wk)
+    return err
+
+
 def phase_cfg2(card):
     """BASELINE config 3's live serving config (cfg2) at full width, on phase
     10's recipe, scene and weights: 17 warm frames, then unpaced frames timed
@@ -1811,29 +1881,15 @@ def phase_cfg2(card):
     c, wk = render.cache, render.worker
     launches = []  # (served frame's launches, far_skip of its state)
 
-    def worker_ok():
-        # render() takes a worker's error in, counts it in "fails" and serves
-        # the frame stale: either way the worker raised
-        if wk["error"] is not None or wk["fails"]:
-            _fail(f"the refresh worker raised: {wk['error']!r}, fails {wk['fails']}")
-
     def frame(i):
         a = args(i % CFG2_WINDOW)
-        worker_ok()
+        _worker_ok(wk)
         before = {n: k.launches for n, k in kernels.items()}
         out = render(*a) if c["lists"] is None else _sync_error(lambda: render(*a))
         launches.append(({n: k.launches - before[n] for n, k in kernels.items()},
                          c["far_skip"]))
-        worker_ok()
+        _worker_ok(wk)
         return out
-
-    def join_worker():
-        th = wk["thread"]
-        if th is not None:
-            th.join(timeout=120.0)
-            if th.is_alive():
-                _fail("the refresh worker did not finish in 120 s")
-        worker_ok()
 
     # warm-up: the first frame refreshes in the serving thread, the rest are
     # served while the worker refreshes
@@ -1842,7 +1898,7 @@ def phase_cfg2(card):
         frame(i)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    join_worker()
+    _join_worker(wk)
     print(f"[cfg2] {CFG2_WARM} warm frames {warm_s:.2f} s: swaps {c.get('swaps', 0)}, derives "
           f"{c.get('derive_ct', 0)}, key frames {len(c.get('key_frames', ()))}, lists "
           f"{tuple(int(t.numel()) for t, _ in c['lists'])}, far_skip {c['far_skip']}", flush=True)
@@ -1927,35 +1983,12 @@ def phase_cfg2(card):
         _fail(f"served frames launched {bad[:4]}")
 
     # a frame just after a swap against the plain versions in its state
-    for i in range(2 * CFG2_WINDOW):
-        if wk["thread"] is not None:
-            break
-        frame(i)
-    join_worker()
-    torch.cuda.synchronize()
-    swaps0 = c.get("swaps", 0)
-    a = args(0)
-    head, com = _sync_error(lambda: render(*a))
-    if c.get("swaps", 0) != swaps0 + 1 or wk["thread"] is not None:
-        _fail(f"the frame after the worker ended: swaps {swaps0} -> {c.get('swaps', 0)}, a "
-              f"worker running {wk['thread'] is not None}")
-    _check_frame("cfg2 frame after a swap", head, com)
-    kf = c["key_frames"]
-    kept = list(kf)
-    captured = {}
-    with _plain_pair_path(captured):
-        head_r, com_r = render.run_fast(*a)
-        torch.cuda.synchronize()
-    kf.clear()
-    kf.extend(kept)  # the plain frame's keys are not a served frame's
-    err = _check_pair("cfg2 frame after a swap, kernels vs plain", head, com, head_r, com_r,
-                      captured.get("sh", torch.full((H, W), float("inf"), device="cuda")))
-    join_worker()
+    err = _after_swap_vs_plain("cfg2 frame after a swap", render, args(0), frame)
     print(f"[cfg2] budget {CFG2_RENDER['occ_prune_budget']:g}: swaps {c['swaps']}, derives "
           f"{c['derive_ct']}, lists {tuple(int(t.numel()) for t, _ in c['lists'])}; launches "
           f"served {({n: k.launches for n, k in kernels.items()})}, worker "
           f"{({n: k.worker_launches for n, k in kernels.items()})}", flush=True)
-    del render, c, wk, kf, kept, ref_com
+    del render, c, wk, ref_com
 
     # the keys-derived prune at work: budget 2e-2, the worker joined after
     # each frame so that each derive's drops can be read
@@ -1990,6 +2023,241 @@ def phase_cfg2(card):
         _fail(f"no keys derive dropped a pair at budget {CFG1_DROP_BUDGET:g}: {derives}")
     if min(got.values()) == 0:
         _fail(f"a kernel of the cfg2 path never launched: {got}")
+    return got
+
+
+# BASELINE config 4, audio to video (benchmarks/serve_trained.py:490-640,
+# called at :358 on cfg2): e2e_audio_video drives cfg2 with the features of
+# a synthesized utterance. The audio nets (plain PyTorch: torch.fft, cuDNN's
+# convolutions, the LSTM) run at full width on the card and on the CPU,
+# whose path the CPU tests hold against the reference, within the tests'
+# bars: mel to 1e-4; features and logits to rtol 1e-4 / atol 1e-4; the
+# signals of the DeepSpeech-driven frames to 1e-5.
+AV_FRAMES = 80                  # e2e_audio_video's default
+AV_DS_FRAMES = (10, 11)         # the DeepSpeech-driven dense frames
+AV_TOL = {"mel": 1e-4, "rtol": 1e-4, "atol": 1e-4, "signal": 1e-5}
+
+
+def _read_y4m(path):
+    """(tags, planes [N, 3, H, W] uint8) of a 4:4:4 YUV4MPEG2 file."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        head, _, body = f.read().partition(b"\n")
+    fields = head.split(b" ")
+    if fields[0] != b"YUV4MPEG2":
+        _fail(f"{path}: no YUV4MPEG2 header")
+    tags = {t[:1].decode(): t[1:].decode() for t in fields[1:]}
+    w, h = int(tags["W"]), int(tags["H"])
+    size = len(b"FRAME\n") + 3 * h * w
+    if len(body) % size or any(body[i:i + 6] != b"FRAME\n" for i in range(0, len(body), size)):
+        _fail(f"{path}: frames of another size or without their FRAME marker")
+    return tags, np.frombuffer(body, np.uint8).reshape(-1, size)[:, 6:].reshape(-1, 3, h, w)
+
+
+def _audio_nets_vs_cpu(wav):
+    """The audio nets at full width on the card and on the CPU, the same
+    module and the same wav: the mel spectrogram, the wav2exp features, the
+    DeepSpeech (n_hidden 2048, seeded weights) logits and features. Each
+    stage's time on the card by CUDA events, after a warm-up. Returns the
+    card's DeepSpeech features [N, 16, 29]."""
+    import copy
+
+    from dfanerf_torch.pipeline.audio import deepspeech, frontend, wav2exp
+
+    def held(tag, got, ref, rtol, atol, ms):
+        got, ref = torch.as_tensor(got).cpu(), torch.as_tensor(ref)
+        err = float((got - ref).abs().max())
+        print(f"[audio] {tag} {tuple(got.shape)}: card vs CPU max {err:.3e} (rtol {rtol:g}, atol "
+              f"{atol:g}); card {ms:.2f} ms", flush=True)
+        if got.shape != ref.shape or not torch.allclose(got, ref, rtol=rtol, atol=atol):
+            _fail(f"{tag}: the card's output disagrees with the CPU's")
+
+    wav_t = torch.from_numpy(wav)
+    enc = wav2exp.init_audio_encoder(3, device="cuda")
+    enc_cpu = copy.deepcopy(enc).cpu()
+    wav2exp.wav2exp_features(enc, wav)  # warm-up: cuFFT's plans, cuDNN's algorithms
+    mel, mel_ms = _cuda_call(lambda: frontend.melspectrogram(wav_t.cuda()))
+    held("mel", mel, frontend.melspectrogram(wav_t), 0.0, AV_TOL["mel"], mel_ms)
+    feats, feat_ms = _cuda_call(lambda: wav2exp.wav2exp_features(enc, wav))
+    held("wav2exp features", feats, wav2exp.wav2exp_features(enc_cpu, wav), AV_TOL["rtol"],
+         AV_TOL["atol"], feat_ms)
+    net = deepspeech.init_deepspeech(0, device="cuda")
+    net_cpu = copy.deepcopy(net).cpu()
+    wav16 = wav * 32767.0  # the MFCC takes int16-scale samples
+    deepspeech.deepspeech_logits(net, wav16)  # warm-up
+    logits, logit_ms = _cuda_call(lambda: deepspeech.deepspeech_logits(net, wav16))
+    held("DeepSpeech logits", logits, deepspeech.deepspeech_logits(net_cpu, wav16),
+         AV_TOL["rtol"], AV_TOL["atol"], logit_ms)
+    feats_ds, ds_ms = _cuda_call(lambda: deepspeech.deepspeech_features_from_wav(net, wav16))
+    held("DeepSpeech features", feats_ds, deepspeech.deepspeech_features_from_wav(net_cpu, wav16),
+         AV_TOL["rtol"], AV_TOL["atol"], ds_ms)
+    return feats_ds
+
+
+def phase_audio_video(card):
+    """BASELINE config 4 at full width: the audio nets on the card against
+    the CPU; e2e_audio_video over cfg2 (phase 11's recipe, scene and
+    weights) at 80 frames, every driven frame under sync debug "error" with
+    its launches counted, the .y4m read back, a frame after a swap against
+    the plain versions; then 2 dense frames (render_rays <1,1,1>) driven by
+    DeepSpeech features, their signals against the CPU's. Returns the
+    launches of the phase, the refresh worker's included."""
+    import copy
+
+    import numpy as np
+
+    import dfanerf_torch.render.audio_video as audio_video
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.config import ExperimentConfig, RenderConfig, SignalConfig
+    from dfanerf_torch.data.synthetic import make_synthetic_scene
+    from dfanerf_torch.models import DecoderConfig
+    from dfanerf_torch.ops.far_eval import far_head_kernel, far_torso_kernel
+    from dfanerf_torch.ops.fused_render import render_rays_kernel
+    from dfanerf_torch.ops.pair_field import pair_field_kernel
+    from dfanerf_torch.train.state import init_train_state
+
+    t_phase = time.perf_counter()
+    wav = audio_video.synth_wav(AV_FRAMES)
+    feats_ds = _audio_nets_vs_cpu(wav)
+
+    # e2e_audio_video over cfg2, each driven frame through a counting wrapper
+    cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
+                           render=RenderConfig(**CFG2_RENDER))
+    scene = make_synthetic_scene(n_frames=CFG2_WINDOW, H=H, W=W, seed=0)
+    state = _pair_state(cfg)
+    data = {"poses": torch.from_numpy(scene.poses).cuda(),
+            "bc_img": torch.from_numpy(scene.bc_img).cuda()}
+    kernels = {"pair_field": pair_field_kernel, "far_head": far_head_kernel,
+               "far_torso": far_torso_kernel}
+    driven = {"launches": [], "com": [], "swaps": []}  # swaps: the count after each frame
+    real_make = audio_video.make_frame_renderer
+
+    def make_driven(*a, **kw):
+        render = real_make(*a, **kw)
+        c, wk = render.cache, render.worker
+
+        def frame(*fa):
+            _worker_ok(wk)
+            before = {name: k.launches for name, k in kernels.items()}
+            out = render(*fa)
+            driven["launches"].append((
+                {name: k.launches - before[name] for name, k in kernels.items()}, c["far_skip"]))
+            driven["com"].append(out[1])
+            driven["swaps"].append(c.get("swaps", 0))
+            driven["args"] = fa
+            _worker_ok(wk)
+            return out
+
+        frame.cache, frame.worker = c, wk
+        driven.update(render=render, frame=frame)
+        return frame
+
+    def checked(fn):
+        """A driven frame's work on the device (its signals and render; in
+        the timed render also the uint8 conversion and the ring copy's
+        dispatch) under sync debug "error", but for the first frame, which
+        refreshes in the serving thread."""
+        return fn() if driven["render"].cache["lists"] is None else _sync_error(fn)
+
+    for k in kernels.values():
+        k.launches, k.worker_launches = 0, 0
+    audio_video.make_frame_renderer = make_driven
+    try:
+        out = audio_video.e2e_audio_video(cfg, scene, state, data, card=card, frame_hook=checked)
+    finally:
+        audio_video.make_frame_renderer = real_make
+    render, launches = driven["render"], driven["launches"]
+    n = out["n_frames"]
+    print(f"[audio_video] e2e_audio_video over cfg2, {n} frames {H}x{W} ({out['card']}): "
+          f"feature_warm_s {out['feature_warm_s']:.4f}, feature_s {out['feature_s']:.4f}, "
+          f"render_s {out['render_s']:.4f}, encode_s {out['encode_s']:.4f}, headroom_s "
+          f"{out['headroom_s']}; fps_e2e {out['fps_e2e']:.3f}, render_fps "
+          f"{out['render_fps']:.3f}; {out['swaps']} swaps landed in the timed render",
+          flush=True)
+    if n != AV_FRAMES or len(launches) != AV_FRAMES + 2 * CFG2_RENDER["occ_refresh_every"] + 1:
+        _fail(f"{n} timed frames, {len(launches)} driven")
+    # the swaps the timed frames saw, and the worker joined at the return
+    seen = driven["swaps"][-1] - driven["swaps"][-n - 1]
+    th = render.worker["thread"]
+    print(f"[audio_video] swaps after each timed frame {driven['swaps'][-n - 1:]}: {seen} in the "
+          f"timed render; the refresh worker {'running' if th and th.is_alive() else 'joined'} "
+          f"at the return", flush=True)
+    if out["swaps"] != seen or (th is not None and th.is_alive()):
+        _fail(f"e2e_audio_video reported {out['swaps']} swaps, the frames saw {seen}; or it "
+              "returned with its worker running")
+
+    # every driven frame but the first (a refresh in the serving thread):
+    # pair_field twice, the far kernels once each where the state keeps the
+    # far plane
+    bad = [(m, fs) for m, fs in launches[1:]
+           if m != {"pair_field": 2, "far_head": 1 - fs, "far_torso": 1 - fs}]
+    print(f"[audio_video] {len(launches) - 1} driven frames' launches: pair_field 2 each, far "
+          f"{sum(m['far_head'] for m, _ in launches[1:])} (far_skip in "
+          f"{sum(fs for _, fs in launches[1:])} frames); {len(bad)} frames otherwise", flush=True)
+    if bad:
+        _fail(f"driven frames launched {bad[:4]}")
+
+    # the video: its header, its frames, the timed frames' luma
+    tags, planes = _read_y4m(out["video"])
+    u8 = torch.stack(driven["com"][-n:]).clamp(0.0, 1.0).mul(255.0).to(torch.uint8).float()
+    luma = (16.0 + 219.0 / 255.0 * (0.299 * u8[..., 0] + 0.587 * u8[..., 1]
+                                     + 0.114 * u8[..., 2])).cpu().numpy()
+    y_err = float(np.abs(planes[:, 0].astype(np.float32) - luma).max()) if len(planes) == n \
+        else float("inf")
+    print(f"[audio_video] {out['video']}: {tags}, {planes.shape[0]} frames of "
+          f"{planes.shape[3]}x{planes.shape[2]}, Y' vs the frames' luma max {y_err:.3f} (tol 1)",
+          flush=True)
+    if (tags["W"], tags["H"], tags["C"]) != (str(W), str(H), "444") or y_err > 1.0:
+        _fail("the video does not hold the driven frames")
+    os.remove(out["video"])
+    os.rmdir(os.path.dirname(out["video"]))
+    del u8, luma, planes
+    driven["com"].clear()
+
+    # a driven frame just after a swap against the plain versions
+    err = _after_swap_vs_plain("audio_video frame after a swap", render, driven["args"],
+                               lambda i: checked(lambda: driven["frame"](*driven["args"])))
+    got = {name: k.launches + k.worker_launches for name, k in kernels.items()}
+    del render, driven
+
+    # the DeepSpeech path: dense frames (render_rays <1,1,1>) driven by the
+    # card's DeepSpeech features through AudioNet
+    ds_cfg = ExperimentConfig(
+        render=RenderConfig(n_samples=N_SAMPLES, concate_bg=True, compute_dtype="bfloat16",
+                            use_fused_kernel=True, spatial_tiles=True),
+        signal=SignalConfig(audio_net="deepspeech"))
+    n_ds = feats_ds.shape[0]
+    ds_scene = make_synthetic_scene(n_frames=n_ds, H=H, W=W, seed=0)
+    ds_state = init_train_state(ds_cfg, seed=0, device="cuda")
+    params_cpu = copy.deepcopy(ds_state["params"]).cpu()
+    host = [torch.from_numpy(x) for x in (feats_ds, ds_scene.exps, ds_scene.poses)]
+    auds, exps, poses = (x.cuda() for x in host)
+    bc_img = torch.from_numpy(ds_scene.bc_img).cuda()
+    dense = renderer.make_frame_renderer(ds_cfg, ds_scene.hwfcxy, ds_scene.near, ds_scene.far)
+    render_rays_kernel.launches = 0
+    sig_err = 0.0
+    for i in AV_DS_FRAMES:
+        sig, sig_t = renderer.encode_frame_signals(ds_state["params"], auds, exps, poses, i, n_ds,
+                                                   ds_cfg, True)
+        ref = renderer.encode_frame_signals(params_cpu, *host, i, n_ds, ds_cfg, True)
+        sig_err = max(sig_err, float((sig.cpu() - ref[0]).abs().max()),
+                      float((sig_t.cpu() - ref[1]).abs().max()))
+        head, com = dense(ds_state["params"], ds_state["z_shape"], ds_state["z_app"], poses[i],
+                          poses[0], sig, sig_t, bc_img)
+        _check_frame(f"DeepSpeech-driven frame {i}", head, com)
+    torch.cuda.synchronize()
+    got["render_rays"] = render_rays_kernel.launches
+    print(f"[audio_video] DeepSpeech-driven frames {AV_DS_FRAMES} ({n_ds} windows of "
+          f"{tuple(feats_ds.shape[1:])}): signals card vs CPU max {sig_err:.3e} (tol "
+          f"{AV_TOL['signal']:g}); frames finite, in [0, 1]; render_rays launches "
+          f"{got['render_rays']}", flush=True)
+    if sig_err > AV_TOL["signal"] or got["render_rays"] != len(AV_DS_FRAMES):
+        _fail("the DeepSpeech-driven frames")
+    print(f"[audio_video] launches over the phase's driving {got}; frame-level error vs plain "
+          f"{err:.3e}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if min(got.values()) == 0:
+        _fail(f"a kernel of the audio to video path never launched: {got}")
     return got
 
 
@@ -3463,9 +3731,12 @@ def main() -> int:
     card = smi.splitlines()[0]
     cfg1_launches = phase_cfg1()
     cfg2_launches = phase_cfg2(card)
+    av_launches = phase_audio_video(card)
     for entry in pair_kernels:
-        # the pair path's launches and those of the cfg1 and cfg2 paths
-        entry["launches"] += cfg1_launches[entry["name"]] + cfg2_launches[entry["name"]]
+        # the pair path's launches and those of the cfg1, cfg2 and audio to
+        # video paths
+        entry["launches"] += (cfg1_launches[entry["name"]] + cfg2_launches[entry["name"]]
+                              + av_launches[entry["name"]])
     phase_hier_kernels_vs_plain()
     hier_dense, noskip_frames = phase_hier_dense_main_path()
     hier_pairs = phase_hier_pair_main_path(noskip_frames[:N_FRAMES])
@@ -3485,7 +3756,7 @@ def main() -> int:
     missing = set(CLASS_VARIANTS) - {e["name"] for e in serve}
     if missing:
         _fail(f"the serving path ran no segment of {sorted(missing)}")
-    kernel["launches"] += phase_train(card)
+    kernel["launches"] += phase_train(card) + av_launches["render_rays"]
     print(f"[total] chip_smoke.py {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + hier_dense + hier_pairs

@@ -1,0 +1,125 @@
+"""Command line of the port (counterpart of dfanerf_tpu/cli.py):
+
+    python -m dfanerf_torch.cli train  --synthetic [--config cfg.json] [--n-iters N]
+    python -m dfanerf_torch.cli render --synthetic --ckpt runs/x/000100.npz [--video]
+
+Both run on CUDA unless ``--device cpu`` is given. ``render`` writes the
+composite and the head-only frames as binary PPM (``render_com/`` and
+``render_head/``, ``test_{i:06d}.ppm``) and, with ``--video``, a
+YUV4MPEG2 video ``<expname>.y4m``: formats that numpy alone writes.
+
+Only the built-in synthetic scene (``--synthetic``: 40 frames, 128x128) is
+ported as a dataset: an identity's dataset and a driving manifest
+(``--test-file``) wait for ``load_audface_dataset`` (ROADMAP.md queue 1,
+item 2); ``process`` waits for the preprocessing pipeline (item
+7), ``bench`` for the port's benchmark (item 3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+
+def _build_parser():
+    p = argparse.ArgumentParser(prog="dfanerf_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sub.add_parser("process", help="run preprocessing steps (not ported)")
+
+    tp = sub.add_parser("train", help="train the conditioned NeRF")
+    tp.add_argument("--config", default=None, help="ExperimentConfig json")
+    tp.add_argument("--expname", default=None)
+    tp.add_argument("--n-iters", type=int, default=None)
+    tp.add_argument("--resume", default="auto")
+    tp.add_argument("--synthetic", action="store_true",
+                    help="train on the built-in synthetic scene (no assets)")
+    tp.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    rp = sub.add_parser("render", help="render frames and video from a checkpoint")
+    rp.add_argument("--config", default=None)
+    rp.add_argument("--expname", default=None)
+    rp.add_argument("--ckpt", required=True)
+    rp.add_argument("--test-file", default=None,
+                    help="driving manifest (not ported)")
+    rp.add_argument("--out", default="render_out")
+    rp.add_argument("--video", action="store_true")
+    rp.add_argument("--synthetic", action="store_true")
+    rp.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    sub.add_parser("bench", help="run the benchmark (not ported)")
+    return p
+
+
+def _load_cfg(args):
+    from dfanerf_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_json(args.config) if args.config else ExperimentConfig()
+    return dataclasses.replace(cfg, expname=args.expname) if args.expname else cfg
+
+
+def _load_dataset(args, device):
+    if getattr(args, "test_file", None) or not args.synthetic:
+        raise NotImplementedError(
+            "only --synthetic is ported as a dataset: an identity directory and a driving "
+            "manifest wait for load_audface_dataset (ROADMAP.md queue 1, item 2)")
+    from dfanerf_torch.data.synthetic import make_synthetic_dataset
+
+    return make_synthetic_dataset(n_frames=40, H=128, W=128, device=device)
+
+
+def cmd_train(args):
+    from dfanerf_torch.device import resolve_device
+    from dfanerf_torch.train.loop import train_loop
+
+    dev = resolve_device(args.device)
+    cfg = _load_cfg(args)
+    ds = _load_dataset(args, dev)
+    train_loop(cfg, ds, n_iters=args.n_iters, resume=args.resume, device=dev)
+
+
+def cmd_render(args):
+    from dfanerf_torch.device import resolve_device
+    from dfanerf_torch.render.audio_video import write_ppm, write_y4m
+    from dfanerf_torch.render.renderer import render_video_frames
+    from dfanerf_torch.train.checkpoint import load_checkpoint
+    from dfanerf_torch.train.state import init_train_state
+    from dfanerf_torch.train.step import dataset_to_device
+
+    dev = resolve_device(args.device)
+    cfg = _load_cfg(args)
+    ds = _load_dataset(args, dev)
+    state = load_checkpoint(args.ckpt, init_train_state(cfg, seed=0, device=dev))
+    data = dataset_to_device(ds, dev)
+    frames, frames_head = render_video_frames(
+        state, data, cfg, ds.hwfcxy, ds.near, ds.far, list(range(ds.n_frames)),
+        use_smoothing=state["step"] >= cfg.signal.nosmo_iters, device=dev)
+    # the composite and the head-only frames, as the reference's render writes them
+    for sub, stack in (("render_com", frames), ("render_head", frames_head)):
+        os.makedirs(os.path.join(args.out, sub), exist_ok=True)
+        for i, fr in enumerate(stack):
+            write_ppm(os.path.join(args.out, sub, f"test_{i:06d}.ppm"), fr)
+    if args.video:
+        path = os.path.join(args.out, f"{cfg.expname}.y4m")
+        write_y4m(path, frames, fps=25)
+        print(f"[render] wrote {path}")
+    print(f"[render] wrote {len(frames)} frames to {args.out}")
+
+
+def main(argv=None):
+    args = _build_parser().parse_args(argv)
+    if args.cmd == "train":
+        cmd_train(args)
+    elif args.cmd == "render":
+        cmd_render(args)
+    elif args.cmd == "process":
+        raise NotImplementedError(
+            "process: the preprocessing pipeline is not ported (ROADMAP.md queue 1, item 7)")
+    else:
+        raise NotImplementedError(
+            "bench: the port's benchmark is not written yet (ROADMAP.md queue 1, item 3)")
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,13 @@ names are the same keys. Conversion, given the tree as numpy arrays:
   '.': ["decoder"]["blocks"][3]["w"] -> "decoder.blocks.3.weight";
 - a Linear ``w`` [in, out] becomes ``weight`` [out, in];
 - a conv1d ``w`` [k, c_in, c_out] (HIO) becomes ``weight`` [c_out, c_in, k];
+- a conv2d ``w`` [kh, kw, c_in, c_out] (HWIO) becomes ``weight``
+  [c_out, c_in, kh, kw] (OIHW);
 - ``b`` becomes ``bias``.
+
+The wav2exp encoder's tree (``{"blocks": [{"w", "b", "bn": {"gamma", "beta",
+"mean", "var"}}]}``) converts with ``audio_encoder_state_dict`` to the
+reference's ``audio_encoder.pth`` keys.
 
 The conversion is exact (a transpose), so the inverse recovers the tree
 bit for bit. The optimizer moments of a group are trees of the same layout
@@ -32,12 +38,20 @@ _LEAF = {"w": "weight", "b": "bias"}
 _LEAF_INV = {v: k for k, v in _LEAF.items()}
 
 
+# weight axes, reference layout -> torch layout, by rank
+_WEIGHT_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+# BatchNorm2d leaves, reference -> torch
+_BN_LEAF = {"gamma": "weight", "beta": "bias", "mean": "running_mean", "var": "running_var"}
+
+
 def _to_torch_weight(w: np.ndarray) -> np.ndarray:
-    if w.ndim == 2:
-        return w.T
-    if w.ndim == 3:
-        return w.transpose(2, 1, 0)
-    raise ValueError(f"unexpected weight rank {w.ndim}")
+    if w.ndim not in _WEIGHT_AXES:
+        raise ValueError(f"unexpected weight rank {w.ndim}")
+    return w.transpose(_WEIGHT_AXES[w.ndim])
+
+
+def _to_jax_weight(w: np.ndarray) -> np.ndarray:
+    return w.transpose(np.argsort(_WEIGHT_AXES[w.ndim]))
 
 
 def params_to_state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -68,7 +82,7 @@ def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         arr = val.detach().cpu().numpy()
         if leaf == "weight":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+            arr = _to_jax_weight(arr)
         node[_LEAF_INV[leaf]] = np.ascontiguousarray(arr)
 
     def listify(node):
@@ -80,6 +94,21 @@ def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         return node
 
     return listify(tree)
+
+
+def audio_encoder_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference package's wav2exp encoder params (numpy) -> the state
+    dict of pipeline/audio/wav2exp.py AudioEncoder, which is the
+    reference's ``audio_encoder.pth`` layout."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, block in enumerate(tree["blocks"]):
+        pre = f"audio_encoder.{i}.conv_block"
+        sd[f"{pre}.0.weight"] = torch.tensor(_to_torch_weight(np.asarray(block["w"])))
+        sd[f"{pre}.0.bias"] = torch.tensor(np.asarray(block["b"]))
+        for leaf, name in _BN_LEAF.items():
+            sd[f"{pre}.1.{name}"] = torch.tensor(np.asarray(block["bn"][leaf]))
+        sd[f"{pre}.1.num_batches_tracked"] = torch.tensor(0)
+    return sd
 
 
 def state_from_jax(jax_state: Dict[str, Any], cfg: ExperimentConfig, device=None) -> TrainState:

@@ -21,7 +21,7 @@ class FrameDataset:
     conditioning, the reference loader's dict with the images decoded."""
 
     poses: np.ndarray            # [N, 4, 4] float32 camera-to-world
-    auds: np.ndarray             # [N, 512] wav2exp features
+    auds: np.ndarray             # [N, 512] wav2exp features or [N, 16, 29] DeepSpeech windows
     exps: Optional[np.ndarray]   # [N, 64] expression codes
     imgs_head: Optional[np.ndarray]  # [N, H, W, 3] uint8 head+neck targets
     imgs_com: Optional[np.ndarray]   # [N, H, W, 3] uint8 composite targets

@@ -1,8 +1,7 @@
 """Conditioning-signal encoders (port of dfanerf_tpu/models/encoders.py):
-AudioNet_W2L, ExpressionEnc and AudioAttNet. They run once per frame; their
-outputs become per-frame constants folded into the decoder's biases.
-
-The DeepSpeech ``AudioNet`` is not ported yet (ROADMAP.md queue 1, item 5).
+AudioNet_W2L, the DeepSpeech AudioNet, ExpressionEnc, ExpressionEncHalf and
+AudioAttNet. They run once per frame; their outputs become per-frame
+constants folded into the decoder's biases.
 """
 
 from __future__ import annotations
@@ -38,6 +37,43 @@ class ExpressionEnc(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(leaky_relu(self.fc1(x)))
+
+
+class ExpressionEncHalf(nn.Module):
+    """64 -> 32 -> 64 MLP, the identity-width variant of ExpressionEnc."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc1 = nn.Linear(64, 32)
+        self.fc2 = nn.Linear(32, 64)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(leaky_relu(self.fc1(x)))
+
+
+class AudioNet(nn.Module):
+    """The DeepSpeech path's encoder: [N, 16, 29] windows of logits (or one
+    window [16, 29]), centre-cropped to ``win_size`` around index 8, through
+    four stride-2 conv1d over time (channel-last), then 64 -> 64 -> dim_aud."""
+
+    def __init__(self, dim_aud: int = 76):
+        super().__init__()
+        self.conv1 = Conv1d(29, 32, 3, stride=2, padding=1)
+        self.conv2 = Conv1d(32, 32, 3, stride=2, padding=1)
+        self.conv3 = Conv1d(32, 64, 3, stride=2, padding=1)
+        self.conv4 = Conv1d(64, 64, 3, stride=2, padding=1)
+        self.fc1 = nn.Linear(64, 64)
+        self.fc2 = nn.Linear(64, dim_aud)
+
+    def forward(self, x: torch.Tensor, win_size: int = 16) -> torch.Tensor:
+        if x.ndim == 2:
+            return self.forward(x[None], win_size)[0]
+        half = win_size // 2
+        x = x[:, 8 - half:8 + half, :]
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            x = leaky_relu(conv(x))
+        x = leaky_relu(self.fc1(x[:, 0, :]))
+        return self.fc2(x)
 
 
 class AudioAttNet(nn.Module):

@@ -31,10 +31,10 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.02) -> torch.Tensor:
 
 @torch.no_grad()
 def init_uniform_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """torch's default Linear/Conv1d init, U(+-1/sqrt(fan_in)) for weight and
-    bias, drawn in module order from ``generator``."""
+    """torch's default Linear/Conv1d/Conv2d init, U(+-1/sqrt(fan_in)) for
+    weight and bias, drawn in module order from ``generator``."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)

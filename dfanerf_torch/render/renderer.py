@@ -1468,7 +1468,7 @@ def encode_frame_signals(params, auds, exps, poses, img_i: int, n_valid: int,
     signal_torso [dim_et_embed]). auds/exps/poses are tensors on the
     params' device."""
     sig = encode_signal(params, auds, exps, img_i, n_valid, cfg.signal.smo_size,
-                        use_smoothing, cfg.signal.audio_net)
+                        use_smoothing, cfg.signal.audio_net, cfg.signal.win_size)
     sig_t = encode_signal_torso(params, poses, img_i, n_valid, cfg.signal.smo_torso_size,
                                 use_smoothing, cfg.signal.et_multires)
     return sig, sig_t

@@ -46,7 +46,7 @@ def train_loop(
         there (``trace.json``, Chrome trace format).
     debug_nans: run under torch.autograd.set_detect_anomaly (expensive).
     val_render: every i_test_person steps render every 100th held-out frame
-        and log its PSNR (imageio writes prediction | target side by side).
+        and log its PSNR (prediction | target side by side, a binary PPM).
     """
     dev = resolve_device(device)
     run_dir = run_dir or os.path.join(cfg.basedir, cfg.expname)
@@ -104,10 +104,10 @@ def train_loop(
 
 
 def _render_val(cfg, ds, data, state, run_dir, step, mf, dev):
-    """Every 100th held-out frame: prediction | target jpgs and the mean PSNR
-    into metrics.jsonl (the reference's [TEST] lines)."""
-    import imageio.v2 as imageio
-
+    """Every 100th held-out frame: prediction | target images and the mean
+    PSNR into metrics.jsonl (the reference's [TEST] lines). The images are
+    PPM, not the reference's JPEG: numpy alone writes them."""
+    from dfanerf_torch.render.audio_video import write_ppm
     from dfanerf_torch.render.renderer import render_video_frames
 
     out_dir = os.path.join(run_dir, f"test_{step}")
@@ -121,8 +121,7 @@ def _render_val(cfg, ds, data, state, run_dir, step, mf, dev):
     for k, fi in enumerate(idx):
         gt = np.asarray(ds.imgs_com[fi])
         pred = frames[k]
-        imageio.imwrite(os.path.join(out_dir, f"test_{k:03d}.jpg"),
-                        np.concatenate([pred, gt], axis=1))
+        write_ppm(os.path.join(out_dir, f"test_{k:03d}.ppm"), np.concatenate([pred, gt], axis=1))
         mse = float(np.mean((pred.astype(np.float32) / 255 - gt.astype(np.float32) / 255) ** 2))
         psnrs.append(-10.0 * np.log10(max(mse, 1e-10)))
     m = {"step": step, "val_psnr": float(np.mean(psnrs)), "n_val": len(idx)}

@@ -1,5 +1,5 @@
-"""Per-frame conditioning signals (port of dfanerf_tpu/train/signals.py,
-w2l path, and the half-signal image ``get_half_signals``).
+"""Per-frame conditioning signals (port of dfanerf_tpu/train/signals.py and
+the half-signal image ``get_half_signals``).
 
 The smoothing window [i - w/2, i + w/2) is a clamped gather times a validity
 mask (zero outside [0, n_valid)). ``use_smoothing`` selects the attention-
@@ -32,18 +32,19 @@ def encode_signal(
     smo_size: int,
     use_smoothing: bool,
     audio_net: str = "w2l",
+    win_size: int = 16,
 ) -> torch.Tensor:
     """Audio + expression conditioning of the head field -> [dim_signal].
 
-    params holds ``audnet``, ``expnet`` and ``audattnet`` (train/state.py)."""
-    if audio_net != "w2l":
-        raise NotImplementedError(
-            f"audio_net={audio_net!r}: the DeepSpeech AudioNet is not ported yet "
-            "(ROADMAP.md queue 1, item 5)")
+    params holds ``audnet``, ``expnet`` and ``audattnet`` (train/state.py).
+    audio_net 'w2l' runs AudioNetW2L over [N, 512] wav2exp features;
+    'deepspeech' runs AudioNet over [N, 16, 29] DeepSpeech windows,
+    centre-cropped to ``win_size``."""
+    kw = {"win_size": win_size} if audio_net == "deepspeech" else {}
     if not use_smoothing:
-        return torch.cat([params.audnet(auds[img_i]), params.expnet(exps[img_i])], dim=-1)
+        return torch.cat([params.audnet(auds[img_i], **kw), params.expnet(exps[img_i])], dim=-1)
     feat_win = torch.cat(
-        [params.audnet(window_gather(auds, img_i, smo_size, n_valid)),
+        [params.audnet(window_gather(auds, img_i, smo_size, n_valid), **kw),
          params.expnet(window_gather(exps, img_i, smo_size, n_valid))],
         dim=-1,
     )

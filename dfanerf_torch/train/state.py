@@ -17,7 +17,7 @@ from torch import nn
 from dfanerf_torch.config import ExperimentConfig
 from dfanerf_torch.core.posenc import nerf_embed_dim
 from dfanerf_torch.device import resolve_device
-from dfanerf_torch.models import AudioAttNet, AudioNetW2L, Decoder, ExpressionEnc
+from dfanerf_torch.models import AudioAttNet, AudioNet, AudioNetW2L, Decoder, ExpressionEnc
 from dfanerf_torch.models.layers import init_uniform_
 from dfanerf_torch.train.optim import adam_init
 
@@ -39,13 +39,13 @@ class Params(nn.Module):
 
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
-        if cfg.signal.audio_net != "w2l":
-            raise NotImplementedError(
-                f"audio_net={cfg.signal.audio_net!r}: the DeepSpeech AudioNet is not ported "
-                "yet (ROADMAP.md queue 1, item 5)")
         dim_et = 2 * nerf_embed_dim(cfg.signal.et_multires)
         self.decoder = Decoder(cfg.decoder)
-        self.audnet = AudioNetW2L()
+        if cfg.signal.audio_net == "deepspeech":
+            # 32 of the signal's dims come from the expression encoder
+            self.audnet = AudioNet(dim_aud=cfg.signal.dim_signal - 32)
+        else:
+            self.audnet = AudioNetW2L()
         self.expnet = ExpressionEnc()
         self.audattnet = AudioAttNet(dim_aud=cfg.signal.dim_aud, seq_len=cfg.signal.smo_size)
         self.poseattnet = AudioAttNet(dim_aud=dim_et, seq_len=cfg.signal.smo_torso_size)

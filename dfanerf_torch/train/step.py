@@ -150,7 +150,7 @@ class TrainStep:
         scfg, tcfg, rcfg = self.cfg.signal, self.cfg.train, self.cfg.render
         img_i, coords, z_vals = batch["img_i"], batch["coords"], batch["z_vals"]
         signal = encode_signal(params, data["auds"], data["exps"], img_i, self.n_train,
-                               scfg.smo_size, use_smo, scfg.audio_net)
+                               scfg.smo_size, use_smo, scfg.audio_net, scfg.win_size)
         signal_torso = encode_signal_torso(params, data["poses"], img_i, self.n_train,
                                            scfg.smo_torso_size, use_smo, scfg.et_multires)
         ys, xs = coords[:, 0], coords[:, 1]

@@ -54,8 +54,12 @@ def test_source_has_no_jax_import(path):
 def test_no_silent_cpu_fallback(tmp_path):
     """Every entry point defaults to the card: the dense and the pair
     renderer, the seeded state and the state converted from the reference,
-    the synthetic ground truth, the device data, the train step and the
-    training loop."""
+    the synthetic ground truth, the device data, the train step, the
+    training loop, the audio nets, audio to video and the cli."""
+    from dfanerf_torch import cli
+    from dfanerf_torch.pipeline.audio.deepspeech import init_deepspeech
+    from dfanerf_torch.pipeline.audio.wav2exp import audio_encoder_from_torch, init_audio_encoder
+    from dfanerf_torch.render.audio_video import e2e_audio_video
     from dfanerf_torch.compat.from_jax import state_from_jax
     from dfanerf_torch.config import ExperimentConfig, RenderConfig
     from dfanerf_torch.render.renderer import (
@@ -86,7 +90,11 @@ def test_no_silent_cpu_fallback(tmp_path):
     ds = make_synthetic_scene(n_frames=2, H=8, W=8)
     for entry in (lambda: make_synthetic_dataset(n_frames=2, H=8, W=8),
                   lambda: dataset_to_device(ds), lambda: make_train_step(dense, ds),
-                  lambda: train_loop(dense, ds, n_iters=1, run_dir=str(tmp_path))):
+                  lambda: train_loop(dense, ds, n_iters=1, run_dir=str(tmp_path)),
+                  lambda: init_audio_encoder(), lambda: audio_encoder_from_torch({}),
+                  lambda: init_deepspeech(n_hidden=8),
+                  lambda: e2e_audio_video(dense, ds, None, None, n_frames=2),
+                  lambda: cli.main(["train", "--synthetic"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 

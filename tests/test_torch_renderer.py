@@ -132,12 +132,31 @@ def test_render_video_frames(setup):
 
 
 def test_unported_configurations_raise():
-    """A configuration of the render path that is not ported raises, naming
-    its ROADMAP place: the DeepSpeech audio net behind the head's signal.
-    (Config 3's live levers, refused here until they were ported, are held
-    in tests/test_torch_live_serving.py.)"""
+    """The DeepSpeech audio net behind the head's signal, refused here until
+    it was ported, now builds and encodes ([N, 16, 29] windows through
+    AudioNet; held against the reference in tests/test_torch_audio_signals.py).
+    What is not ported raises, naming its ROADMAP place: the cli's datasets
+    other than the synthetic scene, its driving manifests, its ``process``
+    and ``bench``. (Config 3's live levers, refused here until they were
+    ported, are held in tests/test_torch_live_serving.py.)"""
+    from dfanerf_torch import cli
+    from dfanerf_torch.models import AudioNet
+    from dfanerf_torch.train.state import init_train_state
+
     base = ExperimentConfig(render=RenderConfig(**RENDER))
     cfg = dataclasses.replace(base, signal=dataclasses.replace(base.signal,
                                                                audio_net="deepspeech"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        encode_frame_signals(None, None, None, None, 0, 1, cfg, False)
+    state = init_train_state(cfg, seed=0, device="cpu")
+    assert isinstance(state["params"].audnet, AudioNet)
+    auds = torch.from_numpy(np.random.RandomState(0).randn(4, 16, 29).astype(np.float32))
+    exps = torch.zeros(4, 64)
+    poses = torch.eye(4).expand(4, 4, 4)
+    for smooth in (False, True):
+        sig, sig_t = encode_frame_signals(state["params"], auds, exps, poses, 1, 4, cfg, smooth)
+        assert sig.shape == (96,) and sig_t.shape == (42,) and bool(torch.isfinite(sig).all())
+    for argv, item in ((["train", "--device", "cpu"], "item 2"),
+                       (["render", "--ckpt", "x.npz", "--synthetic", "--test-file", "t.json",
+                         "--device", "cpu"], "item 2"),
+                       (["process"], "item 7"), (["bench"], "item 3")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+            cli.main(argv)

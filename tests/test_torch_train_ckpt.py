@@ -7,7 +7,8 @@ package loads into the other: the reference's into the port equals
 state_from_jax of the same tree, bit for bit; the port's into the
 reference equals state_to_jax of the port's state, bit for bit, leaf dtypes
 included. train_loop runs 20 steps of a small model in a temporary run
-directory, renders a held-out frame and resumes from its checkpoint."""
+directory, renders a held-out frame (prediction | target, a binary PPM:
+the card has no imageio) and resumes from its checkpoint."""
 
 import json
 import os
@@ -132,7 +133,12 @@ def test_train_loop_logs_checkpoints_and_resumes(tmp_path):
     # is off by default), prediction | target side by side
     (val,) = [m for m in lines if "val_psnr" in m]
     assert val["step"] == 20 and val["n_val"] == 1 and np.isfinite(val["val_psnr"])
-    assert os.listdir(os.path.join(run, "test_20")) == ["test_000.jpg"]
+    assert os.listdir(os.path.join(run, "test_20")) == ["test_000.ppm"]
+    with open(os.path.join(run, "test_20", "test_000.ppm"), "rb") as f:
+        magic, w, h, maxval, pix = f.read().split(maxsplit=4)
+    assert (magic, int(w), int(h), maxval) == (b"P6", 32, 16, b"255")
+    side = np.frombuffer(pix, np.uint8).reshape(16, 32, 3)
+    np.testing.assert_array_equal(side[:, 16:], ds.imgs_com[ds.i_val[0]])
     assert sorted(os.listdir(run)) == ["000010.npz", "000020.npz", "config.json",
                                        "metrics.jsonl", "test_20"]
     assert ExperimentConfig.from_json(os.path.join(run, "config.json")) == cfg
