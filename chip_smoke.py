@@ -122,13 +122,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    step 2000): the synthetic scene's ground truth (8 frames, 450x450) built
    on the card and one frame held against the CPU (1 LSB); one float32 step
    (TF32 off) on the card against the same step on the CPU (rtol 1e-4);
-   300 steps through train_loop from the seed's weights (loss falling below
+   200 steps through train_loop from the seed's weights (loss falling below
    0.6x, the checkpoint read back bit for bit); warm ms per step with the
    distortion term off and on under sync debug mode "error", the peak
    memory and the recipe's projected time; a held-out frame of the trained
    weights from render_rays against the unfused float32 renderer, with the
    val PSNR of both (render_rays' launches join its entry below);
-19. print the script's total time, the card's name and power limit, then
+19. BASELINE config 5 and the rest of training, on 18's scene: through
+   initialize (an NCCL process group of one rank) and make_mesh, one
+   sharded step bit for bit against TrainStep.step_on_batch on the same
+   batch (distortion and clip off; the signal nets, which the reference's
+   sharded step never trains, left as they were), a float32 sharded step
+   against the same step on the CPU (gloo, rtol 1e-4), warm ms per step
+   beside TrainStep's and the all-reduce's own ms; multi-identity training
+   of 2 objects (a second scene, seed 1, 4 frames), static and dynamic
+   speaker (speaking frames mixing both branches), each MULTI_STEPS steps
+   with the loss falling below 0.6x and warm ms per step, then a held-out
+   frame of object 0 from render_rays against the unfused float32 field;
+   the sparsity prior's three modes, a float32 step each against the CPU
+   (same draws, rtol 1e-4) and warm bf16 ms per step beside the step
+   without it; an 8-frame identity directory written with OpenCV (JPEG,
+   manifests, features) and loaded (every frame equal to cv2.imread's),
+   cli train --datadir and cli render --test-file on it (450x450 frames,
+   render_rays once a frame). Every timed step runs under sync debug mode
+   "error";
+20. print the script's total time, the card's name and power limit, then
    one JSON line listing every ported kernel with its launches, error and
    times, and last a JSON status line.
 
@@ -142,6 +160,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -1778,7 +1797,7 @@ CFG2_TIMED, CFG2_PASSES = 20, 3  # bench_fps (serve_trained.py:78)
 # paced_live_protocol (serve_trained.py:430-487): 25 fps arrivals, a ring of
 # 4 frames in flight, 32 settle frames, 120 measured
 CFG2_FPS, CFG2_DEPTH, CFG2_SETTLE, CFG2_PACED = 25.0, 4, 32, 120
-CFG2_DROP_FRAMES = 24  # the budget-2e-2 renderer's frames, its worker joined
+CFG2_DROP_FRAMES = 16  # the budget-2e-2 renderer's frames, its worker joined
 
 
 def _sync_error(fn):
@@ -3405,11 +3424,11 @@ def phase_serve_epilogue_kernel_form(args):
 # first TRAIN_WINDOW's (tests/test_train.py:30-41). The recipe's projected
 # training time is RECIPE_STEPS steps (12,000 with distortion from 2,000, then
 # a 2,000-step polish without).
-TRAIN_STEPS, TRAIN_WINDOW, TRAIN_DROP = 300, 20, 0.6
+TRAIN_STEPS, TRAIN_WINDOW, TRAIN_DROP = 200, 20, 0.6
 # Warm ms per step: TRAIN_TURNS turns of TRAIN_TIMED steps for each setting
 # of the distortion term, in ABBA order, reported as the median and the spread
 # of the turns; then a torch.profiler trace of TRAIN_PROFILED steps.
-TRAIN_TIMED, TRAIN_TURNS, TRAIN_WARM, TRAIN_PROFILED = 50, 5, 3, 10
+TRAIN_TIMED, TRAIN_TURNS, TRAIN_WARM, TRAIN_PROFILED = 50, 3, 3, 10
 PARITY_RAYS = 256
 RECIPE_STEPS = {"distortion off": 2000 + 2000, "distortion on": 12000 - 2000}
 # The trained field served by the render_rays kernel (bf16) against the
@@ -3540,7 +3559,7 @@ def phase_train(card):
     bit); warm ms per step with the distortion term off and on, with no host
     sync; the peak memory; then a held-out frame of the trained weights from
     render_rays against the unfused float32 renderer. Returns the
-    render_rays launches of that render."""
+    render_rays launches of that render and the scene."""
     import copy
     import tempfile
 
@@ -3689,6 +3708,432 @@ def phase_train(card):
     if h_max >= SERVE_BARS["head_max"] or h_mean >= SERVE_BARS["head_mean"] \
             or c_mean >= SERVE_BARS["com_mean"]:
         _fail("the trained frame from render_rays is outside the bars of the unfused field")
+    return launches, ds
+
+
+
+# BASELINE config 5 (phase_config5). Steps of each multi-identity run (loss
+# falling below MULTI_DROP x its first MULTI_WINDOW steps' mean over the last
+# MULTI_WINDOW, phase_train's rule), its warm steps, then its steps timed in
+# turns of MULTI_TURN (CUDA events, sync debug "error").
+MULTI_STEPS, MULTI_WINDOW, MULTI_DROP, MULTI_WARM, MULTI_TURN = 80, 20, 0.6, 20, 20
+# the second identity: another seed, fewer frames; the dynamic-speaker run's
+# speaking frames mix both branches
+MULTI_FRAMES2, MULTI_SEED2 = 4, 1
+MULTI_SPEAK = ((1, 0, 1, 0, 1, 0, 1, 0), (0, 1, 1, 0))
+# warm ms per step: CONFIG5_TURNS turns of CONFIG5_TIMED steps after
+# CONFIG5_WARM, median over the turns
+CONFIG5_TURNS, CONFIG5_TIMED, CONFIG5_WARM = 3, 15, 3
+SPARSITY_LAMBDA, SPARSITY_POINTS = 1e-3, 4096
+CLI_STEPS, CLI_FRAMES = 4, 3
+
+
+def _median_turns(run_turn, labels, turns=CONFIG5_TURNS):
+    """{label: (median ms, per-turn ms)} over ``turns`` turns, each running
+    ``run_turn(label)`` for every label in a rotated order."""
+    import numpy as np
+
+    ms = {label: [] for label in labels}
+    for turn in range(turns):
+        for label in labels[turn % len(labels):] + labels[:turn % len(labels)]:
+            ms[label].append(run_turn(label))
+    return {label: (float(np.median(v)), v) for label, v in ms.items()}
+
+
+def _same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def _f32_ulps(a, b) -> int:
+    """The largest distance in float32 ulps between two float32 tensors."""
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def _config5_sharded(card, ds, mesh):
+    """The ray-sharded step over the NCCL mesh of one rank: one step against
+    TrainStep.step_on_batch on the same batch (distortion and clip off) bit
+    for bit; a float32 step on the card against the same step on the CPU;
+    warm ms per step and the all-reduce's own ms."""
+    import copy
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from dfanerf_torch.parallel import make_sharded_train_step
+    from dfanerf_torch.parallel.mesh import all_reduce_mean
+    from dfanerf_torch.train.state import init_train_state
+    from dfanerf_torch.train.step import dataset_to_device, make_train_step
+
+    cfg = _recipe_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, distortion_lambda=0.0))
+    data = dataset_to_device(ds, "cuda")
+    sharded = make_sharded_train_step(cfg, ds, mesh)
+    single = make_train_step(cfg, ds, device="cuda")
+    state = init_train_state(cfg, seed=0, device="cuda")
+    a, b = copy.deepcopy(state), copy.deepcopy(state)
+    batch = sharded.draw_batch(torch.Generator().manual_seed(5))
+    a, ma = single.step_on_batch(a, data, batch)
+    b, mb = sharded.step_on_batch(b, data, batch)
+    torch.cuda.synchronize()
+    same = {k: _same_bits(ma[k], mb[k]) for k in ("loss", "loss_head", "loss_com")}
+    diffs = []
+    for (n, pa), pb, p0 in zip(a["params"].named_parameters(), b["params"].parameters(),
+                               state["params"].parameters()):
+        if n.startswith("decoder."):
+            if not _same_bits(pa, pb):
+                diffs.append((n, _f32_ulps(pa.detach(), pb.detach())))
+        elif not _same_bits(pb, p0):
+            _fail(f"the sharded step moved {n}: its signals are encoded outside the gradient")
+    for k in ("m", "v"):
+        for n, t in a["opt"]["decoder"][k].items():
+            if not _same_bits(t, b["opt"]["decoder"][k][n]):
+                diffs.append((f"opt.decoder.{k}.{n}", _f32_ulps(t, b["opt"]["decoder"][k][n])))
+    moved = [n for (n, pa), p0 in zip(a["params"].named_parameters(),
+                                      state["params"].parameters())
+             if not n.startswith("decoder.") and not _same_bits(pa, p0)]
+    print(f"[config5] one sharded step (NCCL, world 1) vs TrainStep.step_on_batch, same batch, "
+          f"bf16, {cfg.train.n_rand} rays, distortion and clip off: losses bit for bit "
+          f"{json.dumps(same)}; decoder parameters and moments: "
+          f"{'bit for bit' if not diffs else f'{len(diffs)} differ, float32 ulps {diffs[:6]}'}; "
+          f"the signal nets, which TrainStep moves ({len(moved)} tensors), stay put in the "
+          f"sharded step (the reference's signals outside the gradient)", flush=True)
+    if not all(same.values()) or diffs:
+        _fail("the sharded step at world 1 differs from TrainStep on the same batch")
+    del a, b
+
+    # float32: the card against the CPU, over a gloo mesh of the same rank
+    cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu",
+                                     mesh_dim_names=("rays",))
+    cfg32 = dataclasses.replace(_recipe_cfg(compute_dtype="float32"), train=dataclasses.replace(
+        cfg.train, n_rand=PARITY_RAYS))
+    batch = make_sharded_train_step(cfg32, ds, cpu_mesh).draw_batch(
+        torch.Generator().manual_seed(6))
+    metrics = {}
+    for dev, m in (("cpu", cpu_mesh), ("cuda", mesh)):
+        st = init_train_state(cfg32, seed=0, device=dev)
+        bt = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()}
+        _, metrics[dev] = make_sharded_train_step(cfg32, ds, m).step_on_batch(
+            st, dataset_to_device(ds, dev), bt)
+    rel = {k: abs(float(metrics["cuda"][k]) / float(metrics["cpu"][k]) - 1)
+           for k in ("loss", "loss_head", "loss_com")}
+    print(f"[config5] float32 sharded step ({PARITY_RAYS} rays), card (NCCL) vs CPU (gloo): "
+          f"relative differences {json.dumps(rel)}", flush=True)
+    if max(rel.values()) > 1e-4:
+        _fail(f"the float32 sharded step on the card differs from the CPU's: {rel}")
+
+    # warm ms per step beside TrainStep's, and the all-reduce alone
+    gen = torch.Generator().manual_seed(7)
+    steps = {"sharded": (sharded, copy.deepcopy(state)), "single": (single, copy.deepcopy(state))}
+
+    def turn(label):
+        step, st = steps[label]
+        for _ in range(CONFIG5_WARM):
+            step(st, data, gen)
+        return _timed_steps(step, st, data, gen, CONFIG5_TIMED)[0]
+
+    med = _median_turns(turn, list(steps))
+    params = steps["sharded"][1]["params"]
+    n_bucket = sum(p.numel() for p in params.parameters()) + 3
+    bucket = torch.zeros(n_bucket, device="cuda")
+    for p in params.parameters():
+        p.grad = torch.zeros_like(p)
+    losses = [torch.zeros((), device="cuda")] * 3
+    ar_ms = _cuda_ms(lambda: dist.all_reduce(bucket, group=mesh.get_group()), 50)
+    mean_ms = _cuda_ms(lambda: all_reduce_mean(params, losses, mesh), 50)
+    for p in params.parameters():
+        p.grad = None
+    for label, (m, v) in med.items():
+        print(f"[config5] {label} step (bf16, {cfg.train.n_rand} rays, distortion off): median "
+              f"{m:.3f} ms per step over {CONFIG5_TURNS} turns of {CONFIG5_TIMED} (CUDA events, "
+              f"sync debug error): {[round(x, 3) for x in v]}; {card}", flush=True)
+    print(f"[config5] the gradient all-reduce, world 1 (NCCL): all_reduce of the "
+          f"{n_bucket * 4 / 2 ** 20:.2f} MiB bucket {ar_ms:.4f} ms; with the flatten, the "
+          f"division and the views (all_reduce_mean) {mean_ms:.4f} ms; sharded - single "
+          f"{med['sharded'][0] - med['single'][0]:+.3f} ms; {card}", flush=True)
+
+
+def _run_multi(step, state, data_list, gen):
+    """MULTI_STEPS steps: the losses (read once, at the end) and the warm ms
+    per step of the turns after MULTI_WARM (CUDA events, sync debug error)."""
+    import numpy as np
+
+    losses, turns = [], []
+    for i in range(MULTI_STEPS):
+        if i >= MULTI_WARM and (i - MULTI_WARM) % MULTI_TURN == 0:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")
+        state, m = step(state, data_list, gen)
+        losses.append(m["loss"])
+        if i >= MULTI_WARM and (i - MULTI_WARM) % MULTI_TURN == MULTI_TURN - 1:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.set_sync_debug_mode("default")
+            end.synchronize()
+            turns.append(start.elapsed_time(end) / MULTI_TURN)
+    return state, torch.stack(losses).cpu().numpy(), float(np.median(turns)), turns
+
+
+def _config5_multi(card, ds):
+    """Multi-identity training, n_object=2: static and dynamic speaker,
+    the loss falling and the warm ms per step; then a frame of object 0 of
+    the static run's state from render_rays against the unfused float32
+    field. Returns render_rays' launches."""
+    import numpy as np
+
+    import dfanerf_torch.render.renderer as renderer
+    from dfanerf_torch.data.synthetic import make_synthetic_dataset
+    from dfanerf_torch.ops.fused_render import render_rays_kernel
+    from dfanerf_torch.parallel.multi import make_multi_identity_train_step
+    from dfanerf_torch.train.state import init_train_state
+
+    t0 = time.time()
+    ds2 = make_synthetic_dataset(n_frames=MULTI_FRAMES2, H=H, W=W, n_samples_gt=N_SAMPLES,
+                                 seed=MULTI_SEED2, device="cuda")
+    print(f"[config5] second identity: {MULTI_FRAMES2} frames {H}x{W}, seed {MULTI_SEED2}, "
+          f"{time.time() - t0:.2f} s", flush=True)
+    cfg = _recipe_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, n_object=2))
+    trained = None
+    for dynamic in (False, True):
+        dss = [ds, ds2]
+        if dynamic:
+            dss = [dataclasses.replace(d, speak_frames=np.array(s, np.int32))
+                   for d, s in zip(dss, MULTI_SPEAK)]
+        step, data_list = make_multi_identity_train_step(cfg, dss, dynamic_speaker=dynamic,
+                                                         device="cuda")
+        state = init_train_state(cfg, seed=0, device="cuda")
+        state, losses, ms, turns = _run_multi(step, state, data_list,
+                                              torch.Generator().manual_seed(8))
+        first, last = losses[:MULTI_WINDOW].mean(), losses[-MULTI_WINDOW:].mean()
+        branches = sorted({step.speaks(o, int(i)) for o, ob in enumerate(step.objects)
+                           for i in ob.i_train})
+        print(f"[config5] multi-identity, {'dynamic' if dynamic else 'static'} speaker, 2 "
+              f"objects ({MULTI_STEPS} steps, bf16, {cfg.train.n_rand} rays each): mean loss "
+              f"of the first {MULTI_WINDOW} {first:.5f}, of the last {last:.5f} "
+              f"({last / first:.3f}x); branches speaking {branches}; warm median {ms:.3f} ms "
+              f"per step, turns of {MULTI_TURN}: {[round(x, 3) for x in turns]} (CUDA events, "
+              f"sync debug error); counters {[o['t'] for o in state['opt'].values()]}; {card}",
+              flush=True)
+        if not np.isfinite(losses).all() or not last < MULTI_DROP * first:
+            _fail(f"multi-identity ({'dynamic' if dynamic else 'static'}) did not converge: "
+                  f"{first:.5f} -> {last:.5f}")
+        if dynamic and branches != [False, True]:
+            _fail("the dynamic-speaker run did not mix both branches")
+        if not dynamic:
+            trained = state
+
+    # a frame of object 0 of the static run: render_rays vs the unfused field
+    i = int(ds.i_val[0])
+    auds, exps, poses = (torch.from_numpy(x).cuda() for x in (ds.auds, ds.exps, ds.poses))
+    bc_img = torch.from_numpy(ds.bc_img).cuda()
+    params = trained["params"]
+    sig, sig_t = renderer.encode_frame_signals(params, auds, exps, poses, i, ds.n_frames, cfg,
+                                               False)
+    args = (params, trained["z_shape"][:2], trained["z_app"][:2], poses[i], poses[0], sig,
+            sig_t, bc_img)
+    unfused = renderer.make_frame_renderer(dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, use_fused_kernel=False, compute_dtype="float32")), ds.hwfcxy, ds.near, ds.far)
+    head_r, com_r = unfused(*args)
+    render = renderer.make_frame_renderer(cfg, ds.hwfcxy, ds.near, ds.far)
+    torch.cuda.synchronize()
+    render_rays_kernel.launches = 0
+    head, com = render(*args)
+    torch.cuda.synchronize()
+    launches = render_rays_kernel.launches
+    if launches != 1:
+        _fail(f"render_rays launched {launches} times for object 0's frame")
+    _check_frame("config5 object 0", head, com)
+    (h_max, h_mean), (_, c_mean) = _errors(head, head_r), _errors(com, com_r)
+    print(f"[config5] held-out frame {i} of object 0 of the multi-identity state, render_rays "
+          f"(bf16) vs the unfused float32 field: head max {h_max:.3e} mean {h_mean:.3e}, com "
+          f"mean {c_mean:.3e} (bars {SERVE_BARS}); render_rays launches {launches}", flush=True)
+    if h_max >= SERVE_BARS["head_max"] or h_mean >= SERVE_BARS["head_mean"] \
+            or c_mean >= SERVE_BARS["com_mean"]:
+        _fail("object 0's frame from render_rays is outside the bars of the unfused field")
+    return launches
+
+
+def _config5_sparsity(card, ds):
+    """The serving-bake prior: one float32 step per mode on the card against
+    the same step on the CPU (same draws); warm ms per step, bf16, per mode
+    beside the step without it."""
+    import copy
+
+    from dfanerf_torch.train.state import init_train_state
+    from dfanerf_torch.train.step import SPARSITY_MODES, dataset_to_device, make_train_step
+
+    cfg32 = _recipe_cfg(compute_dtype="float32")
+    cfg32 = dataclasses.replace(cfg32, train=dataclasses.replace(cfg32.train, n_rand=PARITY_RAYS))
+    kw = dict(sparsity_lambda=SPARSITY_LAMBDA, sparsity_points=SPARSITY_POINTS)
+    data = {dev: dataset_to_device(ds, dev) for dev in ("cpu", "cuda")}
+    for mode in SPARSITY_MODES:
+        batch = make_train_step(cfg32, ds, sparsity_mode=mode, device="cpu", **kw).draw_batch(
+            torch.Generator().manual_seed(9))
+        metrics = {}
+        for dev in ("cpu", "cuda"):
+            st = init_train_state(cfg32, seed=0, device=dev)
+            bt = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()}
+            _, metrics[dev] = make_train_step(cfg32, ds, sparsity_mode=mode, device=dev,
+                                              **kw).step_on_batch(st, data[dev], bt)
+        rel = {k: abs(float(metrics["cuda"][k]) / float(metrics["cpu"][k]) - 1)
+               for k in ("loss", "loss_head", "loss_com", "grad_norm")}
+        print(f"[config5] sparsity '{mode}' ({SPARSITY_POINTS} points, lambda "
+              f"{SPARSITY_LAMBDA}), float32 step ({PARITY_RAYS} rays), card vs CPU: relative "
+              f"differences {json.dumps(rel)}", flush=True)
+        if max(rel.values()) > 1e-4:
+            _fail(f"the float32 step with the '{mode}' prior differs from the CPU's: {rel}")
+
+    cfg = _recipe_cfg()
+    state = init_train_state(cfg, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(10)
+    steps = {"none": (make_train_step(cfg, ds, device="cuda"), copy.deepcopy(state))}
+    for mode in SPARSITY_MODES:
+        steps[mode] = (make_train_step(cfg, ds, sparsity_mode=mode, device="cuda", **kw),
+                       copy.deepcopy(state))
+
+    def turn(label):
+        step, st = steps[label]
+        for _ in range(CONFIG5_WARM):
+            step(st, data["cuda"], gen)
+        return _timed_steps(step, st, data["cuda"], gen, CONFIG5_TIMED)[0]
+
+    med = _median_turns(turn, list(steps))
+    base = med["none"][0]
+    for label, (m, v) in med.items():
+        print(f"[config5] bf16 step ({cfg.train.n_rand} rays, distortion off), prior "
+              f"'{label}': median {m:.3f} ms ({m - base:+.3f} vs none) over {CONFIG5_TURNS} "
+              f"turns of {CONFIG5_TIMED} (CUDA events, sync debug error): "
+              f"{[round(x, 3) for x in v]}; {card}", flush=True)
+
+
+def _write_identity(d, ds, driving):
+    """ds as an identity directory: JPEG frames (OpenCV), the _ba
+    manifests, features, and a driving manifest of the frames ``driving``."""
+    import cv2
+
+    os.makedirs(os.path.join(d, "head_imgs"))
+    os.makedirs(os.path.join(d, "com_imgs"))
+    for i in range(ds.n_frames):
+        for sub, imgs in (("head_imgs", ds.imgs_head), ("com_imgs", ds.imgs_com)):
+            cv2.imwrite(os.path.join(d, sub, f"{i:06d}.jpg"), imgs[i][..., ::-1].copy())
+    cv2.imwrite(os.path.join(d, "bc.jpg"), ds.bc_img[..., ::-1].copy())
+    _, _, focal, cx, cy = ds.hwfcxy
+
+    def manifest(ids):
+        return {"focal_len": focal, "cx": cx, "cy": cy,
+                "frames": [{"img_id": int(i), "aud_id": int(i),
+                            "transform_matrix": ds.poses[i].tolist(),
+                            "face_rect": ds.sample_rects[i].tolist()} for i in ids]}
+
+    for name, ids in (("transforms_train_ba.json", ds.i_train),
+                      ("transforms_val_ba.json", ds.i_val), ("driving.json", driving)):
+        with open(os.path.join(d, name), "w") as f:
+            json.dump(manifest(ids), f)
+    torch.save(torch.from_numpy(ds.auds), os.path.join(d, "aud.pt"))
+    torch.save({"exp_o": torch.from_numpy(ds.exps)}, os.path.join(d, "exp.pt"))
+
+
+def _read_ppm(path):
+    import numpy as np
+
+    with open(path, "rb") as f:
+        magic, w, h, _, pixels = f.read().split(maxsplit=4)
+    if magic != b"P6":
+        _fail(f"{path} is not a binary PPM")
+    return np.frombuffer(pixels, np.uint8).reshape(int(h), int(w), 3)
+
+
+def _config5_loader_cli(card, ds):
+    """An identity directory written with OpenCV and loaded back; cli train
+    --datadir and cli render --test-file on the card. Returns render_rays'
+    launches of the render."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    from dfanerf_torch import cli
+    from dfanerf_torch.data.dataset import load_audface_dataset
+    from dfanerf_torch.ops.fused_render import render_rays_kernel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "identity")
+        driving = [int(i) for i in ds.i_val[:1]] + [int(i) for i in ds.i_train[:CLI_FRAMES - 1]]
+        t0 = time.time()
+        _write_identity(d, ds, driving)
+        loaded = load_audface_dataset(d, "aud.pt", "exp.pt")
+        load_s = time.time() - t0
+        for i in range(loaded.n_frames):
+            for sub, imgs in (("com_imgs", loaded.imgs_com), ("head_imgs", loaded.imgs_head)):
+                ref = cv2.imread(os.path.join(d, sub, f"{i:06d}.jpg"), cv2.IMREAD_COLOR)[..., ::-1]
+                if not np.array_equal(imgs[i], ref):
+                    _fail(f"{sub}/{i:06d}.jpg: the loader's frame differs from cv2.imread's")
+        jpeg = float(np.abs(loaded.imgs_com.astype(np.int16) - ds.imgs_com.astype(np.int16)).mean())
+        print(f"[config5] identity directory of {loaded.n_frames} frames {H}x{W} written (OpenCV "
+              f"JPEG) and loaded in {load_s:.2f} s: every frame equals cv2.imread's; mean "
+              f"|JPEG - source| {jpeg:.2f} LSB", flush=True)
+        cfg = _recipe_cfg()
+        raw = cfg.to_dict()
+        raw.update(basedir=os.path.join(tmp, "runs"), expname="id")
+        raw["train"].update(i_weights=CLI_STEPS, i_print=CLI_STEPS)
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        common = ["--config", cfg_path, "--datadir", d]
+        t0 = time.time()
+        cli.main(["train", *common, "--aud-file", "aud.pt", "--exp-file", "exp.pt",
+                  "--n-iters", str(CLI_STEPS)])
+        train_s = time.time() - t0
+        ckpt = os.path.join(tmp, "runs", "id", f"{CLI_STEPS:06d}.npz")
+        out = os.path.join(tmp, "out")
+        torch.cuda.synchronize()
+        before = render_rays_kernel.launches
+        t0 = time.time()
+        cli.main(["render", *common, "--ckpt", ckpt, "--test-file", "driving.json",
+                  "--out", out])
+        render_s = time.time() - t0
+        launches = render_rays_kernel.launches - before
+        frames = [_read_ppm(os.path.join(out, sub, f"test_{i:06d}.ppm"))
+                  for sub in ("render_com", "render_head") for i in range(len(driving))]
+    if launches != len(driving) or any(f.shape != (H, W, 3) for f in frames):
+        _fail(f"cli render: {launches} render_rays launches, frames {[f.shape for f in frames]}")
+    print(f"[config5] cli train --datadir ({CLI_STEPS} steps) {train_s:.2f} s; cli render "
+          f"--test-file ({len(driving)} frames, {H}x{W} PPM, composite and head) {render_s:.2f} "
+          f"s, render_rays launches {launches}; {card}", flush=True)
+    return launches
+
+
+def phase_config5(card, ds):
+    """BASELINE config 5 and the rest of training: the ray-sharded step over
+    an NCCL process group of one rank, multi-identity training, the sparsity
+    prior, the identity-directory loader and the cli on it. Returns
+    render_rays' launches."""
+    import torch.distributed as dist
+
+    from dfanerf_torch.parallel import make_mesh
+    from dfanerf_torch.parallel.distributed import initialize
+
+    t0 = time.time()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if not initialize(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, local_rank=0):
+        _fail("initialize() started no process group")
+    try:
+        if dist.get_backend() != "nccl":
+            _fail(f"the CUDA process group runs {dist.get_backend()}, not NCCL")
+        _config5_sharded(card, ds, make_mesh())
+    finally:
+        dist.destroy_process_group()
+    launches = _config5_multi(card, ds)
+    _config5_sparsity(card, ds)
+    launches += _config5_loader_cli(card, ds)
+    print(f"[config5] phase {time.time() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -3698,6 +4143,11 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+
+
+def _mark(phase: str) -> None:
+    print(f"[time] {phase} done, {time.perf_counter() - T_START:.1f} s since the start",
+          flush=True)
 
 
 def main() -> int:
@@ -3712,40 +4162,60 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda "
           f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     phase_build()
+    _mark("phase_build")
     phase_kernel_vs_plain()
+    _mark("phase_kernel_vs_plain")
     phase_pair_kernels_vs_plain()
+    _mark("phase_pair_kernels_vs_plain")
     kernel, dense_ops = phase_main_path()
+    _mark("phase_main_path")
     phase_pair_vs_dense(dense_ops)
+    _mark("phase_pair_vs_dense")
     del dense_ops
     pair_kernels, sp8 = phase_pair_main_path()
+    _mark("phase_pair_main_path")
     phase_pair_prune()
+    _mark("phase_pair_prune")
     pair2_errs = phase_pair2_kernels_vs_plain()
+    _mark("phase_pair2_kernels_vs_plain")
     pack2, _ = phase_pack2_main_path(sp8)
+    _mark("phase_pack2_main_path")
     del sp8
     for entry in pack2:
         # the largest error of the kernel's checks: on the main path and alone
         entry["max_abs_err"] = max(entry["max_abs_err"], pair2_errs[entry["name"]])
     phase_refresh_union()
+    _mark("phase_refresh_union")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     cfg1_launches = phase_cfg1()
+    _mark("phase_cfg1")
     cfg2_launches = phase_cfg2(card)
+    _mark("phase_cfg2")
     av_launches = phase_audio_video(card)
+    _mark("phase_audio_video")
     for entry in pair_kernels:
         # the pair path's launches and those of the cfg1, cfg2 and audio to
         # video paths
         entry["launches"] += (cfg1_launches[entry["name"]] + cfg2_launches[entry["name"]]
                               + av_launches[entry["name"]])
     phase_hier_kernels_vs_plain()
+    _mark("phase_hier_kernels_vs_plain")
     hier_dense, noskip_frames = phase_hier_dense_main_path()
+    _mark("phase_hier_dense_main_path")
     hier_pairs = phase_hier_pair_main_path(noskip_frames[:N_FRAMES])
+    _mark("phase_hier_pair_main_path")
     del noskip_frames
     serve_errs = phase_serve_kernels_vs_plain()
+    _mark("phase_serve_kernels_vs_plain")
     serve, serve_args, serve_noskip, _ = phase_serve_main_path()
+    _mark("phase_serve_main_path")
     plain_launches, _ = phase_serve_plain_main_path(serve_args, serve_noskip)
+    _mark("phase_serve_plain_main_path")
     del serve_noskip
     far_joint = phase_serve_epilogue_kernel_form(serve_args)
+    _mark("phase_serve_epilogue_kernel_form")
     for entry in serve:
         # the largest error of the variant's checks: on the main path's
         # segment and in the kernel checks
@@ -3756,7 +4226,10 @@ def main() -> int:
     missing = set(CLASS_VARIANTS) - {e["name"] for e in serve}
     if missing:
         _fail(f"the serving path ran no segment of {sorted(missing)}")
-    kernel["launches"] += phase_train(card) + av_launches["render_rays"]
+    train_launches, ds = phase_train(card)
+    _mark("phase_train")
+    kernel["launches"] += train_launches + phase_config5(card, ds) + av_launches["render_rays"]
+    _mark("phase_config5")
     print(f"[total] chip_smoke.py {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + hier_dense + hier_pairs

@@ -1,18 +1,21 @@
 """Command line of the port (counterpart of dfanerf_tpu/cli.py):
 
-    python -m dfanerf_torch.cli train  --synthetic [--config cfg.json] [--n-iters N]
-    python -m dfanerf_torch.cli render --synthetic --ckpt runs/x/000100.npz [--video]
+    python -m dfanerf_torch.cli train  --datadir dataset/obama [--aud-file aud.pt]
+                                       [--exp-file exp.pt] [--config cfg.json] [--n-iters N]
+    python -m dfanerf_torch.cli render --datadir dataset/obama --ckpt runs/x/000100.npz
+                                       [--test-file transforms_val.json] [--video]
 
-Both run on CUDA unless ``--device cpu`` is given. ``render`` writes the
-composite and the head-only frames as binary PPM (``render_com/`` and
-``render_head/``, ``test_{i:06d}.ppm``) and, with ``--video``, a
-YUV4MPEG2 video ``<expname>.y4m``: formats that numpy alone writes.
+``--synthetic`` instead of ``--datadir`` takes the built-in synthetic scene
+(40 frames, 128x128). An identity directory loads through
+data/dataset.py load_audface_dataset; ``render --test-file`` renders its
+driving manifest (poses and audio features, no targets). Both run on CUDA
+unless ``--device cpu`` is given. ``render`` writes the composite and the
+head-only frames as binary PPM (``render_com/`` and ``render_head/``,
+``test_{i:06d}.ppm``) and, with ``--video``, a YUV4MPEG2 video
+``<expname>.y4m``: formats that numpy alone writes.
 
-Only the built-in synthetic scene (``--synthetic``: 40 frames, 128x128) is
-ported as a dataset: an identity's dataset and a driving manifest
-(``--test-file``) wait for ``load_audface_dataset`` (ROADMAP.md queue 1,
-item 2); ``process`` waits for the preprocessing pipeline (item
-7), ``bench`` for the port's benchmark (item 3).
+``process`` and ``--legacy-config`` wait for the preprocessing pipeline
+(ROADMAP.md queue 1, item 7), ``bench`` for the port's benchmark (item 3).
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ def _build_parser():
 
     tp = sub.add_parser("train", help="train the conditioned NeRF")
     tp.add_argument("--config", default=None, help="ExperimentConfig json")
+    tp.add_argument("--datadir", default=None)
+    tp.add_argument("--legacy-config", default=None,
+                    help="pipeline-generated HeadNeRF_config_ba.txt (not ported)")
+    tp.add_argument("--aud-file", default=None)
+    tp.add_argument("--exp-file", default=None)
     tp.add_argument("--expname", default=None)
     tp.add_argument("--n-iters", type=int, default=None)
     tp.add_argument("--resume", default="auto")
@@ -39,10 +47,11 @@ def _build_parser():
 
     rp = sub.add_parser("render", help="render frames and video from a checkpoint")
     rp.add_argument("--config", default=None)
+    rp.add_argument("--datadir", default=None)
     rp.add_argument("--expname", default=None)
     rp.add_argument("--ckpt", required=True)
     rp.add_argument("--test-file", default=None,
-                    help="driving manifest (not ported)")
+                    help="driving manifest (the reference's --test_file mode)")
     rp.add_argument("--out", default="render_out")
     rp.add_argument("--video", action="store_true")
     rp.add_argument("--synthetic", action="store_true")
@@ -55,18 +64,26 @@ def _build_parser():
 def _load_cfg(args):
     from dfanerf_torch.config import ExperimentConfig
 
-    cfg = ExperimentConfig.from_json(args.config) if args.config else ExperimentConfig()
-    return dataclasses.replace(cfg, expname=args.expname) if args.expname else cfg
-
-
-def _load_dataset(args, device):
-    if getattr(args, "test_file", None) or not args.synthetic:
+    if getattr(args, "legacy_config", None):
         raise NotImplementedError(
-            "only --synthetic is ported as a dataset: an identity directory and a driving "
-            "manifest wait for load_audface_dataset (ROADMAP.md queue 1, item 2)")
-    from dfanerf_torch.data.synthetic import make_synthetic_dataset
+            "--legacy-config: the preprocessing pipeline's config is not ported (ROADMAP.md "
+            "queue 1, item 7)")
+    cfg = ExperimentConfig.from_json(args.config) if args.config else ExperimentConfig()
+    updates = {k: getattr(args, k) for k in ("datadir", "expname", "aud_file", "exp_file")
+               if getattr(args, k, None)}
+    return dataclasses.replace(cfg, **updates) if updates else cfg
 
-    return make_synthetic_dataset(n_frames=40, H=128, W=128, device=device)
+
+def _load_dataset(cfg, args, device):
+    if args.synthetic:
+        from dfanerf_torch.data.synthetic import make_synthetic_dataset
+
+        return make_synthetic_dataset(n_frames=40, H=128, W=128, device=device)
+    from dfanerf_torch.data.dataset import load_audface_dataset
+
+    return load_audface_dataset(cfg.datadir, cfg.aud_file, cfg.exp_file, use_ba=cfg.use_ba,
+                                testskip=cfg.testskip, all_speaker=cfg.all_speaker,
+                                test_file=getattr(args, "test_file", None))
 
 
 def cmd_train(args):
@@ -75,7 +92,7 @@ def cmd_train(args):
 
     dev = resolve_device(args.device)
     cfg = _load_cfg(args)
-    ds = _load_dataset(args, dev)
+    ds = _load_dataset(cfg, args, dev)
     train_loop(cfg, ds, n_iters=args.n_iters, resume=args.resume, device=dev)
 
 
@@ -89,7 +106,7 @@ def cmd_render(args):
 
     dev = resolve_device(args.device)
     cfg = _load_cfg(args)
-    ds = _load_dataset(args, dev)
+    ds = _load_dataset(cfg, args, dev)
     state = load_checkpoint(args.ckpt, init_train_state(cfg, seed=0, device=dev))
     data = dataset_to_device(ds, dev)
     frames, frames_head = render_video_frames(

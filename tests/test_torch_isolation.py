@@ -55,7 +55,8 @@ def test_no_silent_cpu_fallback(tmp_path):
     """Every entry point defaults to the card: the dense and the pair
     renderer, the seeded state and the state converted from the reference,
     the synthetic ground truth, the device data, the train step, the
-    training loop, the audio nets, audio to video and the cli."""
+    training loop, the audio nets, audio to video, the cli, the
+    multi-identity step and the process group of a multi-process job."""
     from dfanerf_torch import cli
     from dfanerf_torch.pipeline.audio.deepspeech import init_deepspeech
     from dfanerf_torch.pipeline.audio.wav2exp import audio_encoder_from_torch, init_audio_encoder
@@ -66,6 +67,8 @@ def test_no_silent_cpu_fallback(tmp_path):
         make_frame_renderer, make_head_hierarchical_renderer,
     )
     from dfanerf_torch.data.synthetic import make_synthetic_dataset, make_synthetic_scene
+    from dfanerf_torch.parallel.distributed import initialize
+    from dfanerf_torch.parallel.multi import make_multi_identity_train_step
     from dfanerf_torch.train.loop import train_loop
     from dfanerf_torch.train.state import init_train_state
     from dfanerf_torch.train.step import dataset_to_device, make_train_step
@@ -94,7 +97,9 @@ def test_no_silent_cpu_fallback(tmp_path):
                   lambda: init_audio_encoder(), lambda: audio_encoder_from_torch({}),
                   lambda: init_deepspeech(n_hidden=8),
                   lambda: e2e_audio_video(dense, ds, None, None, n_frames=2),
-                  lambda: cli.main(["train", "--synthetic"])):
+                  lambda: cli.main(["train", "--synthetic"]),
+                  lambda: make_multi_identity_train_step(dense, [ds]),
+                  lambda: initialize("tcp://127.0.0.1:1", world_size=2, rank=0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 

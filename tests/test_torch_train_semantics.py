@@ -150,9 +150,3 @@ def test_rect_biased_sampler():
     np.testing.assert_array_equal((top[:, 0] * W + top[:, 1]).numpy(),
                                   torch.argsort(u, descending=True)[:10].numpy())
 
-
-def test_sparsity_prior_is_refused(setup):
-    cfg, ds, _, _ = setup
-    for mode in ("points", "visibility", "deadzone"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2"):
-            make_train_step(cfg, ds, sparsity_lambda=1e-3, sparsity_mode=mode, device="cpu")
