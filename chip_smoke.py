@@ -122,7 +122,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    step 2000): the synthetic scene's ground truth (8 frames, 450x450) built
    on the card and one frame held against the CPU (1 LSB); one float32 step
    (TF32 off) on the card against the same step on the CPU (rtol 1e-4);
-   200 steps through train_loop from the seed's weights (loss falling below
+   120 steps through train_loop from the seed's weights (loss falling below
    0.6x, the checkpoint read back bit for bit); warm ms per step with the
    distortion term off and on under sync debug mode "error", the peak
    memory and the recipe's projected time; a held-out frame of the trained
@@ -146,7 +146,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cli train --datadir and cli render --test-file on it (450x450 frames,
    render_rays once a frame). Every timed step runs under sync debug mode
    "error";
-20. print the script's total time, the card's name and power limit, then
+20. the preprocessing DAG (pipeline/driver.py), steps 2-11 of the BA
+   variant on the card over a seeded identity (PROCESS_FRAMES frames of
+   the synthetic scene at 512x512, a 16 kHz wav), seeded assets with two
+   last-layer biases raised in the saved checkpoints (write_process_assets
+   says which and why) and a seeded 3DMM at the basis's full size, at the
+   shipped widths, ref_id, crops, score threshold and iteration counts;
+   each step's seconds beside the card's name and power limit; fails
+   unless every step did work (detections, landmarks and eyes, head and
+   background pixels, mined keypoints, a fit, a bundle adjustment that
+   lowers its loss); the directory through load_audface_dataset; the
+   nets' outputs, decoded landmarks, parsing classes (near-ties excepted),
+   flow and a 50-step fit on the card against the port's CPU path;
+21. print the script's total time, the card's name and power limit, then
    one JSON line listing every ported kernel with its launches, error and
    times, and last a JSON status line.
 
@@ -157,6 +169,7 @@ result, when CUDA is unavailable or the package is missing.
 from __future__ import annotations
 
 import contextlib
+import glob
 import dataclasses
 import json
 import os
@@ -359,11 +372,10 @@ def _sass_counts(tool, path):
                           check=True).stdout
     counts, current = {}, None
     for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            current = m.group(1)
+        if "Function :" in line:
+            current = re.match(r"\s*Function : (\S+)", line).group(1)
             counts[current] = [0, 0]
-        elif current is not None:
+        elif current is not None and "MMA" in line:
             counts[current][0] += "HGMMA" in line
             counts[current][1] += "HMMA" in line
     if shutil.which("c++filt") and counts:
@@ -383,6 +395,12 @@ def phase_build():
     tool = _cuobjdump()
     if tool is None:
         _fail("no cuobjdump (CUDA toolkit or Triton's copy) to read the kernels' SASS")
+    import concurrent.futures
+
+    # every library's SASS read at once (one cuobjdump process each)
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        sass = dict(zip(_build.SOURCES, pool.map(
+            lambda name: _sass_counts(tool, _build.library_path(name)), _build.SOURCES)))
     for name in _build.SOURCES:
         path = _build.library_path(name)
         log = path.with_suffix(".log")
@@ -394,7 +412,7 @@ def phase_build():
                       if "wgmma" in line.lower() and "serializ" in line.lower()]
         for line in serialised:
             print(f"[build] {name}: wgmma serialisation: {line}", flush=True)
-        for fn, (hgmma, hmma) in _sass_counts(tool, path).items():
+        for fn, (hgmma, hmma) in sass[name].items():
             print(f"[build] {name}: {fn}: {hgmma} HGMMA, {hmma} HMMA", flush=True)
             if name in WGMMA_LIBRARIES and any(k in fn for k in WGMMA_KERNELS) and hgmma == 0:
                 _fail(f"{name}: {fn} holds no HGMMA: it does not run the wgmma core")
@@ -3424,11 +3442,11 @@ def phase_serve_epilogue_kernel_form(args):
 # first TRAIN_WINDOW's (tests/test_train.py:30-41). The recipe's projected
 # training time is RECIPE_STEPS steps (12,000 with distortion from 2,000, then
 # a 2,000-step polish without).
-TRAIN_STEPS, TRAIN_WINDOW, TRAIN_DROP = 200, 20, 0.6
+TRAIN_STEPS, TRAIN_WINDOW, TRAIN_DROP = 120, 20, 0.6
 # Warm ms per step: TRAIN_TURNS turns of TRAIN_TIMED steps for each setting
 # of the distortion term, in ABBA order, reported as the median and the spread
 # of the turns; then a torch.profiler trace of TRAIN_PROFILED steps.
-TRAIN_TIMED, TRAIN_TURNS, TRAIN_WARM, TRAIN_PROFILED = 50, 3, 3, 10
+TRAIN_TIMED, TRAIN_TURNS, TRAIN_WARM, TRAIN_PROFILED = 30, 3, 3, 10
 PARITY_RAYS = 256
 RECIPE_STEPS = {"distortion off": 2000 + 2000, "distortion on": 12000 - 2000}
 # The trained field served by the render_rays kernel (bf16) against the
@@ -3716,14 +3734,14 @@ def phase_train(card):
 # falling below MULTI_DROP x its first MULTI_WINDOW steps' mean over the last
 # MULTI_WINDOW, phase_train's rule), its warm steps, then its steps timed in
 # turns of MULTI_TURN (CUDA events, sync debug "error").
-MULTI_STEPS, MULTI_WINDOW, MULTI_DROP, MULTI_WARM, MULTI_TURN = 80, 20, 0.6, 20, 20
+MULTI_STEPS, MULTI_WINDOW, MULTI_DROP, MULTI_WARM, MULTI_TURN = 50, 20, 0.6, 20, 10
 # the second identity: another seed, fewer frames; the dynamic-speaker run's
 # speaking frames mix both branches
 MULTI_FRAMES2, MULTI_SEED2 = 4, 1
 MULTI_SPEAK = ((1, 0, 1, 0, 1, 0, 1, 0), (0, 1, 1, 0))
 # warm ms per step: CONFIG5_TURNS turns of CONFIG5_TIMED steps after
 # CONFIG5_WARM, median over the turns
-CONFIG5_TURNS, CONFIG5_TIMED, CONFIG5_WARM = 3, 15, 3
+CONFIG5_TURNS, CONFIG5_TIMED, CONFIG5_WARM = 3, 10, 3
 SPARSITY_LAMBDA, SPARSITY_POINTS = 1e-3, 4096
 CLI_STEPS, CLI_FRAMES = 4, 3
 
@@ -4137,6 +4155,304 @@ def phase_config5(card, ds):
     return launches
 
 
+# --- phase_process: the preprocessing DAG (pipeline/driver.py) ---------------------
+
+PROCESS_FRAMES = 24      # step 6's default ref_id 18 needs at least 19 frames
+PROCESS_SIZE = 512       # the driver's default dst_size
+PROCESS_BG_SHARE = 0.4   # the share of frame 0's pixels the parser's class-0 bias makes background
+BOX_BIAS = 64.0          # BlazeFace's raw w/h regression bias: boxes half its 128x128 input
+
+
+def write_process_identity(id_dir, n_frames=PROCESS_FRAMES, size=PROCESS_SIZE, seed=0,
+                           device="cuda"):
+    """A seeded identity directory as steps -1 to 1 would leave it: the
+    synthetic scene's composite frames (64x64, rendered on ``device``)
+    resized with cv2 to size x size as ori_imgs/{:06d}.jpg, and a 16 kHz
+    aud.wav (a modulated tone and noise, one second longer than the
+    frames)."""
+    import cv2
+    import numpy as np
+    from scipy.io import wavfile
+
+    from dfanerf_torch.data.synthetic import make_synthetic_dataset
+
+    ds = make_synthetic_dataset(n_frames=n_frames, H=64, W=64, seed=seed, device=device)
+    os.makedirs(os.path.join(id_dir, "ori_imgs"), exist_ok=True)
+    for i, img in enumerate(ds.imgs_com):
+        big = cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR)
+        cv2.imwrite(os.path.join(id_dir, "ori_imgs", f"{i:06d}.jpg"), big[..., ::-1])
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(16000 * (n_frames / 25.0 + 1.0))) / 16000.0
+    wav = 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t)) + 0.05 * rng.randn(t.size)
+    wavfile.write(os.path.join(id_dir, "aud.wav"), 16000,
+                  (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+
+
+def write_process_assets(root, id_dir, seed=0, hrnet_cfg=None, device="cuda"):
+    """Seeded stand-ins for the reference's assets under ``root``: the five
+    nets' checkpoints (.pth state dicts), the wav2exp encoder, dis_ckpt.pth,
+    and a seeded 3DMM at the basis's full size (34,650 points, 100 id and 79
+    expression dims, one texture row: the fit reads no texture) in the
+    reference's .bin layout. Returns (PipelineAssets, the raised biases).
+
+    Seeded weights give two steps nothing to work on, so two last-layer
+    biases are raised in the SAVED checkpoints (the package's nets stay as
+    shipped):
+    - BlazeFace's regressor_8 / regressor_16 w and h biases, +BOX_BIAS:
+      seeded regressions are +-30 around zero, so the blended box would be
+      of about zero (or negative) size;
+    - BiSeNet's main head (conv_out.conv_out) gets a bias, 0 except class 0
+      (background), which is raised until PROCESS_BG_SHARE of frame 0's
+      pixels parse as background: seeded logits put every pixel in a head
+      class, so step 4 would find no background and step 6's head mask
+      would be the whole frame.
+    The reference's converters read both (its BiSeNet converter takes a
+    conv bias where the checkpoint holds one)."""
+    import cv2
+    import numpy as np
+
+    from dfanerf_torch.models.perception.bisenet import BiSeNet
+    from dfanerf_torch.models.perception.blazeface import BlazeFace
+    from dfanerf_torch.models.perception.common import seeded_init_
+    from dfanerf_torch.models.perception.ghostnet_eye import EyeNet
+    from dfanerf_torch.models.perception.hrnet import HRNet, HRNetConfig
+    from dfanerf_torch.models.perception.raft import RAFTSmall
+    from dfanerf_torch.pipeline.audio.wav2exp import AudioEncoder
+    from dfanerf_torch.pipeline.disentangle import Distangler
+    from dfanerf_torch.pipeline.driver import IMAGENET_MEAN, IMAGENET_STD, PipelineAssets
+    from dfanerf_torch.pipeline.face3dmm import synthetic_3dmm_arrays, write_face3dmm
+
+    os.makedirs(root, exist_ok=True)
+    nets = {"blazeface_pth": BlazeFace(), "hrnet_pth": HRNet(hrnet_cfg or HRNetConfig()),
+            "eye_pth": EyeNet(), "bisenet_pth": BiSeNet(out_bias=True), "raft_pth": RAFTSmall(),
+            "wav2exp_pth": AudioEncoder(), "dis": Distangler()}
+    raised = {}
+    paths = {}
+    for i, (key, net) in enumerate(nets.items()):
+        seeded_init_(net, seed + i)
+        with torch.no_grad():
+            if key == "blazeface_pth":
+                for name, conv in (("regressor_8", net.regressor_8),
+                                   ("regressor_16", net.regressor_16)):
+                    wh = conv.bias.view(-1, 16)[:, 2:4]
+                    wh += BOX_BIAS
+                    raised[f"blazeface {name}.bias[w, h]"] = f"+{BOX_BIAS}"
+            if key == "bisenet_pth":
+                net.conv_out.conv_out.bias.zero_()
+                net.to(device).eval()
+                img = cv2.imread(os.path.join(id_dir, "ori_imgs", "000000.jpg"))[..., ::-1]
+                x = (img.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+                logits = net(torch.from_numpy(x[None]).to(device).permute(0, 3, 1, 2))[0][0]
+                deficit = logits[1:].amax(0) - logits[0]
+                bias0 = float(torch.quantile(deficit.flatten().float().cpu(), PROCESS_BG_SHARE))
+                net.conv_out.conv_out.bias[0] = bias0
+                raised["bisenet conv_out.conv_out.bias[0]"] = f"{bias0:+.4f}"
+                net.cpu()
+        path = os.path.join(root, "dis" if key == "dis" else "", "dis_ckpt.pth" if key == "dis"
+                            else key.replace("_pth", ".pth"))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(net.state_dict(), path)
+        paths[key] = path
+    bfm = write_face3dmm(os.path.join(root, "bfm"),
+                         synthetic_3dmm_arrays(seed, point_num=34650, id_dim=100, exp_dim=79,
+                                               tex_dim=1))
+    assets = PipelineAssets(**{k: v for k, v in paths.items() if k != "dis"},
+                            disentangle_dir=os.path.dirname(paths["dis"]), face3dmm_dir=bfm)
+    return assets, raised
+
+
+PROCESS_TOL = {"rtol": 1e-4, "atol": 1e-5}  # card vs CPU; atol per unit of the output's scale
+PROCESS_CHECK_FRAMES = 2
+PROCESS_FIT_ITERS = 50
+
+
+def _process_close(tag, got, want, rtol=PROCESS_TOL["rtol"], atol=PROCESS_TOL["atol"],
+                   scaled=True):
+    """Hold a card result against the CPU's: rtol, and atol times the CPU
+    output's largest magnitude (at least 1) where ``scaled``."""
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    if got.shape != want.shape:
+        _fail(f"[process] {tag}: card {tuple(got.shape)} vs cpu {tuple(want.shape)}")
+    scale = max(1.0, want.abs().max().item()) if scaled else 1.0
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    print(f"[process] {tag}: card vs cpu max abs err {err:.3g} (scale {scale:.3g}, rtol {rtol}, "
+          f"atol {atol * scale:.3g})", flush=True)
+    if not torch.allclose(got, want, rtol=rtol, atol=atol * scale):
+        _fail(f"[process] {tag}: the card disagrees with the CPU")
+    return err
+
+
+@torch.no_grad()
+def _process_card_vs_cpu(d, assets):
+    """The nets, the decoded landmarks, the parsing classes and the flows of
+    PROCESS_CHECK_FRAMES frames on the card against the port's CPU path on
+    the same inputs, and a PROCESS_FIT_ITERS-step tracker fit; the
+    tolerances of the CPU tests."""
+    import cv2
+    import numpy as np
+
+    from dfanerf_torch.models.perception.bisenet import load_bisenet
+    from dfanerf_torch.models.perception.blazeface import (
+        detect_faces, generate_anchors, load_blazeface,
+    )
+    from dfanerf_torch.models.perception.ghostnet_eye import load_eye_net
+    from dfanerf_torch.models.perception.hrnet import load_hrnet
+    from dfanerf_torch.models.perception.raft import flow_on_crops, load_raft_small, mask_crop
+    from dfanerf_torch.pipeline.affine import bbox2cs, crop_affine, pts2cs
+    from dfanerf_torch.pipeline.driver import IMAGENET_MEAN, IMAGENET_STD, _imread
+    from dfanerf_torch.pipeline.face3dmm import load_face3dmm
+    from dfanerf_torch.pipeline.heatmaps import decode_heatmaps
+    from dfanerf_torch.pipeline.tracking import fit_landmarks
+
+    loaders = {"blazeface": (load_blazeface, assets.blazeface_pth),
+               "hrnet": (load_hrnet, assets.hrnet_pth), "eye": (load_eye_net, assets.eye_pth),
+               "bisenet": (load_bisenet, assets.bisenet_pth),
+               "raft": (load_raft_small, assets.raft_pth)}
+    devs = ("cuda", "cpu")
+    nets = {k: {dev: load(path, device=dev) for dev in devs} for k, (load, path) in loaders.items()}
+
+    def both(name, x):
+        return [nets[name][dev](x.to(dev)) for dev in devs]
+
+    path = lambda *p: os.path.join(d.id_dir, *p)  # noqa: E731
+    imgs = [_imread(path("ori_imgs", f"{i:06d}.jpg")) for i in range(PROCESS_CHECK_FRAMES)]
+    small = torch.from_numpy(np.stack([cv2.resize(im, (128, 128)) for im in imgs]))
+    small = small.float().permute(0, 3, 1, 2) / 127.5 - 1.0
+    (b_gpu, s_gpu), (b_cpu, s_cpu) = both("blazeface", small)
+    _process_close("blazeface raw boxes", b_gpu, b_cpu)
+    _process_close("blazeface raw scores", s_gpu, s_cpu)
+    crops, lms_all = [], []
+    anchors = generate_anchors()
+    for im in imgs:
+        det = detect_faces(nets["blazeface"][devs[0]], anchors, cv2.resize(im, (128, 128))[None])[0]
+        if not len(det):
+            _fail("[process] no face on a checked frame")
+        y0, x0, y1, x1 = det[0, :4] * 128.0
+        center, scale = bbox2cs(np.array([x0, y0, x1, y1]) * (PROCESS_SIZE / 128.0))
+        crop = crop_affine(im, center, scale, (256, 256))
+        crops.append((crop.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
+    hm_gpu, hm_cpu = both("hrnet", torch.from_numpy(np.stack(crops)).permute(0, 3, 1, 2))
+    _process_close("hrnet heatmaps", hm_gpu, hm_cpu)
+    c_gpu, v_gpu = decode_heatmaps(hm_gpu, sigma=2.0)
+    c_cpu, v_cpu = decode_heatmaps(hm_cpu, sigma=2.0)
+    _process_close("decoded landmarks (heatmap px)", c_gpu, c_cpu, rtol=0, atol=1e-3, scaled=False)
+    _process_close("landmark scores", v_gpu, v_cpu)
+    eyes = []
+    for i, im in enumerate(imgs):
+        lms = np.loadtxt(path("ori_imgs", f"{i:06d}.lms")).astype(np.float32)
+        for sl in (slice(42, 48), slice(36, 42)):
+            center, scale = pts2cs(lms[sl])
+            crop = crop_affine(im, center, scale * 1.35, (48, 32))
+            eyes.append(cv2.cvtColor(crop, cv2.COLOR_RGB2GRAY).astype(np.float32) / 255.0)
+    e_gpu, e_cpu = both("eye", torch.from_numpy(np.stack(eyes))[:, None])
+    _process_close("eye heatmaps", e_gpu, e_cpu)
+    _process_close("decoded eye landmarks (heatmap px)", decode_heatmaps(e_gpu, modulate=False)[0],
+                   decode_heatmaps(e_cpu, modulate=False)[0], rtol=0, atol=1e-3, scaled=False)
+    x = np.stack([(im.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD for im in imgs])
+    (p_gpu, _, _), (p_cpu, _, _) = both("bisenet", torch.from_numpy(x).permute(0, 3, 1, 2))
+    _process_close("bisenet main logits", p_gpu, p_cpu)
+    cls_gpu, cls_cpu = p_gpu.argmax(1).cpu(), p_cpu.argmax(1)
+    top2 = p_cpu.topk(2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flips = cls_gpu != cls_cpu
+    print(f"[process] parsing classes: {int(flips.sum())} of {flips.numel()} pixels differ, "
+          f"all at near-ties (top-two gap < 1e-4)" if flips.any() else
+          f"[process] parsing classes: equal on all {flips.numel()} pixels", flush=True)
+    if flips.any() and not bool((gap[flips] < 1e-4).all()):
+        _fail("[process] parsing classes differ away from a near-tie")
+    ref_mask = _imread(path("face_mask", f"{0:06d}.png"))[..., 0] != 0
+    src, rect_s = mask_crop(imgs[0], ref_mask)
+    tgt_mask = _imread(path("face_mask", f"{1:06d}.png"))[..., 0] != 0
+    tar, rect_t = mask_crop(imgs[1], tgt_mask)
+    params = np.array([[*rect_s, *rect_t]], np.int32)
+    flows = [flow_on_crops(nets["raft"][dev], src[None], tar[None], params,
+                           (PROCESS_SIZE, PROCESS_SIZE)) for dev in devs]
+    _process_close("flow (px)", *flows, rtol=0, atol=1e-3, scaled=False)
+    ids = sorted(int(os.path.basename(p).split(".")[0])
+                 for p in glob.glob(path("ori_imgs", "*.lms")))
+    lms = np.stack([np.loadtxt(path("ori_imgs", f"{i:06d}.lms")) for i in ids]).astype(np.float32)
+    (got, loss_gpu), (want, loss_cpu) = [
+        fit_landmarks(load_face3dmm(d.assets.face3dmm_dir, device=dev), lms,
+                      (PROCESS_SIZE / 2.0,) * 2, n_iters=PROCESS_FIT_ITERS) for dev in devs]
+    if float(got.focal[0]) != float(want.focal[0]):
+        _fail(f"[process] {PROCESS_FIT_ITERS}-step fit: focal {float(got.focal[0])} on the card, "
+              f"{float(want.focal[0])} on the cpu")
+    for k in ("id", "exp", "euler", "trans"):
+        _process_close(f"{PROCESS_FIT_ITERS}-step fit {k}", getattr(got, k), getattr(want, k),
+                       rtol=1e-3, scaled=False)
+    _process_close(f"{PROCESS_FIT_ITERS}-step fit loss", loss_gpu, loss_cpu, rtol=1e-3,
+                   scaled=False)
+
+
+def phase_process(card):
+    """The preprocessing DAG (pipeline/driver.py), steps 2-11, on the card at
+    dst_size PROCESS_SIZE over a seeded identity of PROCESS_FRAMES frames
+    with seeded assets (write_process_assets: two biases raised in the saved
+    checkpoints) and a full-size seeded 3DMM; the shipped widths, ref_id,
+    crops, score threshold and iteration counts. Fails unless every step
+    did work; then the card against the port's CPU path, and the directory
+    through load_audface_dataset."""
+    import tempfile
+
+    import numpy as np
+
+    from dfanerf_torch.data.dataset import load_audface_dataset
+    from dfanerf_torch.pipeline.driver import PipelineDriver
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        id_dir = os.path.join(root, "smoke")
+        write_process_identity(id_dir)
+        assets, raised = write_process_assets(os.path.join(root, "assets"), id_dir)
+        print(f"[process] seeded identity: {PROCESS_FRAMES} frames {PROCESS_SIZE}x{PROCESS_SIZE}, "
+              f"seeded assets and a 34650-point 3DMM in {time.time() - t0:.1f} s; biases raised "
+              f"in the saved checkpoints: {raised}", flush=True)
+        d = PipelineDriver(id_dir, assets, PROCESS_SIZE)
+        steps = [(2, "landmarks", d.step_landmarks), (3, "parsing", d.step_parsing),
+                 (4, "background", d.step_background), (5, "compose", d.step_compose),
+                 (6, "flow", d.step_flow), (7, "track", d.step_track),
+                 (8, "bundle adjust", d.step_bundle_adjust), (9, "transforms", d.step_transforms),
+                 (10, "disentangle", d.step_disentangle), (11, "wav2exp", d.step_wav2exp)]
+        seconds = {}
+        for n, name, fn in steps:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            seconds[n] = time.perf_counter() - t
+            print(f"[process] step {n} {name}: {seconds[n]:.3f} s ({card})", flush=True)
+        lm, pa, tr, ba = d.last_landmarks, d.last_parsing, d.last_track, d.last_ba
+        heads = np.asarray(pa["head_pixels"])
+        n_key = ba["keypoints"]
+        print(f"[process] counts: {lm['detected']} of {lm['frames']} frames detected, "
+              f"{lm['no_face']} without a face, {lm['low_score']} low-score, {lm['with_lms']} "
+              f"with landmarks and eyes; head pixels a frame {heads.min()}-{heads.max()} "
+              f"(mean {heads.mean():.0f} of {PROCESS_SIZE ** 2}); {n_key} mined keypoints; "
+              f"winning focal {tr['focal']}, fit loss {tr['loss']:.6g}; bundle adjustment loss "
+              f"{ba['loss_pts']:.6g} after the points, {ba['loss']:.6g} after the joint phase",
+              flush=True)
+        if lm["with_lms"] < 19 or lm["eyes"] != lm["with_lms"]:
+            _fail(f"[process] step 2 landmarked {lm['with_lms']} frames (ref_id 18 needs 19)")
+        if not ((heads > 0) & (heads < PROCESS_SIZE ** 2)).all():
+            _fail("[process] step 3: a frame with no head or no background pixel")
+        if n_key == 0:
+            _fail("[process] step 6 mined no keypoint")
+        if not (np.isfinite(tr["loss"]) and ba["loss"] < ba["loss_pts"]):
+            _fail("[process] steps 7-8: the fit or bundle adjustment did not converge")
+        sum_steps = sum(seconds.values())
+        print(f"[process] steps 2-11: {sum_steps:.3f} s ({card})", flush=True)
+        ds = load_audface_dataset(id_dir, f"{d.id}_aud.pt", f"{d.id}_64_32.pt", use_ba=True)
+        n_lms = len(glob.glob(os.path.join(id_dir, "ori_imgs", "*.lms")))
+        if ds.n_frames != n_lms or not np.isfinite(ds.poses).all():
+            _fail(f"[process] load_audface_dataset: {ds.n_frames} frames")
+        print(f"[process] load_audface_dataset: {ds.n_frames} frames "
+              f"({len(ds.i_train)} train, {len(ds.i_val)} val), near/far from step 9", flush=True)
+        t = time.time()
+        _process_card_vs_cpu(d, assets)
+        print(f"[process] card vs cpu checks {time.time() - t:.1f} s", flush=True)
+    print(f"[process] phase {time.time() - t0:.1f} s", flush=True)
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return {"name": name, "route": "cuda", "source": f"dfanerf_torch/ops/csrc/{source}",
@@ -4230,6 +4546,8 @@ def main() -> int:
     _mark("phase_train")
     kernel["launches"] += train_launches + phase_config5(card, ds) + av_launches["render_rays"]
     _mark("phase_config5")
+    phase_process(card)
+    _mark("phase_process")
     print(f"[total] chip_smoke.py {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + hier_dense + hier_pairs

@@ -1,7 +1,10 @@
 """Command line of the port (counterpart of dfanerf_tpu/cli.py):
 
+    python -m dfanerf_torch.cli process --id-dir dataset/obama --step N [--variant ba|nonba]
+                                        [--assets assets.json] [--video v.mp4] [--dst-size 512]
     python -m dfanerf_torch.cli train  --datadir dataset/obama [--aud-file aud.pt]
                                        [--exp-file exp.pt] [--config cfg.json] [--n-iters N]
+                                       [--legacy-config dataset/obama/HeadNeRF_config_ba.txt]
     python -m dfanerf_torch.cli render --datadir dataset/obama --ckpt runs/x/000100.npz
                                        [--test-file transforms_val.json] [--video]
 
@@ -14,14 +17,19 @@ head-only frames as binary PPM (``render_com/`` and ``render_head/``,
 ``test_{i:06d}.ppm``) and, with ``--video``, a YUV4MPEG2 video
 ``<expname>.y4m``: formats that numpy alone writes.
 
-``process`` and ``--legacy-config`` wait for the preprocessing pipeline
-(ROADMAP.md queue 1, item 7), ``bench`` for the port's benchmark (item 3).
+``process`` runs one step of the preprocessing DAG (pipeline/driver.py):
+-1..11 of the BA variant or 0..6 of the non-BA one. ``--assets`` is a json
+of ``PipelineAssets`` fields, each a checkpoint path or ``random:<seed>``;
+steps -1, 0 and 1 need ``ffmpeg`` on the PATH. ``--legacy-config`` takes
+near and far from the config txt that step 9 writes. ``bench`` waits for
+the port's benchmark (ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 
 
@@ -29,13 +37,23 @@ def _build_parser():
     p = argparse.ArgumentParser(prog="dfanerf_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sub.add_parser("process", help="run preprocessing steps (not ported)")
+    pp = sub.add_parser("process", help="run one preprocessing step")
+    pp.add_argument("--id-dir", required=True)
+    pp.add_argument("--step", type=int, required=True,
+                    help="-1..11 (ba variant) or 0..6 (nonba variant)")
+    pp.add_argument("--video", default=None)
+    pp.add_argument("--dst-size", type=int, default=512)
+    pp.add_argument("--assets", default=None, help="json file of PipelineAssets fields")
+    pp.add_argument("--variant", choices=("ba", "nonba"), default="ba",
+                    help="ba = the 12-step process_data_ba.py DAG; nonba = the 7-step "
+                         "AD-NeRF-style process_data.py DAG")
+    pp.add_argument("--device", default=None, help="cuda (default) or cpu")
 
     tp = sub.add_parser("train", help="train the conditioned NeRF")
     tp.add_argument("--config", default=None, help="ExperimentConfig json")
     tp.add_argument("--datadir", default=None)
     tp.add_argument("--legacy-config", default=None,
-                    help="pipeline-generated HeadNeRF_config_ba.txt (not ported)")
+                    help="pipeline-generated HeadNeRF_config_ba.txt (near/far)")
     tp.add_argument("--aud-file", default=None)
     tp.add_argument("--exp-file", default=None)
     tp.add_argument("--expname", default=None)
@@ -62,15 +80,14 @@ def _build_parser():
 
 
 def _load_cfg(args):
-    from dfanerf_torch.config import ExperimentConfig
+    from dfanerf_torch.config import ExperimentConfig, parse_legacy_config_file
 
-    if getattr(args, "legacy_config", None):
-        raise NotImplementedError(
-            "--legacy-config: the preprocessing pipeline's config is not ported (ROADMAP.md "
-            "queue 1, item 7)")
     cfg = ExperimentConfig.from_json(args.config) if args.config else ExperimentConfig()
     updates = {k: getattr(args, k) for k in ("datadir", "expname", "aud_file", "exp_file")
                if getattr(args, k, None)}
+    if getattr(args, "legacy_config", None):
+        near, far = parse_legacy_config_file(args.legacy_config)
+        updates["render"] = dataclasses.replace(cfg.render, near=near, far=far)
     return dataclasses.replace(cfg, **updates) if updates else cfg
 
 
@@ -84,6 +101,21 @@ def _load_dataset(cfg, args, device):
     return load_audface_dataset(cfg.datadir, cfg.aud_file, cfg.exp_file, use_ba=cfg.use_ba,
                                 testskip=cfg.testskip, all_speaker=cfg.all_speaker,
                                 test_file=getattr(args, "test_file", None))
+
+
+def cmd_process(args):
+    from dfanerf_torch.pipeline.driver import PipelineAssets, PipelineDriver
+
+    assets = PipelineAssets()
+    if args.assets:
+        with open(args.assets) as f:
+            assets = PipelineAssets(**json.load(f))
+    d = PipelineDriver(args.id_dir, assets, args.dst_size, device=args.device)
+    video = args.video or os.path.join(args.id_dir, f"{d.id}_25fps.mp4")
+    table = d.nonba_steps(video) if args.variant == "nonba" else d.ba_steps(video, args.video)
+    print(f"[process:{args.variant}] step {args.step}")
+    table[args.step]()
+    print(f"[process:{args.variant}] step {args.step} done")
 
 
 def cmd_train(args):
@@ -131,8 +163,7 @@ def main(argv=None):
     elif args.cmd == "render":
         cmd_render(args)
     elif args.cmd == "process":
-        raise NotImplementedError(
-            "process: the preprocessing pipeline is not ported (ROADMAP.md queue 1, item 7)")
+        cmd_process(args)
     else:
         raise NotImplementedError(
             "bench: the port's benchmark is not written yet (ROADMAP.md queue 1, item 3)")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Tuple
 
 from dfanerf_torch.models.decoder import DecoderConfig
 
@@ -130,3 +131,27 @@ class ExperimentConfig:
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_dict(), f, indent=2)
+
+
+def parse_legacy_config_file(path: str) -> Tuple[float, float]:
+    """near and far from a pipeline-written ``HeadNeRF_config_ba.txt``.
+
+    The reference reads them by line index (run_nerf_com_trainExpLater.py:
+    19-25, lines 3 and 4); this reads them by key, with that positional
+    fallback, so both well-formed and legacy files work.
+    """
+    with open(path) as f:
+        lines = f.readlines()
+    near = far = None
+    for ln in lines:
+        if "=" in ln:
+            k, v = ln.split("=", 1)
+            k = k.strip()
+            if k == "near":
+                near = float(v.strip())
+            elif k == "far":
+                far = float(v.strip())
+    if near is None or far is None:
+        near = float(lines[3].split("=")[-1].strip())
+        far = float(lines[4].split("=")[-1].strip())
+    return near, far

@@ -63,6 +63,43 @@ def adam_update(opt: Dict, grads: Dict[str, Optional[torch.Tensor]],
     opt["t"] = t
 
 
+class DeviceAdam:
+    """``adam_update``'s arithmetic over named tensors with the step count on
+    the device, so a step issues no host work that depends on it and can be
+    captured in a CUDA graph (the 3DMM tracker's and bundle adjustment's
+    loops, pipeline/tracking.py). The bias corrections of steps 1..n_steps
+    are float32 values computed on the host as ``adam_update`` computes
+    them, and a step reads its pair from that table at the device count."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr: float, n_steps: int,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = params
+        self.lr, self.b1, self.b2, self.eps = float(lr), b1, b2, eps
+        dev = next(iter(params.values())).device
+        self.m = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.v = {n: torch.zeros_like(p) for n, p in params.items()}
+        corr = [[np.float32(1.0) - np.float32(b) ** np.float32(t) for b in (b1, b2)]
+                for t in range(1, max(n_steps, 1) + 1)]
+        self.corr = torch.tensor(np.asarray(corr, np.float32)).to(dev)
+        self.t = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def state(self):
+        """Every tensor a step changes: the parameters, moments and count."""
+        return [*self.params.values(), *self.m.values(), *self.v.values(), self.t]
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        c = torch.index_select(self.corr, 0, self.t)[0]
+        c1, c2 = c[0], c[1]
+        for n, p in self.params.items():
+            g, m, v = grads[n], self.m[n], self.v[n]
+            m.mul_(self.b1).add_(g * (1.0 - self.b1))
+            v.mul_(self.b2).add_(g * (1.0 - self.b2) * g)
+            upd = (m / c1).mul_(self.lr)
+            p.sub_(upd.div_((v / c2).sqrt_().add_(self.eps)))
+        self.t += 1
+
+
 def exp_decay_lr(step: int, lrate: float, lrate_decay: int, decay_unit: int = 1500) -> np.float32:
     """lr(step) = lrate * 0.1^(step / (lrate_decay * decay_unit)) in float32
     (reference :88; run_nerf_com_trainExpLater.py:1081-1083)."""

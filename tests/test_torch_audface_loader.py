@@ -179,7 +179,20 @@ def test_cli_trains_on_and_renders_an_identity(identity, tmp_path):
                                       head[i])
 
 
-def test_cli_refuses_the_legacy_config(identity):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
+def test_cli_refuses_the_legacy_config(identity, monkeypatch, tmp_path):
+    """--legacy-config is ported: a legacy config txt without keys gives
+    near and far by line position (lines 3 and 4, as the reference reads
+    them) to the training config; a missing file is refused."""
+    import dfanerf_torch.train.loop as loop
+
+    legacy = tmp_path / "HeadNeRF_config_ba.txt"
+    legacy.write_text("obama_head\ndataset/obama\ndataset/obama/logs\n0.41\n1.07\n")
+    seen = {}
+    monkeypatch.setattr(loop, "train_loop", lambda cfg, ds, **kw: seen.update(
+        near=cfg.render.near, far=cfg.render.far))
+    cli.main(["train", "--datadir", str(identity), "--legacy-config", str(legacy),
+              "--device", "cpu"])
+    assert seen == {"near": 0.41, "far": 1.07}
+    with pytest.raises(FileNotFoundError):
         cli.main(["train", "--datadir", str(identity), "--legacy-config", "x.txt",
                   "--device", "cpu"])

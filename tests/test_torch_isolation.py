@@ -55,8 +55,10 @@ def test_no_silent_cpu_fallback(tmp_path):
     """Every entry point defaults to the card: the dense and the pair
     renderer, the seeded state and the state converted from the reference,
     the synthetic ground truth, the device data, the train step, the
-    training loop, the audio nets, audio to video, the cli, the
-    multi-identity step and the process group of a multi-process job."""
+    training loop, the audio nets, audio to video, the cli (train and
+    process), the multi-identity step, the process group of a multi-process
+    job, the preprocessing driver, each perception net's seeded init and
+    checkpoint loader, the distangler and the 3DMM."""
     from dfanerf_torch import cli
     from dfanerf_torch.pipeline.audio.deepspeech import init_deepspeech
     from dfanerf_torch.pipeline.audio.wav2exp import audio_encoder_from_torch, init_audio_encoder
@@ -100,6 +102,38 @@ def test_no_silent_cpu_fallback(tmp_path):
                   lambda: cli.main(["train", "--synthetic"]),
                   lambda: make_multi_identity_train_step(dense, [ds]),
                   lambda: initialize("tcp://127.0.0.1:1", world_size=2, rank=0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    _no_silent_cpu_fallback_in_preprocessing(tmp_path)
+
+
+def _no_silent_cpu_fallback_in_preprocessing(tmp_path):
+    from dfanerf_torch import cli
+    from dfanerf_torch.models.perception.bisenet import BiSeNet, load_bisenet
+    from dfanerf_torch.models.perception.blazeface import BlazeFace, load_blazeface
+    from dfanerf_torch.models.perception.ghostnet_eye import EyeNet, load_eye_net
+    from dfanerf_torch.models.perception.hrnet import HRNet, HRNetConfig, load_hrnet
+    from dfanerf_torch.models.perception.raft import RAFTSmall, load_raft_small
+    from dfanerf_torch.pipeline.disentangle import Distangler, load_distangler
+    from dfanerf_torch.pipeline.driver import PipelineDriver
+    from dfanerf_torch.pipeline.face3dmm import (
+        load_face3dmm, make_synthetic_3dmm, synthetic_3dmm_arrays, write_face3dmm,
+    )
+
+    tiny = HRNetConfig(stage2=(1, 2, (1, 1), (4, 4)), stage3=(1, 3, (1, 1, 1), (4, 4, 4)),
+                       stage4=(1, 4, (1, 1, 1, 1), (4, 4, 4, 4)))
+    entries = [lambda: PipelineDriver(str(tmp_path / "id")),
+               lambda: cli.main(["process", "--id-dir", str(tmp_path / "id"), "--step", "2"]),
+               lambda: make_synthetic_3dmm(point_num=8),
+               lambda: load_face3dmm(write_face3dmm(str(tmp_path / "bfm"), synthetic_3dmm_arrays(
+                   point_num=8, id_dim=2, exp_dim=2, tex_dim=1)), 2, 2, 1, 8)]
+    for make, load in ((BlazeFace, load_blazeface), (lambda: HRNet(tiny), load_hrnet),
+                       (EyeNet, load_eye_net), (BiSeNet, load_bisenet),
+                       (RAFTSmall, load_raft_small), (Distangler, load_distangler)):
+        path = str(tmp_path / f"{load.__name__}.pth")
+        torch.save(make().state_dict(), path)
+        entries += [lambda load=load: load("random:0"), lambda load=load, path=path: load(path)]
+    for entry in entries:
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 
