@@ -1,5 +1,5 @@
-"""Pinhole-camera ray generation (port of dfanerf_tpu/core/rays.py get_rays
-and rays_for_pixels).
+"""Pinhole-camera ray generation (port of dfanerf_tpu/core/rays.py get_rays,
+rays_for_pixels and ndc_rays).
 
 Pixel grid with 'xy' indexing, camera looking down -z with y flipped:
 dir = [(i - cx) / f, -(j - cy) / f, -1], rotated by c2w[:3, :3]; ray
@@ -68,3 +68,23 @@ def rays_for_pixels(coords_yx: torch.Tensor, focal: float, c2w: torch.Tensor, cx
     rays_d = torch.einsum("...j,ij->...i", dirs, c2w[:3, :3].to(torch.float32))
     rays_o = c2w[:3, -1].to(torch.float32).expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def ndc_rays(H: int, W: int, focal: float, near: float, rays_o: torch.Tensor,
+             rays_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift rays to the near plane and project them to NDC space (reference
+    :96; the vanilla-NeRF / LLFF convention, which the talking-head pipeline
+    does not use): rays_o, rays_d [..., 3] -> the same in NDC."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+    return torch.stack([o0, o1, o2], dim=-1), torch.stack([d0, d1, d2], dim=-1)

@@ -15,7 +15,12 @@ gradient back to them), the product is rounded to the dtype and the bias add
 rounds again (the colour layer's add excepted, see ``forward``). ``F.linear``
 would fuse the add and round once; autocast would choose its own casts.
 
-Only ``positional_encoding='normal'`` is ported; 'gauss' raises.
+``positional_encoding='gauss'`` encodes points and view directions with the
+reference's fixed seed-42 projections (core/posenc.py gauss_B_matrices),
+constants of the configuration kept outside the module (one copy per
+device), so the state dict is the same in both modes. Only this module
+and the training renderer run it: the fused kernels evaluate the octave
+encoding, and ops/pack.py refuses gauss.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from dfanerf_torch.core.posenc import sincos_posenc
+from dfanerf_torch.core.posenc import gauss_B_matrices, gauss_posenc, sincos_posenc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +138,9 @@ class DeformationField(nn.Module):
         return h @ w_out + b_out
 
 
+# gauss_B_matrices by (gauss_dim_pos, gauss_dim_view, gauss_std, device)
+_GAUSS_B = {}
+
 _IN_LAYER = {"head": "fc_in", "head_listener": "fc_in_listener", "torso": "fc_in_torso"}
 _SKIP_LAYERS = {"head": "fc_p_skips", "head_listener": "fc_p_skips_listener",
                 "torso": "fc_p_skips_torso"}
@@ -144,9 +152,8 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.positional_encoding != "normal":
-            raise NotImplementedError(
-                "positional_encoding='gauss' is not ported yet (ROADMAP.md queue 1, odds and ends)")
+        if cfg.positional_encoding not in ("normal", "gauss"):
+            raise ValueError(f"unknown positional_encoding {cfg.positional_encoding!r}")
         self.cfg = cfg
         H, Z = cfg.hidden_size, cfg.z_dim
         d_e, d_ev = cfg.dim_embed, cfg.dim_embed_view
@@ -179,6 +186,17 @@ class Decoder(nn.Module):
         if cfg.use_wav2lip:
             self.w2lnet = nn.Linear(cfg.dim_w2lfeature, H)
 
+    def _encode(self, x: torch.Tensor, view: bool) -> torch.Tensor:
+        """The configured encoding of points (or unit view directions)."""
+        cfg = self.cfg
+        if cfg.positional_encoding == "gauss":
+            key = (cfg.gauss_dim_pos, cfg.gauss_dim_view, cfg.gauss_std, x.device)
+            if key not in _GAUSS_B:
+                _GAUSS_B[key] = tuple(b.to(x.device) for b in gauss_B_matrices(*key[:3]))
+            return gauss_posenc(x, _GAUSS_B[key][1 if view else 0], cfg.downscale_p_by)
+        n = cfg.n_freq_posenc_views if view else cfg.n_freq_posenc
+        return sincos_posenc(x, n, cfg.downscale_p_by)
+
     def forward(
         self,
         p_in: torch.Tensor,
@@ -203,7 +221,7 @@ class Decoder(nn.Module):
         if branch not in _IN_LAYER:
             raise ValueError(f"unknown branch {branch!r}")
         cfg, dt = self.cfg, compute_dtype
-        p = sincos_posenc(p_in.float(), cfg.n_freq_posenc, cfg.downscale_p_by)
+        p = self._encode(p_in.float(), view=False)
         if dt is not None:
             p, z_shape, z_app = p.to(dt), z_shape.to(dt), z_app.to(dt)
         if branch != "head_listener":
@@ -236,7 +254,7 @@ class Decoder(nn.Module):
         if cfg.use_viewdirs and ray_d is not None:
             ray_d = ray_d.float()
             ray_d = ray_d / torch.linalg.norm(ray_d, dim=-1, keepdim=True)
-            rd = sincos_posenc(ray_d, cfg.n_freq_posenc_views, cfg.downscale_p_by)
+            rd = self._encode(ray_d, view=True)
             if dt is not None:
                 rd = rd.to(dt)
             net = torch.relu(net + _linear(self.fc_view, rd, dt))

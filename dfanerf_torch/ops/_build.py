@@ -33,10 +33,13 @@ SOURCES = ("render_rays", "pair_field", "far_eval", "sigma_head", "render_head",
 LAYOUT_SIZES = 5  # ints a library's <name>_layout writes: weight and bias blob sizes, smem
 # --fmad=false: the kernels mirror their plain versions' float32 rounding
 # (see the note in csrc/render_rays.cu); -Xptxas -v reports registers, shared
-# memory and spills into the build log.
+# memory and spills into the build log; --split-compile=0 compiles a
+# source's kernels concurrently on every core, which halves the build of the
+# sources with six instantiations (render_rays, pair_field) and leaves their
+# SASS as it was without it.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v", "--split-compile=0",
 )
 
 

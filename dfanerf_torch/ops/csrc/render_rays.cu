@@ -16,17 +16,24 @@
 // both stacks is <= ert_eps (early ray termination) or its occupancy flag is
 // 0.
 //
-// Four instantiations of render_rays_kernel<EVAL_H, EVAL_T, BG_IN_KERNEL>,
-// as the TPU kernel's static eval_head / eval_torso / bg_in_kernel:
+// Six instantiations of render_rays_kernel<EVAL_H, EVAL_T, BG_IN_KERNEL>,
+// every combination of the TPU kernel's static eval_head / eval_torso /
+// bg_in_kernel:
 // - <true, true, true>: both fields, the reference's bg-concat rules at the
 //   final sample, the last slab always run (fields="both");
+// - <true, false, true>, <false, true, true>: one field with the same rules
+//   (fields="head" or "torso" without the epilogue). At the final sample the
+//   head colour is the background pixel, the head stack's density gets its
+//   1e-6 bump and the composite's torso density becomes 1e-6 whichever field
+//   runs: without the head the composite's last sample is the torso colour
+//   and the head stack's the background;
 // - <true, true, false>, <true, false, false>, <false, true, false>: the
 //   epilogue mode of the occupancy serving paths (bg_epilogue=True): no
 //   sample gets the bg rules and the last slab is not forced (the caller's
 //   dists make the final sample a no-op), and the per-ray transmittances are
-//   written beside the sums for the caller's epilogue. A field left out
-//   (fields="head" or "torso", the per-field tile classes) runs no MLP and
-//   counts as sigma 0, rgb 0 in both stacks.
+//   written beside the sums for the caller's epilogue.
+// A field left out (the per-field tile classes) runs no MLP and counts as
+// sigma 0, rgb 0 in both stacks.
 //
 // What bounds it on the H100. About 2.4 MFLOP of matrix products per
 // (ray, sample) for the two fields at their live widths (2.5 at the
@@ -266,8 +273,8 @@ int render_rays_layout(int* sizes) {
 }
 
 // Launches the instantiation <eval_h, eval_t, bg_in_kernel> on `stream`;
-// returns the cudaError_t of the launch (cudaErrorInvalidValue for a
-// combination that is not instantiated). t_h and t_c [n_pad] take the
+// returns the cudaError_t of the launch (cudaErrorInvalidValue when neither
+// field is evaluated). t_h and t_c [n_pad] take the
 // transmittances without bg_in_kernel and are not read with it.
 int render_rays_launch(const float* o_h, const float* d_h, const float* o_t, const float* d_t,
                        const float* z, const float* dists_h, const float* dists_t,
@@ -306,6 +313,8 @@ int render_rays_launch(const float* o_h, const float* d_h, const float* o_t, con
   p.t_out_c = t_c;
   if (bg_in_kernel) {
     if (eval_h && eval_t) return launch<true, true, true>(p, stream);
+    if (eval_h) return launch<true, false, true>(p, stream);
+    if (eval_t) return launch<false, true, true>(p, stream);
   } else if (eval_h && eval_t) {
     return launch<true, true, false>(p, stream);
   } else if (eval_h) {

@@ -22,10 +22,10 @@ Two implementations of one function, over the same prepared operands
   recurrences.
 
 ``fused_render_rays`` takes the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises. A single field with the
-background in the kernel (``fields != 'both'`` without ``bg_epilogue``), which
-no renderer runs, raises NotImplementedError. The occupancy flags are
-ops/occupancy.py's.
+for CUDA tensors it launches the kernel or raises. Every combination of
+``fields`` and ``bg_epilogue`` has its instantiation (``RENDER_VARIANTS``);
+a single field with the background in the kernel is one that no renderer
+runs. The occupancy flags are ops/occupancy.py's.
 """
 
 from __future__ import annotations
@@ -45,6 +45,9 @@ R_T = TILE * TILE  # rays per tile
 S_SLAB = 8     # samples per slab
 PE_PAD = 64    # padded PE width
 _REF_TILES = 16  # tiles per group in the plain version (bounds its activation memory)
+# fused_render_rays_reference's group on the card, where its time is the
+# launches of its per-sample compositing ops rather than memory
+_REF_TILES_CUDA = 64
 
 # PE-slot replication: slot c of the 64-wide encoding reads coordinate c % 3
 # at frequency pi * 2**(c // 6) / 2 (the decoder's downscale of 2 folded in),
@@ -341,10 +344,12 @@ def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]
 
     With the background concat in the kernel, returns rgb_head [n_pad, 3],
     rgb_com [n_pad, 3] (fp32), the number of slabs evaluated per tile
-    [n_tiles] (int32) and the head density at the final sample [n_pad]
-    (fp32). That density conditions the composite's last-sample blend (sh *
-    bc + 1e-6 * ct) / (sh + 1e-6): where it is near zero, a tiny change of it
-    swings the pixel between background and torso colour.
+    [n_tiles] (int32), the head density at the final sample [n_pad] and the
+    composite's transmittance before the final sample [n_pad] (fp32). These
+    two condition the composite's last sample: its blend (sh * bc + 1e-6 *
+    ct) / (sh + 1e-6) swings between background and torso colour with a tiny
+    change of sh where sh is near zero, and that sample's colour carries the
+    transmittance's share of the pixel.
 
     In epilogue mode (``ops.bg_epilogue``) the last slab is not forced and no
     sample gets the background rules (reference :246-247, :306-308); returns
@@ -362,6 +367,7 @@ def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]
     freq, phase = _slot_tables(dev)
     eval_h, eval_t = ops.fields in ("both", "head"), ops.fields in ("both", "torso")
     bg_in_kernel = not ops.bg_epilogue
+    group = _REF_TILES_CUDA if dev.type == "cuda" else _REF_TILES
 
     def rep(r):  # [n_pad, 3] -> [T, R_T, 64]
         return pe_replicate(r).reshape(T, R_T, PE_PAD)
@@ -379,6 +385,7 @@ def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]
     acc_com = torch.zeros((T, R_T, 3), device=dev)
     slabs = torch.zeros((T,), dtype=torch.int32, device=dev)
     sigma_last = torch.zeros((T, R_T, 1), device=dev)
+    t_far = torch.ones((T, R_T, 1), device=dev)
 
     for j in range(J):
         is_last = j == J - 1
@@ -389,8 +396,8 @@ def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]
         tiles = alive.nonzero()[:, 0]
         slabs[tiles] += 1
         z = ops.z_vals[j * S_SLAB:(j + 1) * S_SLAB]
-        for start in range(0, tiles.numel(), _REF_TILES):
-            idx = tiles[start:start + _REF_TILES]
+        for start in range(0, tiles.numel(), group):
+            idx = tiles[start:start + group]
             c = idx.numel()
 
             def field(o, d, vr, pw, branch, on):
@@ -429,6 +436,8 @@ def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]
                 c_mix = (sh * ch + st_com * ct) / denom
                 alpha_c = 1.0 - torch.exp(-(ssum + 1e-6) * dt_s)
                 ac = ac + (alpha_c * tc) * c_mix
+                if lastf:
+                    t_far[idx] = tc
                 tc = tc * (1.0 - alpha_c + 1e-10)
             t_head[idx], t_com[idx] = th, tc
             acc_head[idx], acc_com[idx] = ah, ac
@@ -437,7 +446,8 @@ def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]
     if ops.bg_epilogue:
         return (acc_head.reshape(-1, 3), acc_com.reshape(-1, 3), slabs, t_head.reshape(-1),
                 t_com.reshape(-1))
-    return acc_head.reshape(-1, 3), acc_com.reshape(-1, 3), slabs, sigma_last.reshape(-1)
+    return (acc_head.reshape(-1, 3), acc_com.reshape(-1, 3), slabs, sigma_last.reshape(-1),
+            t_far.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +458,8 @@ def fused_render_rays_reference(ops: RenderOperands) -> Tuple[torch.Tensor, ...]
 # The kernel's instantiations, by (fields, bg_epilogue): the name each one's
 # launches are counted under (RenderRaysKernel.variant_launches).
 RENDER_VARIANTS = {("both", False): "render_rays", ("both", True): "render_rays_epilogue",
-                   ("head", True): "render_rays_head", ("torso", True): "render_rays_torso"}
+                   ("head", True): "render_rays_head", ("torso", True): "render_rays_torso",
+                   ("head", False): "render_rays_head_bg", ("torso", False): "render_rays_torso_bg"}
 
 
 class RenderRaysKernel(_build.Binding):
@@ -467,7 +478,7 @@ class RenderRaysKernel(_build.Binding):
         transmittances t_head, t_com [n_pad], as the plain version."""
         variant = RENDER_VARIANTS.get((ops.fields, ops.bg_epilogue))
         if variant is None:
-            raise ValueError("render_rays_kernel runs a single field only in epilogue mode")
+            raise ValueError(f"unknown fields {ops.fields!r}")
         T, J = ops.n_tiles, ops.n_slabs
         n_pad = T * R_T
         dev = _build.check_cuda_operands("render_rays_kernel", {
@@ -536,13 +547,10 @@ def fused_render_rays(
     kernel as ``composite._bg_epilogue`` on the unpadded rays (padding rays
     have zero directions, whose view bias is NaN), so the last slab is not
     forced. ``fields``: "head" or "torso" evaluate one field, the other
-    counting as sigma 0, rgb 0 in both stacks (epilogue mode only). Returns
+    counting as sigma 0, rgb 0 in both stacks (the background rules of the
+    final sample still apply without the epilogue). Returns
     rgb_head [n, 3], rgb_com [n, 3] (fp32). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    if fields != "both" and not bg_epilogue:
-        raise NotImplementedError(
-            f"fields={fields!r} with the background in the kernel is not ported (no renderer "
-            "runs it; ROADMAP.md queue 1, odds and ends)")
     n = rays_o.shape[0]
     dev = rays_o.device
     if dev.type not in ("cpu", "cuda"):

@@ -52,6 +52,10 @@ def pack_field_weights(
     if branch not in ("head", "torso"):
         raise ValueError(f"unknown branch {branch!r}")
     cfg = decoder.cfg
+    # the kernels evaluate the octave encoding in-register (the slot-replicated
+    # sin); the gauss mode runs through Decoder.forward only
+    if cfg.positional_encoding != "normal":
+        raise ValueError("the fused kernels support positional_encoding='normal' only")
     f32 = torch.float32
     H = cfg.hidden_size
     sig = signal.to(f32)

@@ -150,3 +150,16 @@ def forward_geo_sub(model: Face3DMM, id_para: torch.Tensor, exp_para: torch.Tens
     g = ((id_para * model.sig_id) @ model.base_id[:, cols]
          + (exp_para * model.sig_exp) @ model.base_exp[:, cols] + model.mu[cols])
     return g.reshape(-1, cols.shape[0] // 3, 3)
+
+
+def forward_geo(model: Face3DMM, id_para: torch.Tensor, exp_para: torch.Tensor) -> torch.Tensor:
+    """World geometry of every vertex: [B, id_dim], [B, exp_dim] -> [B, P, 3]."""
+    g = ((id_para * model.sig_id) @ model.base_id + (exp_para * model.sig_exp) @ model.base_exp
+         + model.mu)
+    return g.reshape(-1, model.point_num, 3)
+
+
+def forward_tex(model: Face3DMM, tex_para: torch.Tensor) -> torch.Tensor:
+    """Per-vertex albedo: [B, tex_dim] -> [B, P, 3]."""
+    t = (tex_para * model.sig_tex) @ model.base_tex + model.mu_tex
+    return t.reshape(-1, model.point_num, 3)

@@ -22,9 +22,13 @@ from torch import nn
 
 def adam_init(module: nn.Module) -> Dict:
     """Zero moments for every parameter of ``module`` and a step count of 0."""
-    params = dict(module.named_parameters())
-    return {"m": {n: torch.zeros_like(p) for n, p in params.items()},
-            "v": {n: torch.zeros_like(p) for n, p in params.items()},
+    return adam_state(dict(module.named_parameters()))
+
+
+def adam_state(tensors: Dict[str, torch.Tensor]) -> Dict:
+    """Zero moments for named tensors (parameters or not) and a step count of 0."""
+    return {"m": {n: torch.zeros_like(p) for n, p in tensors.items()},
+            "v": {n: torch.zeros_like(p) for n, p in tensors.items()},
             "t": 0}
 
 

@@ -31,6 +31,17 @@ MAX_ERR = 2e-4
 MEAN_ERR = 1.5e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch single-threaded for this module: its plain versions run many
+    small products, and the intra-op threads of six suite workers on a few
+    cores cost more than they save."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     params = jax.jit(lambda k: init_decoder(k, JDecoderConfig()))(jax.random.PRNGKey(0))
@@ -125,7 +136,7 @@ def test_early_ray_termination(setup):
     rays = [torch.from_numpy(r) for r in setup["rays"]]
     ops = prepare_render_operands(pw_h, pw_t, *rays, torch.tensor(
         np.asarray(jnp.linspace(0.3, 0.9, 32))), torch.from_numpy(setup["bc"]), ert_eps=1e-4)
-    _, _, slabs, _ = fused_render_rays_reference(ops)
+    _, _, slabs, _, _ = fused_render_rays_reference(ops)
     assert slabs.tolist() == [2, 4]
 
 

@@ -60,6 +60,17 @@ PAIRS = dict(BASE, occ_sigma_thresh=2.859, occ_pair_compaction=True, occ_refresh
 MARGIN = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch single-threaded for this module: its plain versions run many
+    small products, and the intra-op threads of six suite workers on a few
+    cores cost more than they save."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     ds = make_synthetic_dataset(n_frames=6, H=24, W=24, n_samples_gt=16)

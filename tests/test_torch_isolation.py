@@ -58,7 +58,8 @@ def test_no_silent_cpu_fallback(tmp_path):
     training loop, the audio nets, audio to video, the cli (train and
     process), the multi-identity step, the process group of a multi-process
     job, the preprocessing driver, each perception net's seeded init and
-    checkpoint loader, the distangler and the 3DMM."""
+    checkpoint loader, the distangler and the 3DMM, the reference-checkpoint
+    loader and its train state, and the distangler's trainer."""
     from dfanerf_torch import cli
     from dfanerf_torch.pipeline.audio.deepspeech import init_deepspeech
     from dfanerf_torch.pipeline.audio.wav2exp import audio_encoder_from_torch, init_audio_encoder
@@ -109,12 +110,16 @@ def test_no_silent_cpu_fallback(tmp_path):
 
 def _no_silent_cpu_fallback_in_preprocessing(tmp_path):
     from dfanerf_torch import cli
+    from dfanerf_torch.compat.torch_ckpt import load_reference_checkpoint, reference_train_state
+    from dfanerf_torch.config import ExperimentConfig
     from dfanerf_torch.models.perception.bisenet import BiSeNet, load_bisenet
     from dfanerf_torch.models.perception.blazeface import BlazeFace, load_blazeface
     from dfanerf_torch.models.perception.ghostnet_eye import EyeNet, load_eye_net
     from dfanerf_torch.models.perception.hrnet import HRNet, HRNetConfig, load_hrnet
     from dfanerf_torch.models.perception.raft import RAFTSmall, load_raft_small
-    from dfanerf_torch.pipeline.disentangle import Distangler, load_distangler
+    from dfanerf_torch.pipeline.disentangle import (
+        Distangler, load_distangler, make_disentangle_train_step,
+    )
     from dfanerf_torch.pipeline.driver import PipelineDriver
     from dfanerf_torch.pipeline.face3dmm import (
         load_face3dmm, make_synthetic_3dmm, synthetic_3dmm_arrays, write_face3dmm,
@@ -126,7 +131,10 @@ def _no_silent_cpu_fallback_in_preprocessing(tmp_path):
                lambda: cli.main(["process", "--id-dir", str(tmp_path / "id"), "--step", "2"]),
                lambda: make_synthetic_3dmm(point_num=8),
                lambda: load_face3dmm(write_face3dmm(str(tmp_path / "bfm"), synthetic_3dmm_arrays(
-                   point_num=8, id_dim=2, exp_dim=2, tex_dim=1)), 2, 2, 1, 8)]
+                   point_num=8, id_dim=2, exp_dim=2, tex_dim=1)), 2, 2, 1, 8),
+               lambda: load_reference_checkpoint(str(tmp_path / "000001.tar")),
+               lambda: reference_train_state({}, ExperimentConfig()),
+               lambda: make_disentangle_train_step(None, [0])[0]()]
     for make, load in ((BlazeFace, load_blazeface), (lambda: HRNet(tiny), load_hrnet),
                        (EyeNet, load_eye_net), (BiSeNet, load_bisenet),
                        (RAFTSmall, load_raft_small), (Distangler, load_distangler)):
@@ -162,8 +170,26 @@ def test_kernel_wrapper_refuses_what_it_cannot_serve():
         with pytest.raises(ValueError, match="CUDA"):
             render_rays_kernel(ops)
     assert render_rays_kernel.launches == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_render_rays(pw, pw, *rays, z, torch.zeros(8, 3), fields="head")
+    # a single field with the background in the kernel: the CPU route computes
+    # it with the plain version, the kernel refuses CPU tensors
+    from dfanerf_torch.models import Decoder, DecoderConfig
+    from dfanerf_torch.models.layers import init_uniform_
+    from dfanerf_torch.ops.pack import pack_field_weights
+
+    dec = init_uniform_(Decoder(DecoderConfig()), torch.Generator().manual_seed(0))
+    zs = torch.zeros(256)
+    packed = [pack_field_weights(dec, torch.zeros(d), zs, zs, b)
+              for d, b in ((96, "head"), (42, "torso"))]
+    rays_d = torch.tensor([[0.0, 0.0, -1.0]]).expand(8, 3)
+    for fields in ("head", "torso"):
+        head, com = fused_render_rays(*packed, rays[0], rays_d, rays[0], rays_d, z,
+                                      torch.full((8, 3), 0.5), fields=fields)
+        assert head.shape == com.shape == (8, 3)
+        assert torch.isfinite(head).all() and torch.isfinite(com).all()
+        ops = prepare_render_operands(pw, pw, *rays, z, torch.zeros(8, 3), fields=fields)
+        with pytest.raises(ValueError, match="CUDA"):
+            render_rays_kernel(ops)
+    assert render_rays_kernel.launches == 0
 
 
 def test_hierarchical_kernel_wrappers_refuse_cpu_tensors():

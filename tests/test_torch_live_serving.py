@@ -69,6 +69,17 @@ LIVE = dict(n_samples=16, use_fused_kernel=True, spatial_tiles=True, occ_sigma_t
 N_RAYS = 512  # two tiles
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch single-threaded for this module: its plain versions run many
+    small products, and the intra-op threads of six suite workers on a few
+    cores cost more than they save."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def buffers():
     """Seeded pair buffers (sigma, r, g, b), each [J, sp, 3 * 256] (two

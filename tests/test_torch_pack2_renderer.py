@@ -40,6 +40,17 @@ PACK2 = dict(n_samples=16, use_fused_kernel=True, spatial_tiles=True, occ_sigma_
 PRUNES = {"default-trans-prune": {}, "contrib-prune": {"occ_prune_contrib": 0.0108}}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch single-threaded for this module: its plain versions run many
+    small products, and the intra-op threads of six suite workers on a few
+    cores cost more than they save."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     """The scene arrays of make_synthetic_dataset (no ground-truth frames

@@ -43,6 +43,17 @@ PAIRS = dict(n_samples=16, use_fused_kernel=True, spatial_tiles=True, occ_sigma_
              occ_grid_res=16, occ_refresh_every=2, occ_pair_compaction=True, ert_eps=0.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch single-threaded for this module: its plain versions run many
+    small products, and the intra-op threads of six suite workers on a few
+    cores cost more than they save."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     ds = make_synthetic_dataset(n_frames=6, H=32, W=32, n_samples_gt=16)

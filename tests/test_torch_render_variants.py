@@ -53,6 +53,17 @@ def _to_torch(pw):
         torch.bfloat16 if v.dtype == jnp.bfloat16 else torch.float32) for k, v in pw.items()}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch single-threaded for this module: its plain versions run many
+    small products, and the intra-op threads of six suite workers on a few
+    cores cost more than they save."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     params = jax.jit(lambda k: init_decoder(k, JDecoderConfig()))(jax.random.PRNGKey(0))

@@ -19,11 +19,12 @@ to the port).
   4, a carried one at frame 2. The flag state, ``age`` and ``keep_age``
   must equal the reference's after every frame; steady and carried frames
   are fast frames (far plane on the subgrid), refresh frames pipeline
-  frames.
+  frames (tests/test_torch_serve_levers_live.py).
 - ``refresh_union(per_slot=True)`` with ``occ_budget_iters=2``: every slot
   equal, ``far_skip`` and ``far_cmix_err`` included, with colour keys at
   occ_pack2 off and on and with mass keys; where the case's budget leaves
-  the refinement room, it must drop a pair in some slot.
+  the refinement room, it must drop a pair in some slot
+  (tests/test_torch_serve_levers_slots.py).
 - ``far_skip_tol`` 1.0 (taken) and 1e-9 (not taken, in the live test):
   the same decision and measured error as the reference, and under the
   skip no far-plane evaluation in a served frame; with it, the revert of
@@ -33,7 +34,8 @@ to the port).
 The budgets sit where the colour keys of this scene drop some pairs and
 keep others; no decision here is a near-tie (the states are equal). Frames
 are held to tests/test_torch_pair_renderer.py's bars, max 3e-5 and mean
-2e-6."""
+2e-6. The live-lever and per-slot cases have files of their own, each on
+its own worker of the parallel suite; they share this file's settings."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +52,17 @@ from dfanerf_tpu.ops import fused_render as jf
 from dfanerf_tpu.render.renderer import budget_drop_masks as j_budget_drop_masks
 from dfanerf_torch.ops.composite import deferred_composite
 from dfanerf_torch.render.renderer import budget_drop_masks
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch single-threaded for this module: its renders are small, and the
+    intra-op threads of six suite workers on a few cores cost more than they
+    save."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 BASE = dict(n_samples=16, use_fused_kernel=True, spatial_tiles=True, occ_sigma_thresh=0.18,
             occ_grid_res=16, occ_refresh_every=2, occ_pair_compaction=True, ert_eps=0.0,
@@ -103,9 +116,6 @@ def test_ray_diag_matches_reference(composite_setup, sp, color):  # noqa: F811
     assert float(got[8].max()) > 0.05 and float(got[9].max()) > 0.05  # real costs
 
 
-LIVE = dict(BASE, occ_prune_budget=1e-2, occ_prune_carry=1)
-
-
 def _far_calls(monkeypatch):
     """Records the rows of each far-plane evaluation of the port's renderer."""
     calls = []
@@ -117,85 +127,6 @@ def _far_calls(monkeypatch):
 
     monkeypatch.setattr(t_renderer, "fused_far_eval_split", counted)
     return calls
-
-
-# (far_subsample, far_skip_tol): the second case also measures the far
-# plane's c_mix error at every refresh, carried ones included, and keeps it
-@pytest.mark.parametrize("ss,tol", [(8, 0.0), (2, 1e-9)], ids=["ss8", "ss2-far-measured"])
-def test_live_levers_match_reference(setup, monkeypatch, ss, tol):  # noqa: F811
-    monkeypatch.setenv("DFANERF_PALLAS_INTERPRET", "1")
-    flags = []
-    real = t_renderer.conservative_occupancy
-    monkeypatch.setattr(t_renderer, "conservative_occupancy",
-                        lambda *a, **kw: flags.append(real(*a, **kw)) or flags[-1])
-    calls = _far_calls(monkeypatch)
-    j_render, t_render = renderers(setup[0], **LIVE, far_subsample=ss, far_skip_tol=tol)
-    jc, tc = j_render.cache, t_render.cache
-    kinds, dropped, steady_calls = [], 0, []
-    for i in range(6):
-        j_args, t_args = frame_args(setup, i)
-        ref = j_render(*j_args)
-        n_flags, n_calls = len(flags), len(calls)
-        got = t_render(*t_args)
-        counts = assert_state_equal(tc, jc, pack2=False)
-        assert (tc["age"], tc["keep_age"]) == (jc["age"], jc["keep_age"]), i
-        assert tc["far_skip"] is jc["far_skip"] is False
-        if tol > 0:
-            np.testing.assert_allclose(tc["far_cmix_err"], jc["far_cmix_err"], rtol=CMIX_RTOL,
-                                       atol=CMIX_ATOL)
-        assert_frames_close(got, ref, i)
-        kinds.append((tc["age"], tc["keep_age"]))
-        if len(flags) > n_flags:  # a refresh: the pruned lists against its flags
-            dropped += int(flags[-1].sum()) - sum(counts)
-        else:
-            steady_calls.append(calls[n_calls:])
-    # full refresh, steady, carried refresh, steady, full refresh, steady
-    assert kinds == [(1, 0), (2, 0), (1, 1), (2, 1), (1, 0), (2, 0)]
-    assert len(flags) == 3 and dropped > 0
-    # a steady frame evaluates the far plane once, on the subgrid of 4 tiles
-    assert steady_calls == [[4 * (16 // ss) ** 2]] * 3
-
-
-# (render options, whether a refinement round drops a pair in some slot).
-# On this scene the refinement's room lies in narrow budget windows: with
-# colour keys, searched over occupancy thresholds 0.12-0.2 and budgets
-# 2e-3-3e-2, the round drops nothing more at occ_pack2 off, and at 0.0118
-# (threshold 0.16) one pair in frame 0's slot with occ_pack2 on; with
-# mass keys at 0.0245 it drops 2-4 pairs in every slot. No tile reverted in
-# any of these.
-SLOTS = {"colour-pack2-off": (dict(occ_pack2=False, occ_prune_budget=1e-2), False),
-         "colour-pack2-on": (dict(occ_pack2=True, occ_prune_budget=0.0118,
-                                  occ_sigma_thresh=0.16), True),
-         "mass-pack2-off": (dict(occ_pack2=False, occ_prune_budget=0.0245,
-                                 occ_budget_color=False), True)}
-WINDOW = 2
-
-
-@pytest.mark.parametrize("case,refines", list(SLOTS.values()), ids=list(SLOTS))
-def test_per_slot_refinement_matches_reference(setup, monkeypatch, case, refines):  # noqa: F811
-    monkeypatch.setenv("DFANERF_PALLAS_INTERPRET", "1")
-    pack2 = case["occ_pack2"]
-    j_render, t_render = renderers(setup[0], **dict(BASE, **case), occ_budget_iters=2,
-                                   far_skip_tol=2e-3, far_subsample=8)
-    args = [frame_args(setup, i) for i in range(WINDOW)]
-    j_render.refresh_union([j_render.inputs_fn(*j) for j, _ in args], per_slot=True)
-    t_render.refresh_union([t_render.inputs_fn(*t) for _, t in args], per_slot=True)
-    jc, tc = j_render.cache, t_render.cache
-    assert len(tc["slots"]) == WINDOW
-    for ts, js in zip(tc["slots"], jc["slots"]):
-        assert_state_equal(ts, js, pack2)
-        assert ts["far_skip"] is js["far_skip"]
-        np.testing.assert_allclose(ts["far_cmix_err"], js["far_cmix_err"], rtol=CMIX_RTOL,
-                                   atol=CMIX_ATOL)
-    assert_state_equal(tc, jc, pack2)
-    prep = tc["slot_prep"]
-    assert all(len(p["pairs"]) == 3 for p in prep)  # unpruned, round 1, round 2
-    assert any(p["pairs"][1] != p["pairs"][0] for p in prep)  # round 1 drops pairs
-    assert any(p["refined"][0] for p in prep) == refines, prep
-    for i in range(WINDOW):
-        got = t_render(*args[i][1], window_slot=i)
-        ref = j_render(*args[i][0], window_slot=i)
-        assert_frames_close(got, ref, f"frame {i} under slot {i}")
 
 
 def test_far_skip_and_revert_match_reference(setup, monkeypatch):  # noqa: F811
