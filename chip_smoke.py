@@ -32,11 +32,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (pair_field 2, far_head 1, far_torso 1); time the frames and each stage;
 6. the pair path after a contribution prune that drops tiles from the union
    and every pair of one field: a steady frame against the plain versions;
-7. hold pair_field at 4 samples per slab and pair2_field (two half-slab
-   pairs per block, occ_pack2) against their plain versions at a 450x450
-   frame's rays and 64 samples (head and torso, relu and softplus, a list
-   with gaps and an odd K, K = 1, K = 0), and pair2's A and B outputs
-   against pair_field's on the A and B lists bit for bit;
+7. hold pair_field at 4 samples per slab and pair2_field at 4 and 8 (two
+   pairs per block; 4 is occ_pack2's half-slab) against their plain
+   versions at a 450x450 frame's rays and 64 samples (head and torso, relu
+   and softplus, a list with gaps and an odd K, K = 1, K = 0), and pair2's
+   A and B outputs against pair_field's at the same slab size on the A and
+   B lists bit for bit; then pair2_field at sp=8 through its entry point on
+   5's sp=8 lists (launches counted from zero, against the plain version
+   and pair_field bit for bit) and timed beside pair_field at sp=8 on those
+   lists;
 8. drive the pair path with occ_pack2 (the recipe, scene and weights of 5)
    for 16 frames across two refreshes: flags [2, 841, 16] against widened
    float32 ones, the A/B flag partitions, launches per frame (steady:
@@ -177,7 +181,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    steps (the first against the CPU) and the mouth-keypoint net in both
    modes; a legacy FaceNeRF forward; a float32 gauss-PE train step against
    the CPU;
-23. print the script's total time, the card's name and power limit, then
+23. the landmark model zoo (phase_zoo): every family of
+   models/perception/{mobilenet,shufflenet,u2net,ghostnet_face,
+   zoo_extra}.py at the reference's default widths and input sizes,
+   RAFT-basic on a 320x240 crop pair and ImportanceWeights, seeded: 2
+   images on the card against the port's CPU path (TF32 off), a batch of
+   16 timed; three architectures of the landmark export (eye,
+   face_ghostnet, U^2-Net small) written from seeded checkpoints and read
+   back onto the card with load_exported bit for bit;
+24. print the script's total time, the card's name and power limit, then
    one JSON line listing every ported kernel with its launches, error and
    times, and last a JSON status line.
 
@@ -1142,7 +1154,8 @@ def phase_pair_main_path():
           "PyTorch call computes a packed NeRF field on listed (tile, slab) pairs or at the far "
           "plane", flush=True)
     return entries, {"frames": frames, "times": (s_ms, r_ms, window),
-                     "lists": [(i, k_h, k_t) for i, k_h, k_t, *_ in refreshes]}
+                     "lists": [(i, k_h, k_t) for i, k_h, k_t, *_ in refreshes],
+                     "ops": (pair_ops, z_vals, act, k_u)}
 
 
 # A contribution prune that drops pairs on the card (the main path's
@@ -1217,16 +1230,23 @@ def _quartets_equal(got, want, listed):
     return all(torch.equal(g[listed], w[listed]) for g, w in zip(got, want))
 
 
-def phase_pair2_kernels_vs_plain():
-    """pair_field at 4 samples per slab and pair2_field against their plain
-    versions at a 450x450 frame's rays and 64 samples (16 half-slabs): head
-    and torso, relu and softplus, a list with gaps and an odd K, and K = 1;
-    pair2's A and B quartets against pair_field's on the A and B lists, bit
-    for bit; K = 0 returns zeros without a launch. Returns the largest
-    absolute difference from the plain version of each kernel."""
+def phase_pair2_kernels_vs_plain(sp8):
+    """pair_field at 4 samples per slab and pair2_field at 4 and 8 against
+    their plain versions at a 450x450 frame's rays and 64 samples (16
+    half-slabs, 8 slabs): head and torso, relu and softplus, a list with
+    gaps and an odd K, and K = 1; pair2's A and B quartets against
+    pair_field's at the same slab size on the A and B lists, bit for bit;
+    K = 0 returns zeros without a launch. Then pair2_field at sp=8 through
+    its entry point, pair2_field_eval_prepped, on the pair path's sp=8 lists
+    (sp8["ops"], its last steady frame): launches counted from zero, the
+    quartets against the plain version and against pair_field's on the A
+    and B lists, and both kernels timed on those lists (ABBA). Returns the
+    largest absolute difference from the plain version of each kernel and
+    the kernels-line entry of pair2_field at sp=8."""
     from dfanerf_torch.models import Decoder, DecoderConfig
     from dfanerf_torch.models.layers import init_uniform_
-    from dfanerf_torch.ops.fused_render import view_bias
+    from dfanerf_torch.ops._build import weight_blobs
+    from dfanerf_torch.ops.fused_render import R_T, field_flops_per_sample, view_bias
     from dfanerf_torch.ops.pack import pack_field_weights
     from dfanerf_torch.ops.pair_field import (
         pair2_field_eval_prepped, pair2_field_eval_reference, pair2_field_kernel,
@@ -1240,59 +1260,119 @@ def phase_pair2_kernels_vs_plain():
         return torch.randn(*shape, generator=g).cuda()
 
     vecs = [rn(96), rn(42), rn(256), rn(256)]
-    sp, T = 4, (-(-H // 16)) ** 2
-    J = N_SAMPLES // sp
+    T = (-(-H // 16)) ** 2
     z = torch.linspace(0.3, 0.9, N_SAMPLES).cuda()
-    flags = torch.rand((T, J), generator=g) < PAIR2_FRACTION
-    t_all, j_all = (x.to(torch.int32).cuda() for x in flags.nonzero(as_tuple=True))
-    if t_all.numel() % 2 == 0:  # an odd K: the last block has no B pair
-        t_all, j_all = t_all[:-1].contiguous(), j_all[:-1].contiguous()
-    cases = {f"K = {t_all.numel()} with gaps": (t_all, j_all),
-             "K = 1": (t_all[:1].contiguous(), j_all[:1].contiguous())}
-    worst = {"pair_field_sp4": 0.0, "pair2_field": 0.0}
+    worst = {"pair_field_sp4": 0.0, "pair2_field": 0.0, "pair2_field_sp8": 0.0}
     packs = {}
     for branch, sig in (("head", vecs[0]), ("torso", vecs[1])):
         pw = packs[branch] = pack_field_weights(dec, sig, vecs[2], vecs[3], branch)
         o = (rn(T * 256, 3) * 0.05).contiguous()
         d = (rn(T * 256, 3) * 0.2 + torch.tensor([0.0, 0.0, -1.0]).cuda()).contiguous()
         vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
-        for act in ("relu", "softplus"):
-            for tag, (t_i, j_i) in cases.items():
-                ta, ja, tb, jb = _split(t_i, j_i)
-                one = pair_field_kernel(pw, branch, o, d, vr, z, t_i, j_i, act, sp)
-                two = pair2_field_kernel(pw, branch, o, d, vr, z, ta, ja, tb, jb, act)
-                one_a = pair_field_kernel(pw, branch, o, d, vr, z, ta, ja, act, sp)
-                one_b = (pair_field_kernel(pw, branch, o, d, vr, z, tb, jb, act, sp)
-                         if tb.numel() else None)
-                torch.cuda.synchronize()
-                ref = pair_field_eval_reference(pw, branch, o, d, vr, z, t_i, j_i, act, sp)
-                ref2 = pair2_field_eval_reference(pw, branch, o, d, vr, z, ta, ja, tb, jb, act)
-                lists = {"": (t_i, j_i), " A": (ta, ja), " B": (tb, jb)}
-                masks = {k: _listed_mask(J, T, t, j, "cuda", sp) for k, (t, j) in lists.items()}
-                label = f"{branch}, {act}, {tag}"
-                worst["pair_field_sp4"] = max(worst["pair_field_sp4"], _check_buffers(
-                    f"pair_field sp=4 vs plain, {label}", one, ref, masks[""]))
-                for q, quartet, key in ((0, two[0], " A"), (1, two[1], " B")):
-                    if lists[key][0].numel():
-                        worst["pair2_field"] = max(worst["pair2_field"], _check_buffers(
-                            f"pair2_field vs plain, {label},{key}", quartet, ref2[q], masks[key]))
-                same_a = _quartets_equal(two[0], one_a, masks[" A"])
-                same_b = one_b is None or _quartets_equal(two[1], one_b, masks[" B"])
-                print(f"[pair2_field vs pair_field sp=4, {label}] A ({ta.numel()} pairs) "
-                      f"bit-equal {same_a}, B ({tb.numel()} pairs) bit-equal {same_b}", flush=True)
-                if not (same_a and same_b):
-                    _fail(f"pair2_field's quartets differ from pair_field's at sp=4, {label}")
+        for sp in (4, 8):
+            J = N_SAMPLES // sp
+            flags = torch.rand((T, J), generator=g) < PAIR2_FRACTION
+            t_all, j_all = (x.to(torch.int32).cuda() for x in flags.nonzero(as_tuple=True))
+            if t_all.numel() % 2 == 0:  # an odd K: the last block has no B pair
+                t_all, j_all = t_all[:-1].contiguous(), j_all[:-1].contiguous()
+            cases = {f"K = {t_all.numel()} with gaps": (t_all, j_all),
+                     "K = 1": (t_all[:1].contiguous(), j_all[:1].contiguous())}
+            key2 = "pair2_field" if sp == 4 else "pair2_field_sp8"
+            for act in ("relu", "softplus"):
+                for tag, (t_i, j_i) in cases.items():
+                    ta, ja, tb, jb = _split(t_i, j_i)
+                    one = (pair_field_kernel(pw, branch, o, d, vr, z, t_i, j_i, act, sp)
+                           if sp == 4 else None)
+                    two = pair2_field_kernel(pw, branch, o, d, vr, z, ta, ja, tb, jb, act, sp)
+                    one_a = pair_field_kernel(pw, branch, o, d, vr, z, ta, ja, act, sp)
+                    one_b = (pair_field_kernel(pw, branch, o, d, vr, z, tb, jb, act, sp)
+                             if tb.numel() else None)
+                    torch.cuda.synchronize()
+                    ref2 = pair2_field_eval_reference(pw, branch, o, d, vr, z, ta, ja, tb, jb,
+                                                      act, sp)
+                    lists = {"": (t_i, j_i), " A": (ta, ja), " B": (tb, jb)}
+                    masks = {k: _listed_mask(J, T, t, j, "cuda", sp)
+                             for k, (t, j) in lists.items()}
+                    label = f"{branch}, {act}, {tag}"
+                    if one is not None:
+                        ref = pair_field_eval_reference(pw, branch, o, d, vr, z, t_i, j_i, act,
+                                                        sp)
+                        worst["pair_field_sp4"] = max(worst["pair_field_sp4"], _check_buffers(
+                            f"pair_field sp=4 vs plain, {label}", one, ref, masks[""]))
+                    for q, quartet, key in ((0, two[0], " A"), (1, two[1], " B")):
+                        if lists[key][0].numel():
+                            worst[key2] = max(worst[key2], _check_buffers(
+                                f"pair2_field sp={sp} vs plain, {label},{key}", quartet, ref2[q],
+                                masks[key]))
+                    same_a = _quartets_equal(two[0], one_a, masks[" A"])
+                    same_b = one_b is None or _quartets_equal(two[1], one_b, masks[" B"])
+                    print(f"[pair2_field vs pair_field sp={sp}, {label}] A ({ta.numel()} pairs) "
+                          f"bit-equal {same_a}, B ({tb.numel()} pairs) bit-equal {same_b}",
+                          flush=True)
+                    if not (same_a and same_b):
+                        _fail(f"pair2_field's quartets differ from pair_field's at sp={sp}, "
+                              f"{label}")
     empty = torch.zeros(0, dtype=torch.int32, device="cuda")
     before = pair2_field_kernel.launches
     o = torch.zeros((T * 256, 3), device="cuda")
     vr = torch.zeros((T * 256, 256), dtype=torch.bfloat16, device="cuda")
-    quartets = pair2_field_eval_prepped(packs["head"], "head", o, o, vr, z, empty, empty, empty,
-                                        empty)
-    if pair2_field_kernel.launches != before or any(bool(b.float().any())
-                                                    for q in quartets for b in q):
-        _fail("pair2_field with no pairs: a launch or non-zero buffers")
-    print("[pair2_field vs plain, no pairs] zero quartets, no launch", flush=True)
-    return worst
+    for sp in (4, 8):
+        quartets = pair2_field_eval_prepped(packs["head"], "head", o, o, vr, z, empty, empty,
+                                            empty, empty, s_slab=sp)
+        if pair2_field_kernel.launches != before or any(bool(b.float().any())
+                                                        for q in quartets for b in q):
+            _fail(f"pair2_field sp={sp} with no pairs: a launch or non-zero buffers")
+    print("[pair2_field vs plain, no pairs] zero quartets at sp=4 and 8, no launch", flush=True)
+
+    # sp=8 through the entry point, on the pair path's lists of its last steady frame
+    pair_ops, z_vals, act, k_u = sp8["ops"]
+    splits = {b: _split(ti, ji) for b, (_, _, _, _, ti, ji) in pair_ops.items()}
+    pair2_field_kernel.launches, pair2_field_kernel.variant_launches = 0, {}
+    got = {b: pair2_field_eval_prepped(pw, b, o, d, vr, z_vals, *splits[b], act, 8)
+           for b, (pw, o, d, vr, _, _) in pair_ops.items()}
+    torch.cuda.synchronize()
+    launches = pair2_field_kernel.variant_launches.get("sp8", 0)
+    if launches != len(pair_ops) or pair2_field_kernel.launches != launches:
+        _fail(f"pair2_field sp=8 on the pair path's lists: launches "
+              f"{pair2_field_kernel.variant_launches}, expected one sp8 launch a field")
+    plain_ms, flops, n_bytes = 0.0, 0.0, 0.0
+    runs = {"pair2_field": [], "pair_field": []}
+    for branch, (pw, o, d, vr, ti, ji) in pair_ops.items():
+        ta, ja, tb, jb = splits[branch]
+        J = N_SAMPLES // 8
+        ref, ms = _cuda_call(lambda: pair2_field_eval_reference(pw, branch, o, d, vr, z_vals, ta,
+                                                                ja, tb, jb, act, 8))
+        plain_ms += ms
+        masks = [_listed_mask(J, k_u, t, j, "cuda", 8) for t, j in ((ta, ja), (tb, jb))]
+        for q, key in ((0, "A"), (1, "B")):
+            worst["pair2_field_sp8"] = max(worst["pair2_field_sp8"], _check_buffers(
+                f"pair path sp=8 lists, pair2_field {branch} {key} vs plain", got[branch][q],
+                ref[q], masks[q]))
+        same = [_quartets_equal(got[branch][q], pair_field_kernel(pw, branch, o, d, vr, z_vals,
+                                                                  t, j, act, 8), masks[q])
+                for q, (t, j) in enumerate(((ta, ja), (tb, jb)))]
+        if not all(same):
+            _fail(f"pair path sp=8 lists, {branch}: pair2_field's quartets differ from "
+                  f"pair_field's (A, B bit-equal {same})")
+        K = ti.numel()
+        flops += K * 8 * R_T * field_flops_per_sample(branch)
+        n_bytes += _pair_bytes(k_u, K, 8, weight_blobs(pw, branch))
+        calls = {"pair_field": (pair_field_kernel, (ti, ji)),
+                 "pair2_field": (pair2_field_kernel, (ta, ja, tb, jb))}
+        for name in ("pair2_field", "pair_field", "pair_field", "pair2_field"):
+            kern, lists = calls[name]
+            runs[name].append(_cuda_ms(lambda: kern(pw, branch, o, d, vr, z_vals, *lists, act, 8),
+                                       3))
+        print(f"[pair2_field sp=8, pair path lists] {branch}: K = {K} ({ta.numel()} A, "
+              f"{tb.numel()} B); A and B bit-equal to pair_field's; plain {ms:.1f} ms",
+              flush=True)
+    ms2, ms1 = (sum(runs[k]) / 2 for k in ("pair2_field", "pair_field"))
+    print(f"[pair2_field sp=8, pair path lists] head+torso {ms2:.3f} ms against pair_field sp=8's "
+          f"{ms1:.3f} ms on the same lists ({ms2 / ms1:.3f}x; ABBA, 3 launches each); "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at bf16 peak", flush=True)
+    entry = _entry("pair2_field_sp8", "pair_field.cu", "dfanerf_tpu/ops/fused_render.py:1195",
+                   launches, worst["pair2_field_sp8"], ms2, plain_ms, flops, n_bytes)
+    return worst, entry
 
 
 def phase_pack2_main_path(sp8):
@@ -4986,6 +5066,176 @@ def phase_tracking_tools(card, ds):
     print(f"[tools] phase {time.time() - t0:.1f} s", flush=True)
 
 
+ZOO_BATCH = 16   # images a timed batch
+ZOO_CHECK = 2    # of them, held against the port's CPU path
+ZOO_SEED = 100
+# the export round trip's architectures on the card, with the tool's kwargs
+ZOO_EXPORTS = {"eye": {}, "face_ghostnet": {}, "u2net": {"out_ch": 68, "small": True}}
+
+
+def _zoo_nets():
+    """name -> (the port's net at the reference's default widths, one input's
+    shape at the family's input size): the landmark zoo, plain PyTorch."""
+    import functools
+
+    from dfanerf_torch.models.perception import ghostnet_face as gf
+    from dfanerf_torch.models.perception import mobilenet as mb
+    from dfanerf_torch.models.perception import shufflenet as sh
+    from dfanerf_torch.models.perception import u2net as u2
+    from dfanerf_torch.models.perception import zoo_extra as z
+
+    P = functools.partial
+    face = (3, 256, 256)
+    return {
+        "MobileNetV2": (mb.MobileNetV2, (3, 224, 224)),
+        "FaceMobilenetHeatmap": (mb.FaceMobilenetHeatmap, face),
+        "FaceMobilenetGhostHead": (mb.FaceMobilenetGhostHead, face),
+        "ShuffleNetV2 x1.0": (sh.ShuffleNetV2, (3, 224, 224)),
+        "U2Net": (u2.U2Net, face),
+        "U2NETP_S5": (P(u2.U2Net, 68, True), face),
+        "FaceGhostNet": (gf.FaceGhostNet, face),
+        "PoseResNet 50": (z.PoseResNet, face),
+        "PoseFaceResNet 18": (z.PoseFaceResNet, face),
+        "FaceMobilenetDReLU": (z.FaceMobilenetDReLU, face),
+        "MobileHead": (P(z.MobileHead, 96, 68), (96, 16, 16)),
+        "FaceMobilenetDenseReg": (z.FaceMobilenetDenseReg, face),
+        "FaceMobilenet eyeBranch": (z.FaceMobilenetStaged, face),
+        "FaceMobilenet mutiScale": (P(z.FaceMobilenetStaged, "mutiScale"), face),
+        "FAN": (z.FAN, face),
+        "MobileHRNet": (z.MobileHRNet, face),
+        "EyeNetGeneral": (z.EyeNetGeneral, (1, 32, 48)),
+        "EyeGhostnetRegress": (z.EyeGhostnetRegress, (1, 32, 48)),
+        "PoseMobilenet": (P(z.PoseMobilenet, image_size=(256, 256)), face),
+        "FaceMobilenetDeconv": (z.FaceMobilenetDeconv, face),
+        "FaceMobilenetOld": (P(z.FaceMobilenetOld, image_size=(256, 256)), face),
+        "CenterMobilenet": (z.CenterMobilenet, (3, 512, 512)),
+    }
+
+
+def _leaves(out):
+    """The tensors of a net's output: dicts by key, sequences in order."""
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _leaves(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for v in out for t in _leaves(v)]
+    return [out]
+
+
+@torch.no_grad()
+def phase_zoo(card):
+    """The landmark model zoo (mobilenet, shufflenet, u2net, ghostnet_face,
+    zoo_extra), RAFT-basic with ImportanceWeights, and the landmark export:
+    every family at the reference's default widths and its input size,
+    seeded (on a worker thread, ahead of the card); the first ZOO_CHECK
+    images of a ZOO_BATCH batch (drawn on the card) on the card against the
+    port's CPU path, which runs on another worker thread meanwhile (TF32
+    off; rtol 1e-4, atol 1e-5 per unit of each output's scale,
+    _process_close), the batch timed with CUDA events once those threads
+    are done (a warm call, then 3); RAFT-basic (12 iterations) on a 320x240 crop pair
+    cut as step_flow cuts it (mask_crop) and ImportanceWeights at the
+    crop's size; then ZOO_EXPORTS' architectures written from a seeded
+    checkpoint by the export tool and read back onto the card with
+    load_exported, bit for bit. No kernel of its own: convolutions through
+    cuDNN."""
+    import concurrent.futures
+    import copy
+    import queue
+    import tempfile
+    import threading
+
+    import cv2
+    import numpy as np
+
+    from dfanerf_torch.compat.landmark_export import ARCHS, export, load_exported
+    from dfanerf_torch.models.perception.common import seeded_init_
+    from dfanerf_torch.models.perception.raft import ImportanceWeights, RAFTBasic, mask_crop
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        _fail("[zoo] TF32 is on: the card vs cpu checks need float32 convolutions")
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(ZOO_SEED)
+    rows, card_out, cpu_out, on_card, jobs = {}, {}, {}, {}, queue.Queue()
+
+    def cpu_worker():  # the CPU path of every net, beside the card's work
+        try:
+            while (job := jobs.get()) is not None:
+                name, net, xs = job
+                with torch.no_grad():
+                    cpu_out[name] = _leaves(net(*xs))
+        except BaseException as e:  # noqa: BLE001 -- raised after the join
+            cpu_out["error"] = e
+
+    worker = threading.Thread(target=cpu_worker)
+    worker.start()
+
+    def run(name, net, xc):
+        net_c = copy.deepcopy(net).cuda()
+        jobs.put((name, net, [x[:ZOO_CHECK].cpu() for x in xc]))
+        card_out[name] = [t.cpu() for t in _leaves(net_c(*(x[:ZOO_CHECK] for x in xc)))]
+        net_c(*xc)  # the batch's first call: cuDNN's choices
+        on_card[name] = (net_c, xc)
+
+    nets = _zoo_nets()
+    seeder = concurrent.futures.ThreadPoolExecutor(1)  # seeds the next nets meanwhile
+    built = [seeder.submit(lambda i=i, make=make: seeded_init_(make(), ZOO_SEED + i).eval())
+             for i, (make, _) in enumerate(nets.values())]
+    try:
+        for (name, (_, shape)), net in zip(nets.items(), built):
+            run(name, net.result(), [torch.randn(ZOO_BATCH, *shape, generator=gen, device="cuda")])
+
+        # RAFT-basic on a crop pair cut as step_flow cuts it: a textured frame
+        # and the same frame moved by (3, 5) px, the same face-like mask
+        rng = np.random.RandomState(ZOO_SEED)
+        frame = cv2.GaussianBlur(rng.uniform(0, 255, (512, 512, 3)).astype(np.float32), (0, 0), 3)
+        moved = np.roll(frame, (3, 5), axis=(0, 1))
+        mask = np.zeros((512, 512), np.uint8)
+        cv2.ellipse(mask, (256, 250), (120, 160), 0, 0, 360, 1, -1)
+        crops = [mask_crop(im, mask)[0] for im in (frame, moved)]  # [320, 240, 3] at 0..255
+        pair = [torch.from_numpy(c).cuda().permute(2, 0, 1)[None].expand(ZOO_BATCH, -1, -1, -1)
+                .contiguous() for c in crops]
+        run("RAFT-basic (12 iterations, 320x240 crops)", seeded_init_(RAFTBasic(), 7).eval(), pair)
+        feats = torch.randn(ZOO_BATCH, 128, 320, 240, generator=gen, device="cuda")
+        run("ImportanceWeights (320x240)", seeded_init_(ImportanceWeights(), 8).eval(),
+            [torch.cat(pair, 1) / 255.0, feats])
+    finally:
+        seeder.shutdown(cancel_futures=True)
+        jobs.put(None)
+        worker.join()
+    if "error" in cpu_out:
+        raise cpu_out["error"]
+    # timed once the CPU threads are done: these nets launch many small
+    # kernels, and a busy host would stretch their times
+    for name, (net_c, xc) in on_card.items():
+        rows[name] = _cuda_ms(lambda: net_c(*xc), 3)
+        print(f"[zoo] {name}: {ZOO_BATCH} x {tuple(xc[0].shape[1:])} {rows[name]:.3f} ms a batch "
+              f"on the card ({card})", flush=True)
+    del on_card
+    for name, got in card_out.items():
+        want = cpu_out[name]
+        if len(got) != len(want):
+            _fail(f"[zoo] {name}: {len(got)} outputs on the card, {len(want)} on the cpu")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _process_close(f"{name}, output {i}", a, b, phase="zoo")
+
+    # a seeded checkpoint -> export -> load_exported onto the card (the CPU
+    # tests hold every architecture of the tool against the reference's)
+    with tempfile.TemporaryDirectory() as d:
+        for i, (arch, kw) in enumerate(ZOO_EXPORTS.items()):
+            sd = seeded_init_(ARCHS[arch].seeded(kw), ZOO_SEED + i).state_dict()
+            pth, npz = os.path.join(d, f"{arch}.pth"), os.path.join(d, f"{arch}.npz")
+            torch.save(sd, pth)
+            export(arch, pth, npz, **kw)
+            _, net = load_exported(npz)
+            got = net.state_dict()
+            if next(net.parameters()).device.type != "cuda" or set(got) != set(sd) or not all(
+                    torch.equal(got[k].cpu(), v) for k, v in sd.items()):
+                _fail(f"[zoo] export -> load_exported of {arch}: not the checkpoint on the card")
+    print(f"[zoo] export -> load_exported on the card: {', '.join(ZOO_EXPORTS)} bit for bit",
+          flush=True)
+    print(f"[zoo] phase {time.time() - t0:.1f} s; ms a batch of {ZOO_BATCH}: "
+          f"{json.dumps({k: round(v, 3) for k, v in rows.items()})} ({card})", flush=True)
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return {"name": name, "route": "cuda", "source": f"dfanerf_torch/ops/csrc/{source}",
@@ -5025,7 +5275,7 @@ def main() -> int:
     _mark("phase_pair_main_path")
     phase_pair_prune()
     _mark("phase_pair_prune")
-    pair2_errs = phase_pair2_kernels_vs_plain()
+    pair2_errs, pair2_sp8 = phase_pair2_kernels_vs_plain(sp8)
     _mark("phase_pair2_kernels_vs_plain")
     pack2, _ = phase_pack2_main_path(sp8)
     _mark("phase_pack2_main_path")
@@ -5089,10 +5339,12 @@ def main() -> int:
     _mark("phase_process")
     phase_tracking_tools(card, ds)
     _mark("phase_tracking_tools")
+    phase_zoo(card)
+    _mark("phase_zoo")
     print(f"[total] chip_smoke.py {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + hier_dense + hier_pairs
-                      + serve + [far_joint] + single_bg}), flush=True)
+    print(json.dumps({"kernels": [kernel] + pair_kernels + pack2 + [pair2_sp8] + hier_dense
+                      + hier_pairs + serve + [far_joint] + single_bg}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

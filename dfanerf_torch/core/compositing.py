@@ -75,3 +75,28 @@ def volume_render(z_vals: torch.Tensor, ray_d: torch.Tensor, sigma: torch.Tensor
     weights = calc_volume_weights(z_vals, ray_d, sigma_sum, last_dist=last_dist)
     rgb = (weights[..., None] * feat_weighted.float()).sum(dim=-2)
     return rgb, weights
+
+
+def apply_background_concat(feat_head: torch.Tensor, sigma_head: torch.Tensor,
+                            bc_rgb: torch.Tensor, sigma_torso: torch.Tensor = None):
+    """The reference's ``--concate_bg`` (reference :102; run_nerf_com_
+    trainExpLater.py:863-886): the head field's last sample colour becomes
+    the background pixel, the torso's last density 0, and 1e-6 is added to
+    the last density of the last field of each stack (the head in the
+    head-only stack, the torso in the head+torso one) so the background
+    stays reachable when every density is zero.
+
+    feat_head [R, S, 3], sigma_head [R, S] (post-relu), bc_rgb [R, 3],
+    sigma_torso [R, S] or None -> (feat_head', sigma_head for the head-only
+    stack, sigma_head for the composite stack (unchanged), sigma_torso' or
+    None)."""
+    feat_head = torch.cat([feat_head[..., :-1, :], bc_rgb[..., None, :].to(feat_head.dtype)],
+                          dim=-2)
+    bump = torch.zeros_like(sigma_head)
+    bump[..., -1] += 1e-6
+    sigma_head_headstack = sigma_head + bump
+    if sigma_torso is None:
+        return feat_head, sigma_head_headstack, sigma_head, None
+    sigma_torso = sigma_torso.clone()
+    sigma_torso[..., -1] = 0.0
+    return feat_head, sigma_head_headstack, sigma_head, sigma_torso + bump

@@ -16,8 +16,10 @@ This module holds what they share:
 - ``load_net``: a checkpoint path (``torch.load`` + ``load_state_dict``) or
   ``random:<seed>`` -> a net in eval mode on its device;
 - the builders of state-dict entries from the reference's parameter trees
-  (``put_conv``, ``put_bn``, ``put_linear``): HWIO -> OIHW, ``{gamma, beta,
-  mean, var}`` -> ``weight, bias, running_mean, running_var``. Each net's
+  (``put_conv``, ``put_bn``, ``put_linear``, ``put_deconv``): HWIO -> OIHW,
+  ``{gamma, beta, mean, var}`` -> ``weight, bias, running_mean,
+  running_var``, the reference's pre-flipped transposed-conv kernels back to
+  ConvTranspose2d's [in, out / groups, kh, kw]. Each net's
   ``*_state_dict_from_jax`` walks its tree with them, the inverse of the
   reference's ``*_from_torch``.
 """
@@ -81,23 +83,25 @@ def resize_linear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 @torch.no_grad()
 def seeded_init_(net: nn.Module, seed: int) -> nn.Module:
     """Deterministic weights from a CPU generator, in the module's parameter
-    order: conv and linear weights U(-a, a) with a = sqrt(3 / fan_in)
-    (variance 1 / fan_in), biases U(-b, b) with b = 1 / sqrt(fan_in); a
-    BatchNorm's weight U(0.5, 1.5), bias U(-0.1, 0.1), running mean
-    U(-0.1, 0.1) and running variance U(0.5, 1.5)."""
+    order: conv, transposed-conv and linear weights U(-a, a) with a =
+    sqrt(3 / fan_in) (variance 1 / fan_in; a transposed conv's fan is its
+    weight's [out / groups, kh, kw]), biases U(-b, b) with b = 1 /
+    sqrt(fan_in); a BatchNorm's (1d or 2d) weight U(0.5, 1.5), bias
+    U(-0.1, 0.1), running mean U(-0.1, 0.1) and running variance
+    U(0.5, 1.5)."""
     g = torch.Generator().manual_seed(seed)
 
     def uniform(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=g, dtype=torch.float32) * (hi - lo) + lo)
 
     for mod in net.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             a = math.sqrt(3.0 / fan_in)
             uniform(mod.weight, -a, a)
             if mod.bias is not None:
                 uniform(mod.bias, -1.0 / math.sqrt(fan_in), 1.0 / math.sqrt(fan_in))
-        elif isinstance(mod, nn.BatchNorm2d):
+        elif isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
             uniform(mod.weight, 0.5, 1.5)
             uniform(mod.bias, -0.1, 0.1)
             uniform(mod.running_mean, -0.1, 0.1)
@@ -145,11 +149,47 @@ def put_bn(sd: StateDict, name: str, p: Mapping) -> None:
 
 
 def put_linear(sd: StateDict, name: str, p: Mapping) -> None:
-    """A linear layer's ``{w [in, out], b}`` -> ``weight`` [out, in], ``bias``."""
+    """A linear layer's ``{w [in, out], b}`` -> ``weight`` [out, in], ``bias``
+    (none without ``b``)."""
     sd[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
-    sd[f"{name}.bias"] = _t(p["b"])
+    if "b" in p:
+        sd[f"{name}.bias"] = _t(p["b"])
 
 
 def put_convbn(sd: StateDict, cname: str, bname: str, p: Mapping) -> None:
     put_conv(sd, cname, p["conv"])
     put_bn(sd, bname, p["bn"])
+
+
+def put_deconv(sd: StateDict, name: str, p: Mapping, groups: int = 1) -> None:
+    """A transposed conv's pre-flipped forward kernel ``{w [kh, kw, in / groups,
+    out], b}`` -> ``name.weight`` [in, out / groups, kh, kw] and ``name.bias``."""
+    w = np.asarray(p["w"])
+    kh, kw, cin_g, cout = w.shape
+    w = w.reshape(kh, kw, cin_g, groups, cout // groups).transpose(3, 2, 4, 0, 1)
+    sd[f"{name}.weight"] = _t(w.reshape(groups * cin_g, cout // groups, kh, kw)[:, :, ::-1, ::-1])
+    if "b" in p:
+        sd[f"{name}.bias"] = _t(p["b"])
+
+
+class UpsampleLinear(nn.Module):
+    """``resize_linear`` by an integer ``scale`` (no parameters: a slot in an
+    nn.Sequential, as the reference's nn.Upsample is)."""
+
+    def __init__(self, scale: int = 2):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x):
+        return resize_linear(x, (self.scale * x.shape[2], self.scale * x.shape[3]))
+
+
+class ConvBNAct(nn.Sequential):
+    """Conv2d (no bias), BatchNorm2d and an activation module: keys ``0``,
+    ``1`` and ``2`` (torchvision's ConvBNReLU layout; the activation is
+    ReLU6 in MobileNetV2, a DReLU in its dynamic-activation variant)."""
+
+    def __init__(self, cin: int, cout: int, ks: int = 3, stride: int = 1, groups: int = 1,
+                 act: nn.Module = None, eps: float = 1e-5):
+        super().__init__(nn.Conv2d(cin, cout, ks, stride, (ks - 1) // 2, groups=groups, bias=False),
+                         nn.BatchNorm2d(cout, eps=eps), nn.ReLU6() if act is None else act)

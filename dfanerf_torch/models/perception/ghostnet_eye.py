@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from dfanerf_torch.models.perception.common import (
-    ConvBN, StateDict, load_net, put_bn, put_conv, put_convbn, put_linear, resize_linear,
+    ConvBN, StateDict, UpsampleLinear, load_net, put_bn, put_conv, put_convbn, put_linear,
 )
 
 # (kernel, hidden, out, use_se, stride): get_eye_net's encoder and decoder sets
@@ -88,10 +88,6 @@ class GhostBottleneck(nn.Module):
         return self.conv(x) + self.shortcut(x)
 
 
-class _Upsample2x(nn.Module):
-    def forward(self, x):
-        return resize_linear(x, (2 * x.shape[2], 2 * x.shape[3]))
-
 
 class EyeNet(nn.Module):
     """[N, 1, 32, 48] grayscale eye crops in [0, 1] -> heatmaps [N, 6, 16, 24]."""
@@ -106,7 +102,7 @@ class EyeNet(nn.Module):
         self.features = nn.Sequential(*layers)
         head = []
         for k, hidden, c, use_se, _ in DECODER_SETS:
-            head += [_Upsample2x(),
+            head += [UpsampleLinear(),
                      GhostBottleneck(inp, _divisible(hidden), _divisible(c), k, 1, use_se)]
             inp = _divisible(c)
         self.head = nn.Sequential(*head)
@@ -122,32 +118,34 @@ def load_eye_net(spec: str, device=None) -> EyeNet:
     return load_net(spec, lambda sd: EyeNet(), device)
 
 
+def put_ghost_bottleneck(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """One GhostBottleneck of the reference's tree into ``sd`` at ``prefix``."""
+    def ghost(pre, q):
+        put_convbn(sd, f"{pre}.primary_conv.0", f"{pre}.primary_conv.1", q["primary"])
+        put_convbn(sd, f"{pre}.cheap_operation.0", f"{pre}.cheap_operation.1", q["cheap"])
+
+    ghost(f"{prefix}.conv.0", p["ghost1"])
+    if "dw" in p:
+        put_convbn(sd, f"{prefix}.conv.1.0", f"{prefix}.conv.1.1", p["dw"])
+    if "se" in p:
+        put_linear(sd, f"{prefix}.conv.2.fc.0", p["se"]["fc1"])
+        put_linear(sd, f"{prefix}.conv.2.fc.2", p["se"]["fc2"])
+    ghost(f"{prefix}.conv.3", p["ghost2"])
+    if "shortcut" in p:
+        put_convbn(sd, f"{prefix}.shortcut.0.0", f"{prefix}.shortcut.0.1", p["shortcut"]["dw"])
+        put_conv(sd, f"{prefix}.shortcut.1", p["shortcut"]["pw"]["conv"])
+        put_bn(sd, f"{prefix}.shortcut.2", p["shortcut"]["pw"]["bn"])
+
+
 def eye_net_state_dict_from_jax(params: Mapping) -> StateDict:
     """The reference's parameter tree (numpy leaves) -> this module's state
-    dict: the inverse of ``eye_net_from_torch``."""
+    dict: the inverse of ``eye_net_from_torch`` (and of the zoo's
+    encoder-decoders of the same layout, which add nothing to it)."""
     sd: StateDict = {}
-
-    def ghost(prefix, p):
-        put_convbn(sd, f"{prefix}.primary_conv.0", f"{prefix}.primary_conv.1", p["primary"])
-        put_convbn(sd, f"{prefix}.cheap_operation.0", f"{prefix}.cheap_operation.1", p["cheap"])
-
-    def bottleneck(prefix, p):
-        ghost(f"{prefix}.conv.0", p["ghost1"])
-        if "dw" in p:
-            put_convbn(sd, f"{prefix}.conv.1.0", f"{prefix}.conv.1.1", p["dw"])
-        if "se" in p:
-            put_linear(sd, f"{prefix}.conv.2.fc.0", p["se"]["fc1"])
-            put_linear(sd, f"{prefix}.conv.2.fc.2", p["se"]["fc2"])
-        ghost(f"{prefix}.conv.3", p["ghost2"])
-        if "shortcut" in p:
-            put_convbn(sd, f"{prefix}.shortcut.0.0", f"{prefix}.shortcut.0.1", p["shortcut"]["dw"])
-            put_conv(sd, f"{prefix}.shortcut.1", p["shortcut"]["pw"]["conv"])
-            put_bn(sd, f"{prefix}.shortcut.2", p["shortcut"]["pw"]["bn"])
-
     put_convbn(sd, "features.0.0", "features.0.1", params["stem"])
     for i, p in enumerate(params["features"]):
-        bottleneck(f"features.{i + 1}", p)
+        put_ghost_bottleneck(sd, f"features.{i + 1}", p)
     for i, p in enumerate(params["head"]):
-        bottleneck(f"head.{2 * i + 1}", p)
+        put_ghost_bottleneck(sd, f"head.{2 * i + 1}", p)
     put_conv(sd, "final_layer", params["final"])
     return sd

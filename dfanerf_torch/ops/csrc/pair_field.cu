@@ -10,8 +10,8 @@
 // pair2_field_eval_reference.
 //
 // What they compute. The caller lists K occupied (tile, slab) pairs of one
-// field, at SP samples per slab (8, or 4 for the half-slabs of occ_pack2;
-// pair2 runs at 4 only).
+// field, at SP samples per slab (8, or 4 for the half-slabs of occ_pack2),
+// both kernels built for both.
 // For each pair k, with t = t_idx[k] and j = j_idx[k], the field is
 // evaluated at the SP samples z[SP j .. SP j + SP - 1] of the 256 rays of
 // tile t (SP * 256 rows, sample-major), and the block [j][s][t*256 + r] of
@@ -144,9 +144,10 @@ __global__ void __launch_bounds__(NTHR_W, 1) pair_field_kernel(const Params p) {
   eval_pair<TORSO, SP>(p, p.t_idx[blockIdx.x], p.j_idx[blockIdx.x], smem, ring);
 }
 
-// Half-slabs only (SP = 4), the one slab size the packed-2 path runs. One
-// loop over the block's A and B pairs keeps a single copy of the field code.
-template <bool TORSO>
+// SP = 4 (the half-slabs the packed-2 path runs) or 8 (the reference's
+// s_slab accepts any size that divides S). One loop over the block's A and B
+// pairs keeps a single copy of the field code.
+template <bool TORSO, int SP>
 __global__ void __launch_bounds__(NTHR_W, 1) pair2_field_kernel(const Params2 p2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int k = blockIdx.x;
@@ -156,7 +157,7 @@ __global__ void __launch_bounds__(NTHR_W, 1) pair2_field_kernel(const Params2 p2
   ring.init(smem);
   ring_init(smem);
   if (threadIdx.x >= NCONS) {  // the producer warp
-    if (threadIdx.x == NCONS) ring.produce(p2.a.w, TORSO ? NS_TORSO : NS_HEAD, pairs * 2 * 4);
+    if (threadIdx.x == NCONS) ring.produce(p2.a.w, TORSO ? NS_TORSO : NS_HEAD, pairs * 2 * SP);
     return;
   }
 #pragma unroll 1
@@ -171,7 +172,7 @@ __global__ void __launch_bounds__(NTHR_W, 1) pair2_field_kernel(const Params2 p2
       t = p2.tb_idx[k];
       j = p2.jb_idx[k];
     }
-    eval_pair<TORSO, 4>(p, t, j, smem, ring);
+    eval_pair<TORSO, SP>(p, t, j, smem, ring);
   }
 }
 
@@ -241,15 +242,15 @@ int pair_field_launch(int torso, const float* o, const float* d, const float* z,
 }
 
 // Launches one block per A pair on `stream`, each also walking the B pair of
-// its index when there is one (n_b is n_a or n_a - 1), at sp = 4 samples per
-// slab; returns the cudaError_t of the launch.
+// its index when there is one (n_b is n_a or n_a - 1), at sp samples per slab
+// (4 or 8); returns the cudaError_t of the launch.
 int pair2_field_launch(int torso, const float* o, const float* d, const float* z, const void* vr,
                        const float* freq, const float* phase, const int* ta_idx,
                        const int* ja_idx, const int* tb_idx, const int* jb_idx, const void* w,
                        const float* b, float* sig_a, void* r_a, void* g_a, void* bl_a,
                        float* sig_b, void* r_b, void* g_b, void* bl_b, int n_a, int n_b,
                        int row_stride, int softplus, int sp, void* stream) {
-  if (sp != 4 || (n_b != n_a && n_b != n_a - 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_b != n_a && n_b != n_a - 1) return static_cast<int>(cudaErrorInvalidValue);
   Params2 p2;
   p2.a = common(o, d, z, vr, freq, phase, ta_idx, ja_idx, w, b, sig_a, r_a, g_a, bl_a,
                 row_stride, softplus);
@@ -260,7 +261,10 @@ int pair2_field_launch(int torso, const float* o, const float* d, const float* z
   p2.g_b = static_cast<bf16*>(g_b);
   p2.bl_b = static_cast<bf16*>(bl_b);
   p2.n_b = n_b;
-  return launch(torso ? pair2_field_kernel<true> : pair2_field_kernel<false>, p2, n_a, stream);
+  void (*kernel)(Params2) = nullptr;
+  if (sp == 8) kernel = torso ? pair2_field_kernel<true, 8> : pair2_field_kernel<false, 8>;
+  if (sp == 4) kernel = torso ? pair2_field_kernel<true, 4> : pair2_field_kernel<false, 4>;
+  return launch(kernel, p2, n_a, stream);
 }
 
 }  // extern "C"

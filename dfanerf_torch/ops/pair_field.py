@@ -25,7 +25,7 @@ Two implementations of each over the same operands:
   ``_pair_field_kernel`` and ``_pair2_field_kernel``), one block per listed
   pair or per A pair, bound with ctypes and built at first launch. Each
   counts its launches in ``.launches``, and per slab size in
-  ``.variant_launches`` ("sp4", "sp8").
+  ``.variant_launches`` ("sp4", "sp8"). Both take 4 or 8 samples per slab.
 - ``pair_field_eval_reference`` and ``pair2_field_eval_reference``: their
   plain PyTorch versions, with the same bf16 rounding points. Their
   unlisted blocks hold NaN, standing in for the kernels' unwritten memory.
@@ -49,15 +49,15 @@ from dfanerf_torch.ops.fused_render import (
 )
 
 _REF_PAIRS = 16  # pairs per group in the plain version (bounds its activation memory)
-SLAB_SIZES = (4, S_SLAB)  # samples per slab pair_field_kernel is built for
-PAIR2_SLAB = 4            # and pair2_field_kernel: the half-slabs of occ_pack2
+SLAB_SIZES = (4, S_SLAB)  # samples per slab both kernels are built for
+PAIR2_SLAB = 4            # pair2's default: the half-slabs of occ_pack2
 Buffers = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _slab(s_slab: Optional[int], sizes=SLAB_SIZES) -> int:
+def _slab(s_slab: Optional[int]) -> int:
     sp = S_SLAB if s_slab is None else int(s_slab)
-    if sp not in sizes:
-        raise ValueError(f"{sp} samples per slab; the kernel takes {sizes}")
+    if sp not in SLAB_SIZES:
+        raise ValueError(f"{sp} samples per slab; the kernel takes {SLAB_SIZES}")
     return sp
 
 
@@ -135,7 +135,7 @@ def pair2_field_eval_reference(pw: Dict[str, torch.Tensor], branch: str, rays_o:
     """Plain PyTorch version of the packed-2 kernel: the plain single-pair
     version over the A list and over the B list, each into its own quartet
     (NaN in every block its list does not name)."""
-    _slab(s_slab, (PAIR2_SLAB,))
+    _slab(s_slab)
     _check_split(ta, tb)
     return tuple(pair_field_eval_reference(pw, branch, rays_o, rays_d, vr, z_vals, t, j, act,
                                            s_slab) for t, j in ((ta, ja), (tb, jb)))
@@ -190,7 +190,7 @@ class Pair2FieldKernel(_build.Binding):
                  act: str = "relu", s_slab: int = PAIR2_SLAB) -> Tuple[Buffers, Buffers]:
         """Launch on the current stream over the A list (>= 1 pair) and the
         B list (as many pairs, or one fewer)."""
-        sp = _slab(s_slab, (PAIR2_SLAB,))
+        sp = _slab(s_slab)
         for t, j in ((ta, ja), (tb, jb)):
             _check_operands(branch, rays_o, rays_d, vr, z_vals, t, j, act, sp)
         _check_split(ta, tb)
@@ -269,8 +269,9 @@ def pair2_field_eval_prepped(pw: Dict[str, torch.Tensor], branch: str, rays_o: t
     (n_tiles+1)*256] buffers; composite with ``deferred_composite(...,
     buf_h2=, buf_t2=, occ2=)`` under the matching flag partitions. With no
     pair, two zero quartets and no launch. The kernel is built for
-    ``s_slab`` = 4 only, the half-slabs of the one path that runs it."""
-    sp = _slab(s_slab, (PAIR2_SLAB,))
+    ``s_slab`` 4 (the half-slabs of occ_pack2, the one path that runs it)
+    and 8."""
+    sp = _slab(s_slab)
     for t, j in ((ta, ja), (tb, jb)):
         _check_operands(branch, rays_o, rays_d, vr, z_vals, t, j, act, sp)
     _check_split(ta, tb)

@@ -12,7 +12,9 @@ step; pipeline/driver.py wires them to the on-disk dataset contract.
   distance transform (scipy.ndimage) computes the same distances orders
   of magnitude faster.
 - compose_training_images (step 5, :270-286): bg-replaced composite,
-  head-only image, and binary head mask from the parsing color map.
+  head-only image, and binary head mask from the parsing color map;
+  compose_head_neck_image, parse_head_neck.py's variant that keeps the
+  head and neck classes over the background.
 - mine_rigid_keypoints / track_keypoints (step 6, :306-372): temporal
   flow-Laplacian stability map over head pixels, greedy 5x5-window
   minimum selection with spacing suppression, then keypoint tracks
@@ -85,6 +87,21 @@ def compose_training_images(
     mask = np.zeros_like(ori_img)
     mask[head_part] = 255
     return com, head, mask
+
+
+def compose_head_neck_image(
+    ori_img: np.ndarray, parsing_img: np.ndarray, bc_img: np.ndarray,
+    neck_color=(0, 255, 0),
+) -> np.ndarray:
+    """parse_head_neck.py:68-80: the head and neck classes kept (the
+    reference's BGR-read masks are head (255, 0, 0) | neck (0, 255, 0) in
+    RGB), every other pixel and the background class from bc_img."""
+    keep = _is_color(parsing_img, HEAD_COLOR) | _is_color(parsing_img, neck_color)
+    bc_part = _is_color(parsing_img, BG_COLOR)
+    img = ori_img.copy()
+    img[bc_part] = bc_img[bc_part]
+    img[~keep] = bc_img[~keep]
+    return img
 
 
 def flow_stability_map(

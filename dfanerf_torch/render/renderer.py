@@ -38,12 +38,21 @@ Kernels run on a CUDA device, their plain versions on the CPU. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA a
 call with no device raises. Not ported: the pair renderer's
 ``precompile_headroom``, which raises NotImplementedError.
+
+The reference's debug lines, in its formats and only when the variable is
+set: ``DFANERF_DEBUG_COMPACTION`` (``[classes]`` at a tile-class refresh;
+``[pairs:<tag>]``, ``[pairs:far_skip]``, ``[pairs:iter<n>]`` and
+``[pairs:async]`` on the pair path), ``DFANERF_DEBUG_HIER`` (``[hier]`` at
+a hierarchical pair refresh) and ``DFANERF_DEBUG_HIER_T`` (``[hier:t]``, the
+hierarchical pair frame's stage times).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
+import time
 from collections import deque
 from typing import Sequence
 
@@ -457,13 +466,18 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     def to_dev(x):
         return upload(np.asarray(x, dtype=np.int32))
 
-    def set_flags(occ_np, st=None):
+    def set_flags(occ_np, st=None, tag="flags"):
         """Pair lists and union tiles of host flags [2, T, J] into the state
         ``st`` (default the cache; reference set_flags :724, without
         padding). np.nonzero lists a field's pairs tile-major, slabs
-        ascending, so consecutive pairs of one tile read the same rays."""
+        ascending, so consecutive pairs of one tile read the same rays.
+        ``tag`` names the call in DFANERF_DEBUG_COMPACTION's line, as the
+        reference's call sites name theirs."""
         st = cache if st is None else st
         occ_np = np.ascontiguousarray(occ_np, dtype=np.int32)
+        if os.environ.get("DFANERF_DEBUG_COMPACTION"):
+            print(f"[pairs:{tag}] head={int(occ_np[0].sum())} torso={int(occ_np[1].sum())}",
+                  flush=True)
         tiles_u = np.nonzero(occ_np.max(axis=(0, 2)))[0]
         pos_of = np.zeros(T, np.int32)
         pos_of[tiles_u] = np.arange(len(tiles_u), dtype=np.int32)
@@ -484,8 +498,8 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         if pack2:
             st.update(lists2=lists2, occ_sub_a=upload(occ_ab[0]), occ_sub_b=upload(occ_ab[1]))
 
-    def set_pruned(occ_np, keeps, st=None):
-        set_flags(np.stack([occ_np[0] * keeps[0], occ_np[1] * keeps[1]]), st)
+    def set_pruned(occ_np, keeps, st=None, tag="pruned"):
+        set_flags(np.stack([occ_np[0] * keeps[0], occ_np[1] * keeps[1]]), st, tag)
 
     def far_plane(inputs, fast: bool):
         """(sh [n, 1], ct [n, 3]) at every ray's far point; a fast frame
@@ -565,6 +579,8 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             err = max(err, float(download((c_mix - bc).abs().max())[0]))
         st["far_cmix_err"] = err
         st["far_skip"] = err <= rcfg.far_skip_tol
+        if os.environ.get("DFANERF_DEBUG_COMPACTION"):
+            print(f"[pairs:far_skip] cmix_err={err:.2e} skip={st['far_skip']}", flush=True)
 
     def expand_tiles(x_sub, st):
         """[K_u, J] union-tile diagnostic -> [T, J] on the host, zero off
@@ -642,16 +658,17 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
                           (imgs1[1] - imgs0[1]).abs().amax(-1))
         return download(tile_order(e[..., None]).reshape(T, R_T))[0]
 
-    def refresh(inputs, st, hist=None, derive=None, frame=True):
+    def refresh(inputs, st, hist=None, derive=None, frame=True, kind=""):
         """A full refresh into ``st``: fresh flags and the far_skip
         decision, the frame rendered under the unpruned lists; with pruning,
         the pruned state (``hist``: prune_flags'). ``derive`` (the live
         worker's keys derive) maps the host flags to keep-masks, or to None
         for the diagnostic render and prune; ``frame=False`` renders no
-        frame where nothing is measured. Returns (imgs or None, host flags,
-        keep-masks or None)."""
+        frame where nothing is measured. ``kind`` ("", "slot" or "async")
+        names the refresh in the debug lines. Returns (imgs or None, host
+        flags, keep-masks or None)."""
         occ_np = download(occ_fn(inputs))[0]
-        set_flags(occ_np, st)
+        set_flags(occ_np, st, "async" if kind == "async" else "flags")
         update_far_skip([inputs], st)
         if not prune_on:
             return (run(inputs, st) if frame else None), occ_np, None
@@ -660,17 +677,17 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         if keeps is None:
             imgs, *diags = run(inputs, st, diag=True)
             keeps = prune_flags(st, *diags, hist=hist)
-        set_pruned(occ_np, keeps, st)
+        set_pruned(occ_np, keeps, st, f"pruned-{kind}" if kind else "pruned")
         return imgs, occ_np, keeps
 
-    def carry_refresh(inputs, st, keeps):
+    def carry_refresh(inputs, st, keeps, tag="pruned-carry"):
         """A cheap refresh into ``st``: fresh conservative flags times the
         carried keep-masks (reference :1485-1491, :1621-1636)."""
-        set_pruned(download(occ_fn(inputs))[0], keeps, st)
+        set_pruned(download(occ_fn(inputs))[0], keeps, st, tag)
         update_far_skip([inputs], st)
 
-    def refine(inputs, st, imgs0, occ_np, keeps, prep):
-        """One refinement round of a slot's budgeted prune (reference
+    def refine(inputs, st, imgs0, occ_np, keeps, prep, it=0):
+        """Refinement round ``it`` of a slot's budgeted prune (reference
         :978-1019): the diagnostics under the pruned state, the budget
         ledger seeded with the realized error against the unpruned image
         imgs0, the refined drops, then a verify render that reverts them in
@@ -680,12 +697,16 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         led = err_led(imgs0, imgs1)
         kh2, kt2 = prune_flags(st, *diags, base_led=led)
         kh_new, kt_new = kh & kh2, kt & kt2
-        set_pruned(occ_np, (kh_new, kt_new), st)
+        set_pruned(occ_np, (kh_new, kt_new), st, "pruned-slot")
         led2 = err_led(imgs0, run(inputs, st))
         bad = led2.max(1) > led.max(1) + rcfg.occ_prune_budget
+        if os.environ.get("DFANERF_DEBUG_COMPACTION"):
+            print(f"[pairs:iter{it + 1}] led_max={led.max():.4f} led2_max={led2.max():.4f} "
+                  f"extra_drops={int((kh & ~kh2).sum())}+{int((kt & ~kt2).sum())} "
+                  f"reverted_tiles={int(bad.sum())}", flush=True)
         if bad.any():
             kh_new[bad], kt_new[bad] = kh[bad], kt[bad]
-            set_pruned(occ_np, (kh_new, kt_new), st)
+            set_pruned(occ_np, (kh_new, kt_new), st, "pruned-slot")
         prep["refined"].append(int((occ_np[0].astype(bool) & kh & ~kh2).sum()
                                    + (occ_np[1].astype(bool) & kt & ~kt2).sum()))
         prep["reverted"].append(int(bad.sum()))
@@ -796,12 +817,12 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
                 st = {}
                 if (prune_on and rcfg.occ_prune_carry > 0 and keeps is not None
                         and keep_age < rcfg.occ_prune_carry):
-                    carry_refresh(inputs, st, keeps)
+                    carry_refresh(inputs, st, keeps, "pruned-carry-async")
                     keep_age += 1
                 else:
                     imgs, occ_np, kk = refresh(inputs, st, hist=cache.setdefault("hist", {}),
                                                derive=live_derive if live_keys else None,
-                                               frame=False)
+                                               frame=False, kind="async")
                     if kk is not None:
                         keeps, keep_age = kk, 0
                         pruned = np.stack([occ_np[0] * kk[0], occ_np[1] * kk[1]])
@@ -830,6 +851,11 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             worker["fails"] += 1
             if worker["fails"] >= 3:
                 raise err
+            if os.environ.get("DFANERF_DEBUG_COMPACTION"):
+                print(f"[pairs:async] refresh failed (retrying next cycle): {err}", flush=True)
+            # the reference's [pairs:clamp] line (:1474) reports its class
+            # clamp's re-padding, which has no counterpart while R10 (the
+            # program classes) is unported
             return
         st, keeps, keep_age, done = worker["result"]
         if done is not None and not done.query():
@@ -915,11 +941,11 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         if per_slot:
             for inp in window_inputs:
                 st = {}
-                imgs0, occ_np, keeps = refresh(inp, st)
+                imgs0, occ_np, keeps = refresh(inp, st, kind="slot")
                 prep = {"pairs": [tuple(int(x) for x in occ_np.sum(axis=(1, 2))),
                                   pair_counts(st)], "refined": [], "reverted": []}
-                for _ in range(iters - 1):
-                    keeps = refine(inp, st, imgs0, occ_np, keeps, prep)
+                for it in range(iters - 1):
+                    keeps = refine(inp, st, imgs0, occ_np, keeps, prep, it)
                 slots.append({k: st[k] for k in SLOT_KEYS if k in st})
                 slot_prep.append(prep)
         occ = occ_fn(window_inputs[0])
@@ -1076,6 +1102,12 @@ def _make_tile_class_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, fr
 
     def refresh(occ_np):
         """The classes of host flags [2, T, J] into the cache."""
+        if os.environ.get("DFANERF_DEBUG_COMPACTION"):
+            th, tt = occ_np[0].max(axis=1) > 0, occ_np[1].max(axis=1) > 0
+            print(f"[classes] T={T} both={int((th & tt).sum())} head={int((th & ~tt).sum())} "
+                  f"torso={int((tt & ~th).sum())} none={int((~th & ~tt).sum())} "
+                  f"head_dens={occ_np[0].mean():.4f} torso_dens={occ_np[1].mean():.4f}",
+                  flush=True)
         order, ks, occs = tile_classes(occ_np)
         cache.update(order=torch.from_numpy(order).to(dev), ks=ks, age=0,
                      occs=tuple(None if o is None else torch.from_numpy(o).to(dev) for o in occs))
@@ -1289,6 +1321,32 @@ def fine_slab_mass(weights: torch.Tensor, z_fine: torch.Tensor, z_c: torch.Tenso
     return mass.reshape(-1, R_T, mass.shape[1]).amax(dim=1)
 
 
+class _StageTimer:
+    """DFANERF_DEBUG_HIER_T's stage times: CUDA events on the current
+    stream on the card (read once the last stage's has completed), the host
+    clock on the CPU."""
+
+    def __init__(self, dev):
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+
+    def mark(self, tag):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((tag, ev))
+        else:
+            self.marks.append((tag, time.perf_counter()))
+
+    def line(self) -> str:
+        if self.cuda:
+            self.marks[-1][1].synchronize()
+            ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(self.marks, self.marks[1:])]
+        else:
+            ms = [1e3 * (b - a) for (_, a), (_, b) in zip(self.marks, self.marks[1:])]
+        return " ".join(f"{tag}={t:.1f}ms" for (tag, _), t in zip(self.marks[1:], ms))
+
+
 def _make_hier_pair_renderer(rcfg: RenderConfig, act: str, H: int, W: int, z_c: torch.Tensor,
                              tiled_rays, pack, bc_tiled, fine_depths):
     """The pair-compacted hierarchical serving path (port of the semantics
@@ -1422,11 +1480,17 @@ def _make_hier_pair_renderer(rcfg: RenderConfig, act: str, H: int, W: int, z_c: 
         z_buf, dists, occ_f = resample(pw, ro_g, rd_g, sigma(pw, ro_g, rd_g))
         occ_f_np = occ_f.cpu().numpy() > 0  # host sync, [k_u, J_f]
         ti_f, ji_f = pair_list(occ_f_np)
+        if os.environ.get("DFANERF_DEBUG_HIER"):
+            # k_u and the buckets are the reference's padded sizes; the port
+            # pads nothing, so they are the counts themselves
+            print(f"[hier] tiles_u={len(tiles_u)} k_u={len(tiles_u)} "
+                  f"coarse_pairs={int(occ_sub.sum())} fine_pairs={int(occ_f_np.sum())} "
+                  f"(buckets {ti_c.numel()}/{ti_f.numel()})", flush=True)
         hcache.update(ti_f=ti_f, ji_f=ji_f,
                       list_mask=torch.from_numpy(occ_f_np.astype(np.float32)).to(dev),
                       frame0=(ro_g, rd_g, bc_g, z_buf, dists, occ_f))
 
-    def steady(pw, ro, rd, bc_p):
+    def steady(pw, ro, rd, bc_p, mark=lambda tag: None):
         """One frame under the cached lists: no host sync."""
         if hcache["empty"]:
             # nothing occupied anywhere: every ray is transmittance-1 background
@@ -1434,18 +1498,33 @@ def _make_hier_pair_renderer(rcfg: RenderConfig, act: str, H: int, W: int, z_c: 
         if "frame0" in hcache:
             # the refresh frame renders from its own intermediates
             ro_g, rd_g, bc_g, z_buf, dists, occ_f = hcache.pop("frame0")
+            mark("sigma_kernel")
         else:
             sel = hcache["tiles_sel"]
             ro_g, rd_g, bc_g = (gather(x, sel) for x in (ro, rd, bc_p))
-            z_buf, dists, occ_f = resample(pw, ro_g, rd_g, sigma(pw, ro_g, rd_g))
-        return finish(fine(pw, ro_g, rd_g, z_buf), occ_f, dists, bc_g, bc_p)
+            sig_buf = sigma(pw, ro_g, rd_g)
+            mark("sigma_kernel")
+            z_buf, dists, occ_f = resample(pw, ro_g, rd_g, sig_buf)
+        mark("resample")
+        buf = fine(pw, ro_g, rd_g, z_buf)
+        mark("fine_kernel")
+        return finish(buf, occ_f, dists, bc_g, bc_p)
 
     def render(params, z_shape, z_app, pose, signal, bc_img):
+        timer = _StageTimer(dev) if os.environ.get("DFANERF_DEBUG_HIER_T") else None
+        mark = timer.mark if timer else (lambda tag: None)
+        mark("start")
         inputs = prep(params, z_shape, z_app, pose, signal, bc_img)
+        mark("prep")
         if "empty" not in hcache or hcache["age"] >= max(int(rcfg.occ_refresh_every), 1):
             refresh(*inputs)
+            mark("refresh")
         hcache["age"] += 1
-        return steady(*inputs)
+        out = steady(*inputs, mark=mark)
+        if timer and not hcache["empty"]:
+            mark("finish")
+            print(f"[hier:t] {timer.line()}", flush=True)
+        return out
 
     def run_fast(params, z_shape, z_app, pose, signal, bc_img):
         """A frame under the current lists, without advancing the cadence."""

@@ -1,15 +1,17 @@
 """The port's half-slab pair evaluations (plain PyTorch versions, on the
 CPU) against the reference package's run in Pallas interpret mode, on the
 same packed weights, rays and pair lists: pair_field_eval at 4 samples per
-slab, and the packed-2 pair2_field_eval_prepped, whose A and B lists are
-the even and odd pairs of a field's tile-major list.
+slab, and the packed-2 pair2_field_eval_prepped at 4 and 8 samples per slab
+(the reference's ``s_slab``), whose A and B lists are the even and odd
+pairs of a field's tile-major list.
 
 The setup of tests/test_torch_pair_field.py (two tiles, 32 samples: 8
-half-slabs) and its bars: sigma max 1e-3 and mean 1e-5, the bf16 colours at
-most one bf16 ulp apart in at most 1% of the listed entries. Only listed
-blocks are compared. The list has gaps and an odd K = 5, so A holds 3 pairs
-and B 2; the reference pads B to A's length with a pair on its dummy tile
-row (as tests/test_ops.py:484-486 does), the port lists exactly the pairs."""
+half-slabs or 4 slabs) and its bars: sigma max 1e-3 and mean 1e-5, the
+bf16 colours at most one bf16 ulp apart in at most 1% of the listed
+entries. Only listed blocks are compared. Each slab size's list has gaps
+and an odd K = 5, so A holds 3 pairs and B 2; the reference pads B to A's
+length with a pair on its dummy tile row (as tests/test_ops.py:484-486
+does), the port lists exactly the pairs."""
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,11 @@ J, T = S // SP, N // 256
 OCC = np.zeros((T, J), np.int32)
 OCC[0, [0, 1, 3]] = 1
 OCC[1, [2, 7]] = 1
+# at 8 samples per slab (four slabs): tile 0 slabs 0, 1, 3 and tile 1 slabs 2, 3: K = 5
+OCC8 = np.zeros((T, S // 8), np.int32)
+OCC8[0, [0, 1, 3]] = 1
+OCC8[1, [2, 3]] = 1
+SLABS = (4, 8)
 
 
 @pytest.fixture(scope="module")
@@ -64,15 +71,20 @@ def _ulps(a, b):
     return np.abs(a - b) / step
 
 
-def _listed(t_i, j_i):
-    m = np.zeros((J, SP, T + 1, 256), bool)
+def _listed(t_i, j_i, sp=SP):
+    m = np.zeros((S // sp, sp, T + 1, 256), bool)
     m[j_i, :, t_i, :] = True
-    return m.reshape(J, SP, -1)
+    return m.reshape(S // sp, sp, -1)
+
+
+def _occ(sp):
+    return OCC if sp == SP else OCC8
 
 
 def _assert_close(got, ref, listed):
     """Port quartet vs reference quartet on the listed blocks; NaN elsewhere."""
-    assert [tuple(g.shape) for g in got] == [tuple(r.shape) for r in ref] == [(J, SP, 768)] * 4
+    shape = listed.shape[:2] + (768,)
+    assert [tuple(g.shape) for g in got] == [tuple(r.shape) for r in ref] == [shape] * 4
     assert got[0].dtype == torch.float32 and all(g.dtype == torch.bfloat16 for g in got[1:])
     got = [g.float().numpy() for g in got]
     ref = [np.asarray(r.astype(jnp.float32)) for r in ref]
@@ -91,7 +103,7 @@ def _split(occ):
     return (t_i, j_i), (t_i[0::2], j_i[0::2]), (t_i[1::2], j_i[1::2])
 
 
-def _reference_pair2(pw, branch, setup, a, b, act):
+def _reference_pair2(pw, branch, setup, a, b, act, sp=SP):
     """The reference's packed-2 evaluation, B padded with a dummy-tile pair."""
     tb, jb = b
     if len(tb) < len(a[0]):
@@ -104,14 +116,14 @@ def _reference_pair2(pw, branch, setup, a, b, act):
                           jnp.zeros((256, 256), jnp.bfloat16)])
     return jf.pair2_field_eval_prepped(pw, branch, o_r, d_r, vr, jnp.asarray(setup["z"]),
                                        *(jnp.asarray(x) for x in (*a, tb, jb)), interpret=True,
-                                       act=act, s_slab=SP)
+                                       act=act, s_slab=sp)
 
 
-def _port_pair2(pw, branch, setup, a, b, act):
+def _port_pair2(pw, branch, setup, a, b, act, sp=SP):
     o, d, z = (torch.from_numpy(setup[k]) for k in ("o", "d", "z"))
     vr = view_bias(pw, d).to(torch.bfloat16).contiguous()
     return pair2_field_eval_prepped(pw, branch, o, d, vr, z,
-                                    *(torch.from_numpy(x) for x in (*a, *b)), act, SP)
+                                    *(torch.from_numpy(x) for x in (*a, *b)), act, sp)
 
 
 @pytest.mark.parametrize("branch", ["head", "torso"])
@@ -128,36 +140,56 @@ def test_pair_field_half_slabs_match_interpret_kernel(setup, branch, act):
     _assert_close(got, ref, _listed(t_i, j_i))
 
 
+@pytest.mark.parametrize("sp", SLABS)
 @pytest.mark.parametrize("branch", ["head", "torso"])
 @pytest.mark.parametrize("act", ["relu", "softplus"])
-def test_pair2_matches_interpret_kernel(setup, branch, act):
+def test_pair2_matches_interpret_kernel(setup, branch, act, sp):
     pw = _pack(setup, branch)
-    _, a, b = _split(OCC)
+    _, a, b = _split(_occ(sp))
     assert (len(a[0]), len(b[0])) == (3, 2)
-    ref_a, ref_b = _reference_pair2(pw, branch, setup, a, b, act)
-    got_a, got_b = _port_pair2(_to_torch(pw), branch, setup, a, b, act)
-    _assert_close(got_a, ref_a, _listed(*a))
-    _assert_close(got_b, ref_b, _listed(*b))
+    ref_a, ref_b = _reference_pair2(pw, branch, setup, a, b, act, sp)
+    got_a, got_b = _port_pair2(_to_torch(pw), branch, setup, a, b, act, sp)
+    _assert_close(got_a, ref_a, _listed(*a, sp))
+    _assert_close(got_b, ref_b, _listed(*b, sp))
 
 
-def test_pair2_one_pair(setup):
+@pytest.mark.parametrize("sp", SLABS)
+def test_pair2_quartets_equal_pair_field_on_a_and_b(setup, sp):
+    """A and B quartets equal pair_field's on the A and B lists bit for bit
+    (the listed blocks; NaN in the same places elsewhere)."""
+    pw = _to_torch(_pack(setup, "torso"))
+    _, a, b = _split(_occ(sp))
+    got = _port_pair2(pw, "torso", setup, a, b, "softplus", sp)
+    o, d, z = (torch.from_numpy(setup[k]) for k in ("o", "d", "z"))
+    for quartet, (t_i, j_i) in zip(got, (a, b)):
+        one = pair_field_eval(pw, "torso", o, d, z, torch.from_numpy(t_i), torch.from_numpy(j_i),
+                              "softplus", sp)
+        for g, w in zip(quartet, one):
+            assert torch.equal(g.nan_to_num(), w.nan_to_num())
+            assert torch.equal(g.isnan(), w.isnan())
+
+
+@pytest.mark.parametrize("sp", SLABS)
+def test_pair2_one_pair(setup, sp):
     """K = 1: the A list holds the pair, the B list is empty."""
     pw = _pack(setup, "torso")
-    occ = np.zeros((T, J), np.int32)
-    occ[1, 5] = 1
+    occ = np.zeros((T, S // sp), np.int32)
+    occ[1, S // sp - 3] = 1
     _, a, b = _split(occ)
-    ref_a, _ = _reference_pair2(pw, "torso", setup, a, b, "softplus")
-    got_a, got_b = _port_pair2(_to_torch(pw), "torso", setup, a, b, "softplus")
-    _assert_close(got_a, ref_a, _listed(*a))
+    ref_a, _ = _reference_pair2(pw, "torso", setup, a, b, "softplus", sp)
+    got_a, got_b = _port_pair2(_to_torch(pw), "torso", setup, a, b, "softplus", sp)
+    _assert_close(got_a, ref_a, _listed(*a, sp))
     assert all(np.isnan(g.float().numpy()).all() for g in got_b)
 
 
-def test_pair2_no_pairs_returns_zeros_without_a_launch(setup):
+@pytest.mark.parametrize("sp", SLABS)
+def test_pair2_no_pairs_returns_zeros_without_a_launch(setup, sp):
     pw = _to_torch(_pack(setup, "head"))
     empty = np.zeros(0, np.int32)
-    bufs = _port_pair2(pw, "head", setup, (empty, empty), (empty, empty), "relu")
+    bufs = _port_pair2(pw, "head", setup, (empty, empty), (empty, empty), "relu", sp)
     assert len(bufs) == 2
-    assert all(tuple(b.shape) == (J, SP, 768) and not b.float().any() for q in bufs for b in q)
+    assert all(tuple(b.shape) == (S // sp, sp, 768) and not b.float().any()
+               for q in bufs for b in q)
     assert pair2_field_kernel.launches == 0 and pair_field_kernel.launches == 0
 
 

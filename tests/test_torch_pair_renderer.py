@@ -18,6 +18,7 @@ refresh, down to 2 of the 4 tiles and, on some frames, to no head pair at
 all. Both have partly occupied head flags."""
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -144,3 +145,47 @@ def test_flop_counts_per_field_and_kernel():
     assert head + torso == render_flops_per_sample() == 2_368_768
     assert field_flops_per_sample("head", color=False) == head - 2 * (256 * 256 + 256 * 3)
     assert field_flops_per_sample("torso", sigma=False) == torso - 2 * 256
+
+
+def _debug_lines(out: str):
+    """(tag, integer fields) of each [tag] line: floats are left out."""
+    lines = []
+    for line in out.splitlines():
+        m = re.match(r"^\[([^\]]+)\]\s*(.*)$", line)
+        if m:
+            ints = re.findall(r"(\w+)=(-?\d+)(?![\d.])", m.group(2))
+            lines.append((m.group(1), ints))
+    return lines
+
+
+def test_debug_compaction_lines_match_reference(setup, monkeypatch, capsys):
+    """DFANERF_DEBUG_COMPACTION: over 3 frames (refreshes at frames 0 and
+    2) with the contribution prune, the port prints the reference's lines,
+    with the same tags ([pairs:flags], [pairs:pruned]) and the same
+    integer counts; with the variable unset it prints none."""
+    monkeypatch.setenv("DFANERF_PALLAS_INTERPRET", "1")
+    ds, jstate, data, tstate = setup
+    rcfg = dict(PAIRS, occ_prune_contrib=0.0203)
+    j_render = j_make_frame_renderer(JExperimentConfig(render=JRenderConfig(**rcfg)),
+                                     ds.hwfcxy, ds.near, ds.far)
+    t_render = make_frame_renderer(ExperimentConfig(render=RenderConfig(**rcfg)),
+                                   ds.hwfcxy, ds.near, ds.far, device="cpu")
+    sig, sig_t = np.zeros(96, np.float32), np.zeros(42, np.float32)
+    monkeypatch.setenv("DFANERF_DEBUG_COMPACTION", "1")
+    capsys.readouterr()
+    for i in range(3):
+        j_render(jstate["params"], jstate["z_shape"], jstate["z_app"], data["poses"][i],
+                 data["poses"][0], jnp.asarray(sig), jnp.asarray(sig_t), data["bc_img"])
+    want = _debug_lines(capsys.readouterr().out)
+    for i in range(3):
+        t_render(tstate["params"], tstate["z_shape"], tstate["z_app"], ds.poses[i], ds.poses[0],
+                 torch.from_numpy(sig), torch.from_numpy(sig_t), ds.bc_img)
+    got = _debug_lines(capsys.readouterr().out)
+    assert [tag for tag, _ in want] == ["pairs:flags", "pairs:pruned"] * 2
+    assert got == want
+    monkeypatch.delenv("DFANERF_DEBUG_COMPACTION")
+    for i in (3, 4):  # frame 4 refreshes
+        t_render(tstate["params"], tstate["z_shape"], tstate["z_app"], ds.poses[i], ds.poses[0],
+                 torch.from_numpy(sig), torch.from_numpy(sig_t), ds.bc_img)
+    assert t_render.cache["age"] == 1
+    assert capsys.readouterr().out == ""
