@@ -8,23 +8,30 @@ in parallel, one nvcc process each. The wrappers load the libraries with
 ctypes through ``Binding``, which also lays out a field's weights for the
 kernels (``weight_blobs``, re-laid into the weight ring's slabs of the wgmma
 core, csrc/field_wgmma.cuh, by ``ring_blob``) and launches them; nothing is
-built when a module is imported.
+built when a module is imported. Spans: ``kernel.build`` (an nvcc run),
+``kernel.load``, ``kernel.blobs`` and ``kernel.<binding>`` around each
+binding's call; every build and load of the process is also kept in
+``LOADS``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import threading
+import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import torch
+
+from dfanerf_torch.spans import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -98,6 +105,21 @@ def load(path: Path, name: str,
     return lib, tuple(sizes)
 
 
+# Every kernel.build and kernel.load of the process, recorded or not:
+# (name, t0 ns, t1 ns) on time.perf_counter_ns's clock. Each library is built
+# at most once and loaded once a binding, so the list stays short.
+LOADS: List[Tuple[str, int, int]] = []
+
+
+@contextmanager
+def _logged(name: str) -> Iterator[None]:
+    """``span(name)``, its interval also kept in LOADS."""
+    t0 = time.perf_counter_ns()
+    with span(name):
+        yield
+    LOADS.append((name, t0, time.perf_counter_ns()))
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Build the named kernels that are not built yet; return their paths.
 
@@ -106,25 +128,26 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     todo = {name: path for name, path in paths.items() if not path.exists()}
     if not todo:
         return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    compiler = nvcc()
-    procs = {}
-    for name, path in todo.items():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp)
-    failed = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        todo[name].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    with _logged("kernel.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        compiler = nvcc()
+        procs = {}
+        for name, path in todo.items():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True), tmp)
+        failed = []
+        for name, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            todo[name].with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
 
 
@@ -270,7 +293,24 @@ class Binding:
     instantiation a launch names; a launch inside ``worker_launches()``
     counts in ``worker_launches`` instead. ``launch`` raises them
     where the kernel is launched, under the same lock, and nothing else
-    does."""
+    does. A subclass's call runs inside the span ``kernel.<binding>``, the
+    subclass's name in snake case less "Kernel" (RenderRaysKernel:
+    ``kernel.render_rays``)."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        call = cls.__dict__.get("__call__")
+        if call is None:
+            return
+        name = "kernel." + re.sub(r"(?<!^)(?=[A-Z])", "_",
+                                  cls.__name__.removesuffix("Kernel")).lower()
+
+        @functools.wraps(call)
+        def traced(self, *args, **kw):
+            with span(name):
+                return call(self, *args, **kw)
+
+        cls.__call__ = traced
 
     def __init__(self, name: str, launchers: Dict[str, Sequence]):
         self.name = name
@@ -290,7 +330,9 @@ class Binding:
         if self._lib is None:
             with self._lock:
                 if self._lib is None:
-                    lib, self._layout = load(self._library(), self.name, self._launchers)
+                    path = self._library()
+                    with _logged("kernel.load"):
+                        lib, self._layout = load(path, self.name, self._launchers)
                     self._lib = lib
         return self._lib
 
@@ -311,8 +353,9 @@ class Binding:
         reports (its ``<name>_layout``: head weight, head bias, torso weight,
         torso bias)."""
         self._load()
-        w, b = weight_blobs(pw, branch)
-        w = ring_blob(w, branch)
+        with span("kernel.blobs"):
+            w, b = weight_blobs(pw, branch)
+            w = ring_blob(w, branch)
         sizes = self._layout[2:4] if branch == "torso" else self._layout[0:2]
         for blob, size in zip((w, b), sizes):
             if blob.numel() != size or blob.device != dev:

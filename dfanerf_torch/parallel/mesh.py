@@ -30,12 +30,12 @@ from typing import Dict, List
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from dfanerf_torch.config import ExperimentConfig
 from dfanerf_torch.core.sampling import stratified_z_vals
 from dfanerf_torch.data.dataset import FrameDataset
 from dfanerf_torch.parallel.distributed import mesh_device_type
+from dfanerf_torch.spans import span
 from dfanerf_torch.train.state import TrainState
 from dfanerf_torch.train.step import (
     STAGES, TrainStep, device_generator, psnr, render_pixels, sample_pixel_coords, staged_adam,
@@ -148,7 +148,7 @@ class ShardedTrainStep(TrainStep):
         coords = batch["coords"][self.rank * n:(self.rank + 1) * n]
         for p in params.parameters():
             p.grad = None
-        with record_function(STAGES[1]):
+        with span(STAGES[1]):
             with torch.no_grad():
                 signal, signal_torso = self.signals(params, data, img_i, use_smo)
             outs, target_head, target_com = render_pixels(
@@ -157,10 +157,10 @@ class ShardedTrainStep(TrainStep):
             loss_head = torch.mean((outs[0] - target_head) ** 2)
             loss_com = torch.mean((outs[1] - target_com) ** 2)
             loss = loss_head + loss_com
-        with record_function(STAGES[2]):
+        with span(STAGES[2]):
             loss.backward()
             losses = all_reduce_mean(params, [loss, loss_head, loss_com], self.mesh)
-        with record_function(STAGES[3]):
+        with span(STAGES[3]):
             lr = staged_adam(self.cfg, state, use_smo, use_exp)
             state["step"] = step + 1
             metrics = {"loss": losses[0], "loss_head": losses[1], "loss_com": losses[2],

@@ -44,7 +44,24 @@ set: ``DFANERF_DEBUG_COMPACTION`` (``[classes]`` at a tile-class refresh;
 ``[pairs:<tag>]``, ``[pairs:far_skip]``, ``[pairs:iter<n>]`` and
 ``[pairs:async]`` on the pair path), ``DFANERF_DEBUG_HIER`` (``[hier]`` at
 a hierarchical pair refresh) and ``DFANERF_DEBUG_HIER_T`` (``[hier:t]``, the
-hierarchical pair frame's stage times).
+hierarchical pair frame's stage times, from its spans in event mode).
+
+Spans (dfanerf_torch/spans.py): ``render.signals`` (encode_frame_signals);
+``render.frame``, each serving renderer's call, and inside it the stages
+``render.inputs`` (weights packed, rays, background), ``occupancy.flags``
+(launching the flags), ``occupancy.download`` (the host blocked in a copy
+to the host), ``occupancy.lists`` (classes or pair lists built on the host
+and uploaded), ``render.gather``, ``render.segment`` (a field or class
+kernel's call), ``render.sigma``, ``render.resample``, ``render.fine``,
+``render.finish``, ``render.untile``; on the pair path ``render.poll`` (a
+finished worker swapped in) and, on the worker's thread,
+``worker.refresh``.
+
+Every serving renderer's ``render.cache`` counts its frames (``served``)
+and its flag-state installs (``gen``: a synchronous, carried or pinned
+refresh, a worker's swap), with ``gen_src``, the index of the served frame
+whose inputs built the installed state (the worker's snapshot frame; -1
+for ``refresh_union``'s window): host ints, read with no device sync.
 """
 
 from __future__ import annotations
@@ -52,7 +69,6 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-import time
 from collections import deque
 from typing import Sequence
 
@@ -79,6 +95,7 @@ from dfanerf_torch.ops.pair_hier import pair_field_eval_perz, pair_sigma_eval
 from dfanerf_torch.ops.render_head import fused_render_head
 from dfanerf_torch.ops.sigma_head import fused_sigma_head
 from dfanerf_torch.render.fields import render_head_hierarchical, render_ray_batch
+from dfanerf_torch.spans import elapsed_ms, span, timed
 from dfanerf_torch.train.signals import encode_signal, encode_signal_torso
 
 
@@ -145,7 +162,8 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         tiled_rays = _tiled_ray_fn(hwfcxy, perm)
 
     def untile(v):
-        return spatial_untile(v, H, W) if use_tiles else v.reshape(H, W, 3)
+        with span("render.untile"):
+            return spatial_untile(v, H, W) if use_tiles else v.reshape(H, W, 3)
 
     def as_f32(x):
         return torch.as_tensor(x).to(device=dev, dtype=torch.float32)
@@ -155,22 +173,23 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
         """(pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p): both fields' packed
         weights, the rays and the background pixels, in tile order when
         tiling."""
-        pose, pose_torso = as_f32(pose), as_f32(pose_torso)
-        z_shape, z_app = as_f32(z_shape), as_f32(z_app)
-        bc = torch.as_tensor(bc_img).to(dev).float() / 255.0
-        if use_tiles:
-            ro, rd = tiled_rays(pose)
-            ro_t, rd_t = tiled_rays(pose_torso)
-            bc_p = bc.reshape(-1, 3)[perm]
-        else:
-            ro, rd = (x.reshape(-1, 3) for x in get_rays(H, W, focal, pose, cx, cy))
-            ro_t, rd_t = (x.reshape(-1, 3) for x in get_rays(H, W, focal, pose_torso, cx, cy))
-            bc_p = bc.reshape(-1, 3)
-        pw_h = pack_field_weights(params.decoder, as_f32(signal), z_shape[0], z_app[0], "head",
-                                  param_dtype=pdt)
-        pw_t = pack_field_weights(params.decoder, as_f32(signal_torso), z_shape[1], z_app[1],
-                                  "torso", param_dtype=pdt)
-        return pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p
+        with span("render.inputs"):
+            pose, pose_torso = as_f32(pose), as_f32(pose_torso)
+            z_shape, z_app = as_f32(z_shape), as_f32(z_app)
+            bc = torch.as_tensor(bc_img).to(dev).float() / 255.0
+            if use_tiles:
+                ro, rd = tiled_rays(pose)
+                ro_t, rd_t = tiled_rays(pose_torso)
+                bc_p = bc.reshape(-1, 3)[perm]
+            else:
+                ro, rd = (x.reshape(-1, 3) for x in get_rays(H, W, focal, pose, cx, cy))
+                ro_t, rd_t = (x.reshape(-1, 3) for x in get_rays(H, W, focal, pose_torso, cx, cy))
+                bc_p = bc.reshape(-1, 3)
+            pw_h = pack_field_weights(params.decoder, as_f32(signal), z_shape[0], z_app[0], "head",
+                                      param_dtype=pdt)
+            pw_t = pack_field_weights(params.decoder, as_f32(signal_torso), z_shape[1], z_app[1],
+                                      "torso", param_dtype=pdt)
+            return pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p
 
     if rcfg.occ_sigma_thresh > 0:
         T = len(perm) // R_T
@@ -184,11 +203,14 @@ def make_frame_renderer(cfg: ExperimentConfig, hwfcxy, near: float, far: float, 
 
     @torch.no_grad()
     def render_frame(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
-        pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = frame_inputs(
-            params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img)
-        head, com = fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc_p,
-                                      last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps, act=act)
-        return untile(head), untile(com)
+        with span("render.frame"):
+            pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = frame_inputs(
+                params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img)
+            with span("render.segment"):
+                head, com = fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc_p,
+                                              last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps,
+                                              act=act)
+            return untile(head), untile(com)
 
     return render_frame
 
@@ -422,7 +444,7 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         raise ValueError(f"far_subsample={ss} must divide the 16-pixel tile")
     up_A = torch.from_numpy(far_upsample_matrix(ss)).to(dev) if ss > 1 else None
     cache = {"age": 0, "lists": None, "occ": None, "tiles_u": None, "tiles_sel": None,
-             "occ_sub": None}
+             "occ_sub": None, "served": 0, "gen": 0, "gen_src": -1}
     cuda = dev.type == "cuda"
     # occ_live_keys: fast frames report their own prune keys, from which the
     # async worker derives keep-masks (reference :1176-1177)
@@ -447,21 +469,23 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         sync debug mode, which is process-wide and flags stream and device
         synchronizes, not event waits. Elsewhere plain copies, which that
         mode sees."""
-        if not on_worker():
-            return [x.cpu().numpy() for x in xs]
-        outs = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in xs]
-        for o, x in zip(outs, xs):
-            o.copy_(x, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
-        return [o.numpy() for o in outs]
+        with span("occupancy.download"):
+            if not on_worker():
+                return [x.cpu().numpy() for x in xs]
+            outs = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in xs]
+            for o, x in zip(outs, xs):
+                o.copy_(x, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            return [o.numpy() for o in outs]
 
     def occ_fn(inputs):
         pw_h, pw_t, ro, rd, ro_t, rd_t, _ = inputs
-        return conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
-                                      rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res, act=act,
-                                      s_slab=sp)
+        with span("occupancy.flags"):
+            return conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
+                                          rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res,
+                                          act=act, s_slab=sp)
 
     def to_dev(x):
         return upload(np.asarray(x, dtype=np.int32))
@@ -478,25 +502,27 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         if os.environ.get("DFANERF_DEBUG_COMPACTION"):
             print(f"[pairs:{tag}] head={int(occ_np[0].sum())} torso={int(occ_np[1].sum())}",
                   flush=True)
-        tiles_u = np.nonzero(occ_np.max(axis=(0, 2)))[0]
-        pos_of = np.zeros(T, np.int32)
-        pos_of[tiles_u] = np.arange(len(tiles_u), dtype=np.int32)
-        occ_sub = np.ascontiguousarray(occ_np[:, tiles_u])
-        occ_ab = np.zeros((2,) + occ_sub.shape, np.int32)  # [A/B, field, k_u, J]
-        lists, lists2 = [], []
-        for f in range(2):
-            t_i, j_i = np.nonzero(occ_np[f])
-            t_i = pos_of[t_i]
-            lists.append((to_dev(t_i), to_dev(j_i)))
+        with span("occupancy.lists"):
+            tiles_u = np.nonzero(occ_np.max(axis=(0, 2)))[0]
+            pos_of = np.zeros(T, np.int32)
+            pos_of[tiles_u] = np.arange(len(tiles_u), dtype=np.int32)
+            occ_sub = np.ascontiguousarray(occ_np[:, tiles_u])
+            occ_ab = np.zeros((2,) + occ_sub.shape, np.int32)  # [A/B, field, k_u, J]
+            lists, lists2 = [], []
+            for f in range(2):
+                t_i, j_i = np.nonzero(occ_np[f])
+                t_i = pos_of[t_i]
+                lists.append((to_dev(t_i), to_dev(j_i)))
+                if pack2:
+                    halves = ((t_i[0::2], j_i[0::2]), (t_i[1::2], j_i[1::2]))
+                    for h, (t_h, j_h) in enumerate(halves):
+                        occ_ab[h, f, t_h, j_h] = occ_sub[f, t_h, j_h]
+                    lists2.append(tuple(to_dev(x) for half in halves for x in half))
+            st.update(age=0, lists=lists, occ=upload(occ_np), tiles_u=tiles_u,
+                      tiles_sel=upload(tiles_u), occ_sub=upload(occ_sub))
             if pack2:
-                halves = ((t_i[0::2], j_i[0::2]), (t_i[1::2], j_i[1::2]))
-                for h, (t_h, j_h) in enumerate(halves):
-                    occ_ab[h, f, t_h, j_h] = occ_sub[f, t_h, j_h]
-                lists2.append(tuple(to_dev(x) for half in halves for x in half))
-        st.update(age=0, lists=lists, occ=upload(occ_np), tiles_u=tiles_u,
-                  tiles_sel=upload(tiles_u), occ_sub=upload(occ_sub))
-        if pack2:
-            st.update(lists2=lists2, occ_sub_a=upload(occ_ab[0]), occ_sub_b=upload(occ_ab[1]))
+                st.update(lists2=lists2, occ_sub_a=upload(occ_ab[0]),
+                          occ_sub_b=upload(occ_ab[1]))
 
     def set_pruned(occ_np, keeps, st=None, tag="pruned"):
         set_flags(np.stack([occ_np[0] * keeps[0], occ_np[1] * keeps[1]]), st, tag)
@@ -522,42 +548,49 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         def gather(x):
             return x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
 
-        ro_g, rd_g, ro_t_g, rd_t_g = (gather(x) for x in (ro, rd, ro_t, rd_t))
-        if fast and pack2:
-            lh, lt = st["lists2"]
-            (buf_h, buf_h2) = pair2_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, *lh, act, sp)
-            (buf_t, buf_t2) = pair2_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, *lt, act,
-                                               sp)
-            occ, extra = st["occ_sub_a"], dict(buf_h2=buf_h2, buf_t2=buf_t2,
-                                               occ2=st["occ_sub_b"])
-        else:
-            (ti_h, ji_h), (ti_t, ji_t) = st["lists"]
-            buf_h = pair_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, ti_h, ji_h, act, sp)
-            buf_t = pair_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, ti_t, ji_t, act, sp)
-            occ, extra = st["occ_sub"], {}
-        far_skip = st.get("far_skip", False)
-        far_vals = None if far_skip else far_plane(inputs, fast)
-        keyed = fast and live_keys
-        if (diag and budget_on) or keyed:
-            extra.update(ray_err_bc=gather(bc_p) if rcfg.occ_budget_color else None,
-                         **({"with_keys": True} if keyed else {"with_ray_diag": True}))
-        out = deferred_composite(buf_h, buf_t, occ, rd_g, rd_t_g, z_vals_c, with_diagnostics=diag,
-                                 s_slab=sp, **extra)
-        if keyed:
-            stash_keys(out[4], st["tiles_u"])
+        with span("render.gather"):
+            ro_g, rd_g, ro_t_g, rd_t_g = (gather(x) for x in (ro, rd, ro_t, rd_t))
+        with span("render.segment"):
+            if fast and pack2:
+                lh, lt = st["lists2"]
+                (buf_h, buf_h2) = pair2_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, *lh, act,
+                                                   sp)
+                (buf_t, buf_t2) = pair2_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, *lt,
+                                                   act, sp)
+                occ, extra = st["occ_sub_a"], dict(buf_h2=buf_h2, buf_t2=buf_t2,
+                                                   occ2=st["occ_sub_b"])
+            else:
+                (ti_h, ji_h), (ti_t, ji_t) = st["lists"]
+                buf_h = pair_field_eval(pw_h, "head", ro_g, rd_g, z_vals_c, ti_h, ji_h, act, sp)
+                buf_t = pair_field_eval(pw_t, "torso", ro_t_g, rd_t_g, z_vals_c, ti_t, ji_t, act,
+                                        sp)
+                occ, extra = st["occ_sub"], {}
+        with span("render.finish"):
+            far_skip = st.get("far_skip", False)
+            far_vals = None if far_skip else far_plane(inputs, fast)
+            keyed = fast and live_keys
+            if (diag and budget_on) or keyed:
+                extra.update(ray_err_bc=gather(bc_p) if rcfg.occ_budget_color else None,
+                             **({"with_keys": True} if keyed else {"with_ray_diag": True}))
+            out = deferred_composite(buf_h, buf_t, occ, rd_g, rd_t_g, z_vals_c,
+                                     with_diagnostics=diag, s_slab=sp, **extra)
+            if keyed:
+                stash_keys(out[4], st["tiles_u"])
 
-        def scatter(x, fill):
-            full = x.new_full((T, R_T, x.shape[-1]), fill)
-            return full.index_copy_(0, sel, x.reshape(-1, R_T, x.shape[-1])).reshape(T * R_T, -1)
+            def scatter(x, fill):
+                full = x.new_full((T, R_T, x.shape[-1]), fill)
+                return full.index_copy_(0, sel, x.reshape(-1, R_T, x.shape[-1])).reshape(
+                    T * R_T, -1)
 
-        ah, ac, t_h, t_c = (scatter(x, fill) for x, fill in zip(out[:4], (0.0, 0.0, 1.0, 1.0)))
-        if far_skip:
-            # both far alphas are exactly 1: the catch-all colour is the
-            # background pixel (reference blend_nofar_fn :647)
-            bc = bc_p.float()
-            head, com = ah + t_h * bc, ac + t_c * bc
-        else:
-            head, com = bg_blend(*far_vals, rd, rd_t, bc_p, rcfg.last_dist, ah, ac, t_h, t_c)
+            ah, ac, t_h, t_c = (scatter(x, fill)
+                                for x, fill in zip(out[:4], (0.0, 0.0, 1.0, 1.0)))
+            if far_skip:
+                # both far alphas are exactly 1: the catch-all colour is the
+                # background pixel (reference blend_nofar_fn :647)
+                bc = bc_p.float()
+                head, com = ah + t_h * bc, ac + t_c * bc
+            else:
+                head, com = bg_blend(*far_vals, rd, rd_t, bc_p, rcfg.last_dist, ah, ac, t_h, t_c)
         imgs = (untile(head), untile(com))
         return (imgs, *out[4:]) if diag else imgs
 
@@ -796,19 +829,19 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
         rm = rcfg.occ_live_remeasure
         return derive_keeps_from_keys(occ_np) if rm <= 0 or n_der % rm != 0 else None
 
-    def refresh_async(inputs, keeps, keep_age, ready, serving):
-        """The worker: the next flag state from the snapshot ``inputs``
-        (reference _refresh_async :1478-1544), a carried or a full refresh
-        with no served frame, on its own stream on the card, its launches
-        counted apart (worker_launches). It waits on ``ready``, recorded on
-        the serving stream after the inputs; the state it builds is marked
-        used by the serving stream, and an event recorded after it tells
-        render when the swap may land. A full diagnostic derive marks every
-        flagged pair measured (``cache["ever_measured"]``), a keys derive the
-        pairs it keeps."""
+    def refresh_async(inputs, keeps, keep_age, src, ready, serving):
+        """The worker: the next flag state from the snapshot ``inputs`` of
+        served frame ``src`` (reference _refresh_async :1478-1544), a
+        carried or a full refresh with no served frame, on its own stream on
+        the card, its launches counted apart (worker_launches). It waits on
+        ``ready``, recorded on the serving stream after the inputs; the
+        state it builds is marked used by the serving stream, and an event
+        recorded after it tells render when the swap may land. A full
+        diagnostic derive marks every flagged pair measured
+        (``cache["ever_measured"]``), a keys derive the pairs it keeps."""
         try:
             stream = worker["stream"]
-            with torch.no_grad(), worker_launches(), (
+            with span("worker.refresh"), torch.no_grad(), worker_launches(), (
                     torch.cuda.stream(stream) if cuda else contextlib.nullcontext()):
                 if cuda:
                     stream.wait_event(ready)
@@ -833,7 +866,7 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
                         x.record_stream(serving)
                     done = torch.cuda.Event()
                     done.record()
-            worker["result"] = (st, keeps, keep_age, done)
+            worker["result"] = (st, keeps, keep_age, src, done)
         except Exception as e:  # noqa: BLE001 -- raised by poll_worker
             worker["error"] = e
 
@@ -857,31 +890,33 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
             # clamp's re-padding, which has no counterpart while R10 (the
             # program classes) is unported
             return
-        st, keeps, keep_age, done = worker["result"]
+        st, keeps, keep_age, src, done = worker["result"]
         if done is not None and not done.query():
             return
         worker.update(thread=None, result=None, fails=0)
         with cache_lock:
             cache.update({k: st[k] for k in SLOT_KEYS if k in st})
-            cache.update(keeps=keeps, keep_age=keep_age, age=1, swaps=cache.get("swaps", 0) + 1)
+            cache.update(keeps=keeps, keep_age=keep_age, age=1, swaps=cache.get("swaps", 0) + 1,
+                         gen=cache["gen"] + 1, gen_src=src)
 
-    def serve_async(inputs):
-        """A frame of the async live mode (reference render :1582-1610):
-        swap in a finished refresh, advance the age and serve the frame
-        under the flags in force. Past occ_refresh_every plus the trigger
-        jitter rjit (0, 1, 2 in turn, so the snapshots do not lock onto the
-        phase of a periodic input), this frame's inputs go to a new worker
-        thread, started once the frame is served: its keys derive then
-        always includes this frame's keys (the reference starts its worker
-        first, and what the derive sees depends on which thread is
+    def serve_async(inputs, i):
+        """Served frame ``i`` of the async live mode (reference render
+        :1582-1610): swap in a finished refresh, advance the age and serve
+        the frame under the flags in force. Past occ_refresh_every plus the
+        trigger jitter rjit (0, 1, 2 in turn, so the snapshots do not lock
+        onto the phase of a periodic input), this frame's inputs go to a new
+        worker thread, started once the frame is served: its keys derive
+        then always includes this frame's keys (the reference starts its
+        worker first, and what the derive sees depends on which thread is
         faster)."""
-        poll_worker()
+        with span("render.poll"):
+            poll_worker()
         cache["age"] += 1
         if not (cache["age"] > max(rcfg.occ_refresh_every, 1) + cache.get("rjit", 0)
                 and worker["thread"] is None):
             return run(inputs, cache, fast=True)
         cache["rjit"] = (cache.get("rjit", 0) + 1) % 3
-        args = (inputs, cache.get("keeps"), cache.get("keep_age", 0))
+        args = (inputs, cache.get("keeps"), cache.get("keep_age", 0), i)
         ready = serving = None
         if cuda:
             if worker["stream"] is None:
@@ -898,30 +933,34 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
     @torch.no_grad()
     def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img,
                window_slot=None):
-        inputs = frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
-                              bc_img)
-        slots = cache.get("slots")
-        if window_slot is not None and slots:
-            # pinned per-slot serving: window frame i under its own lists
-            return run(inputs, slots[window_slot % len(slots)], fast=True)
-        if rcfg.occ_async_refresh and cache["lists"] is not None and not cache.get("pinned"):
-            return serve_async(inputs)
-        if cache["lists"] is not None and (cache.get("pinned")
-                                           or cache["age"] < max(rcfg.occ_refresh_every, 1)):
-            cache["age"] += 1
-            return run(inputs, cache, fast=True)
-        if (prune_on and rcfg.occ_prune_carry > 0 and cache.get("keeps") is not None
-                and cache["keep_age"] < rcfg.occ_prune_carry):
-            # cheap refresh, rendered as a fast frame
-            carry_refresh(inputs, cache, cache["keeps"])
-            cache["keep_age"] += 1
-            cache["age"] = 1
-            return run(inputs, cache, fast=True)
-        imgs, _, keeps = refresh(inputs, cache, hist=cache.setdefault("hist", {}))
-        if keeps is not None:
-            cache.update(keeps=keeps, keep_age=0)
-        cache["age"] = 1  # this frame consumed the refresh
-        return imgs
+        with span("render.frame"):
+            i = cache["served"]
+            cache["served"] = i + 1
+            inputs = frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
+                                  bc_img)
+            slots = cache.get("slots")
+            if window_slot is not None and slots:
+                # pinned per-slot serving: a window frame under its own lists
+                return run(inputs, slots[window_slot % len(slots)], fast=True)
+            if rcfg.occ_async_refresh and cache["lists"] is not None and not cache.get("pinned"):
+                return serve_async(inputs, i)
+            if cache["lists"] is not None and (cache.get("pinned")
+                                               or cache["age"] < max(rcfg.occ_refresh_every, 1)):
+                cache["age"] += 1
+                return run(inputs, cache, fast=True)
+            cache.update(gen=cache["gen"] + 1, gen_src=i)
+            if (prune_on and rcfg.occ_prune_carry > 0 and cache.get("keeps") is not None
+                    and cache["keep_age"] < rcfg.occ_prune_carry):
+                # cheap refresh, rendered as a fast frame
+                carry_refresh(inputs, cache, cache["keeps"])
+                cache["keep_age"] += 1
+                cache["age"] = 1
+                return run(inputs, cache, fast=True)
+            imgs, _, keeps = refresh(inputs, cache, hist=cache.setdefault("hist", {}))
+            if keeps is not None:
+                cache.update(keeps=keeps, keep_age=0)
+            cache["age"] = 1  # this frame consumed the refresh
+            return imgs
 
     @torch.no_grad()
     def run_fast(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
@@ -961,7 +1000,8 @@ def _make_pair_compaction_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_
                 kh, kt = prune_flags(cache, *diags)
                 keeps = (kh, kt) if keeps is None else (keeps[0] | kh, keeps[1] | kt)
             set_pruned(occ_np, keeps)
-        cache.update(pinned=True, slots=slots, slot_prep=slot_prep)
+        cache.update(pinned=True, slots=slots, slot_prep=slot_prep, gen=cache["gen"] + 1,
+                     gen_src=-1)
 
     def precompile_headroom(*_, **__):
         raise NotImplementedError(
@@ -984,23 +1024,29 @@ def _make_occupancy_renderer(rcfg: RenderConfig, act: str, z_vals_c, frame_input
     frame and then every ``occ_refresh_every`` frames, kept on the device;
     each frame one ``fused_render_rays`` in epilogue mode over every tile
     under the joint flags. Nothing is copied to the host. ``render.cache``
-    holds ``occ`` ([2, T, J] int32) and ``age``."""
-    cache = {"occ": None, "age": 0}
+    holds ``occ`` ([2, T, J] int32), ``age``, ``served``, ``gen`` and
+    ``gen_src``."""
+    cache = {"occ": None, "age": 0, "served": 0, "gen": 0, "gen_src": -1}
 
     @torch.no_grad()
     def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
-        pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = frame_inputs(
-            params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img)
-        if cache["occ"] is None or cache["age"] >= max(rcfg.occ_refresh_every, 1):
-            cache["occ"] = conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
-                                                  rcfg.occ_sigma_thresh,
-                                                  grid_res=rcfg.occ_grid_res, act=act)
-            cache["age"] = 0
-        cache["age"] += 1
-        head, com = fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc_p,
-                                      last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps,
-                                      occupancy=cache["occ"], bg_epilogue=True, act=act)
-        return untile(head), untile(com)
+        with span("render.frame"):
+            i = cache["served"]
+            cache["served"] = i + 1
+            pw_h, pw_t, ro, rd, ro_t, rd_t, bc_p = frame_inputs(
+                params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img)
+            if cache["occ"] is None or cache["age"] >= max(rcfg.occ_refresh_every, 1):
+                with span("occupancy.flags"):
+                    cache["occ"] = conservative_occupancy(
+                        pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, rcfg.occ_sigma_thresh,
+                        grid_res=rcfg.occ_grid_res, act=act)
+                cache.update(age=0, gen=cache["gen"] + 1, gen_src=i)
+            cache["age"] += 1
+            with span("render.segment"):
+                head, com = fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc_p,
+                                              last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps,
+                                              occupancy=cache["occ"], bg_epilogue=True, act=act)
+            return untile(head), untile(com)
 
     render.cache = cache
     render.inputs_fn = frame_inputs
@@ -1088,17 +1134,21 @@ def _make_tile_class_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, fr
 
     ``render.cache`` holds ``order`` (int64 device tensor), ``ks``, ``occs``
     (int32 device tensors or None) and ``age`` with the reference's
-    meanings; ``render.inputs_fn`` is the frame-input builder;
+    meanings, and ``served``, ``gen``, ``gen_src``; ``render.inputs_fn`` is
+    the frame-input builder;
     ``render.stages`` the stage functions (``flags``, ``refresh``,
     ``gather``, ``segment``, ``finish``, ``untile``) whose composition is a
     frame."""
     dev = z_vals_c.device
-    cache = {"order": None, "ks": None, "occs": None, "age": 0}
+    cache = {"order": None, "ks": None, "occs": None, "age": 0, "served": 0, "gen": 0,
+             "gen_src": -1}
 
     def flags(inputs):
         pw_h, pw_t, ro, rd, ro_t, rd_t, _ = inputs
-        return conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
-                                      rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res, act=act)
+        with span("occupancy.flags"):
+            return conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c,
+                                          rcfg.occ_sigma_thresh, grid_res=rcfg.occ_grid_res,
+                                          act=act)
 
     def refresh(occ_np):
         """The classes of host flags [2, T, J] into the cache."""
@@ -1108,16 +1158,19 @@ def _make_tile_class_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, fr
                   f"torso={int((tt & ~th).sum())} none={int((~th & ~tt).sum())} "
                   f"head_dens={occ_np[0].mean():.4f} torso_dens={occ_np[1].mean():.4f}",
                   flush=True)
-        order, ks, occs = tile_classes(occ_np)
-        cache.update(order=torch.from_numpy(order).to(dev), ks=ks, age=0,
-                     occs=tuple(None if o is None else torch.from_numpy(o).to(dev) for o in occs))
+        with span("occupancy.lists"):
+            order, ks, occs = tile_classes(occ_np)
+            cache.update(order=torch.from_numpy(order).to(dev), ks=ks, age=0,
+                         occs=tuple(None if o is None else torch.from_numpy(o).to(dev)
+                                    for o in occs))
 
     def gather(inputs):
         """Rays and background pixels (ro, rd, ro_t, rd_t, bc) in class
         order, each [T * 256, 3]: segment c is a contiguous run of tiles."""
         sel = cache["order"]
-        return [x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
-                for x in inputs[2:]]
+        with span("render.gather"):
+            return [x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
+                    for x in inputs[2:]]
 
     def bounds():
         """(first ray, end ray) of the segments both, head, torso, none."""
@@ -1128,40 +1181,50 @@ def _make_tile_class_renderer(rcfg: RenderConfig, act: str, T: int, z_vals_c, fr
         """Class c's kernel on its rays: (head, com) [k * 256, 3]."""
         (a, b), occ = bounds()[c], cache["occs"][c]
         ro, rd, ro_t, rd_t, bc = (x[a:b] for x in rays)
-        return fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc,
-                                 last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps, occupancy=occ,
-                                 bg_epilogue=True, fields=CLASS_FIELDS[c], act=act)
+        with span("render.segment"):
+            return fused_render_rays(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc,
+                                     last_dist=rcfg.last_dist, ert_eps=rcfg.ert_eps,
+                                     occupancy=occ, bg_epilogue=True, fields=CLASS_FIELDS[c],
+                                     act=act)
 
     def finish(pw_h, pw_t, rays, outs):
         """The none tiles' epilogue and the scatter back to tile order: outs
         are the rendered segments' (head, com) in order; returns (head, com)
         [T * 256, 3] in tile order."""
         a, b = bounds()[3]
-        if b > a:
-            ro, rd, ro_t, rd_t, bc = (x[a:b] for x in rays)
-            zeros, ones = ro.new_zeros((b - a, 3)), ro.new_ones((b - a, 1))
-            outs = outs + [_bg_epilogue(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc,
-                                        rcfg.last_dist, zeros, zeros, ones, ones, act=act)]
         order = cache["order"]
 
         def scatter(parts):
             v = torch.cat(parts).reshape(T, R_T, 3)
             return torch.empty_like(v).index_copy_(0, order, v).reshape(-1, 3)
 
-        return scatter([h for h, _ in outs]), scatter([c for _, c in outs])
+        with span("render.finish"):
+            if b > a:
+                ro, rd, ro_t, rd_t, bc = (x[a:b] for x in rays)
+                zeros, ones = ro.new_zeros((b - a, 3)), ro.new_ones((b - a, 1))
+                outs = outs + [_bg_epilogue(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals_c, bc,
+                                            rcfg.last_dist, zeros, zeros, ones, ones, act=act)]
+            return scatter([h for h, _ in outs]), scatter([c for _, c in outs])
 
     @torch.no_grad()
     def render(params, z_shape, z_app, pose, pose_torso, signal, signal_torso, bc_img):
-        inputs = frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
-                              bc_img)
-        if cache["order"] is None or cache["age"] >= max(rcfg.occ_refresh_every, 1):
-            refresh(flags(inputs).cpu().numpy())  # the host sync of a refresh frame
-        cache["age"] += 1
-        pw_h, pw_t = inputs[:2]
-        rays = gather(inputs)
-        outs = [segment(pw_h, pw_t, rays, c) for c in range(3) if cache["ks"][c]]
-        head, com = finish(pw_h, pw_t, rays, outs)
-        return untile(head), untile(com)
+        with span("render.frame"):
+            i = cache["served"]
+            cache["served"] = i + 1
+            inputs = frame_inputs(params, z_shape, z_app, pose, pose_torso, signal, signal_torso,
+                                  bc_img)
+            if cache["order"] is None or cache["age"] >= max(rcfg.occ_refresh_every, 1):
+                occ = flags(inputs)
+                with span("occupancy.download"):
+                    occ_np = occ.cpu().numpy()  # the host sync of a refresh frame
+                refresh(occ_np)
+                cache.update(gen=cache["gen"] + 1, gen_src=i)
+            cache["age"] += 1
+            pw_h, pw_t = inputs[:2]
+            rays = gather(inputs)
+            outs = [segment(pw_h, pw_t, rays, c) for c in range(3) if cache["ks"][c]]
+            head, com = finish(pw_h, pw_t, rays, outs)
+            return untile(head), untile(com)
 
     render.cache = cache
     render.inputs_fn = frame_inputs
@@ -1238,43 +1301,51 @@ def make_head_hierarchical_renderer(cfg: ExperimentConfig, hwfcxy, near: float, 
 
     @torch.no_grad()
     def prep(params, z_shape, z_app, pose, signal, bc_img):
-        ro, rd = tiled_rays(as_f32(pose))
-        return pack(params, z_shape, z_app, signal), ro, rd, bc_tiled(bc_img)
+        with span("render.inputs"):
+            ro, rd = tiled_rays(as_f32(pose))
+            return pack(params, z_shape, z_app, signal), ro, rd, bc_tiled(bc_img)
 
     @torch.no_grad()
     def coarse_flags(pw, ro, rd):
         if thresh <= 0:
             return None, None
-        return occupancy_flags_and_sat(pw, "head", ro, rd, z_c.expand(ro.shape[0], S_c), thresh,
-                                       grid_res=grid_res, act=act)
+        with span("occupancy.flags"):
+            return occupancy_flags_and_sat(pw, "head", ro, rd, z_c.expand(ro.shape[0], S_c),
+                                           thresh, grid_res=grid_res, act=act)
 
     @torch.no_grad()
     def sigma(pw, ro, rd, occ_c):
-        return fused_sigma_head(pw, ro, rd, z_c, occupancy=occ_c, act=act)
+        with span("render.sigma"):
+            return fused_sigma_head(pw, ro, rd, z_c, occupancy=occ_c, act=act)
 
     @torch.no_grad()
     def resample(pw, ro, rd, sigma_c, sat_cache):
-        z_fine, _ = fine_depths(rd, sigma_c)
-        occ_f = None
-        if thresh > 0:
-            occ_f, _ = occupancy_flags_and_sat(pw, "head", ro, rd, z_fine, thresh,
-                                               grid_res=grid_res, sat_cache=sat_cache, act=act)
-        return z_fine, occ_f
+        with span("render.resample"):
+            z_fine, _ = fine_depths(rd, sigma_c)
+            occ_f = None
+            if thresh > 0:
+                occ_f, _ = occupancy_flags_and_sat(pw, "head", ro, rd, z_fine, thresh,
+                                                   grid_res=grid_res, sat_cache=sat_cache,
+                                                   act=act)
+            return z_fine, occ_f
 
     @torch.no_grad()
     def fine(pw, ro, rd, z_fine, bc, occ_f):
-        return fused_render_head(pw, ro, rd, z_fine, bc, last_dist=rcfg.last_dist,
-                                 ert_eps=rcfg.ert_eps, occupancy=occ_f, act=act)
+        with span("render.fine"):
+            return fused_render_head(pw, ro, rd, z_fine, bc, last_dist=rcfg.last_dist,
+                                     ert_eps=rcfg.ert_eps, occupancy=occ_f, act=act)
 
     def finish(rgb_p):
-        return spatial_untile(rgb_p, H, W)
+        with span("render.finish"):
+            return spatial_untile(rgb_p, H, W)
 
     def render(params, z_shape, z_app, pose, signal, bc_img):
-        pw, ro, rd, bc = prep(params, z_shape, z_app, pose, signal, bc_img)
-        occ_c, sat_cache = coarse_flags(pw, ro, rd)
-        sigma_c = sigma(pw, ro, rd, occ_c)
-        z_fine, occ_f = resample(pw, ro, rd, sigma_c, sat_cache)
-        return finish(fine(pw, ro, rd, z_fine, bc, occ_f))
+        with span("render.frame"):
+            pw, ro, rd, bc = prep(params, z_shape, z_app, pose, signal, bc_img)
+            occ_c, sat_cache = coarse_flags(pw, ro, rd)
+            sigma_c = sigma(pw, ro, rd, occ_c)
+            z_fine, occ_f = resample(pw, ro, rd, sigma_c, sat_cache)
+            return finish(fine(pw, ro, rd, z_fine, bc, occ_f))
 
     render.stages = {"prep": prep, "coarse_flags": coarse_flags, "sigma": sigma,
                      "resample": resample, "fine": fine, "finish": finish}
@@ -1321,30 +1392,32 @@ def fine_slab_mass(weights: torch.Tensor, z_fine: torch.Tensor, z_c: torch.Tenso
     return mass.reshape(-1, R_T, mass.shape[1]).amax(dim=1)
 
 
-class _StageTimer:
-    """DFANERF_DEBUG_HIER_T's stage times: CUDA events on the current
-    stream on the card (read once the last stage's has completed), the host
-    clock on the CPU."""
+# [hier:t]'s tags (the reference's marks) of the stage spans directly inside a
+# hierarchical pair frame: a tag's time runs from the previous tag's last
+# edge to the end of its own last span; "refresh" only on a refresh frame, the
+# others 0.0ms where their spans did not run (the refresh frame's sigma and
+# resample run inside its refresh).
+HIER_T_TAGS = {"render.inputs": "prep", "occupancy.flags": "refresh",
+               "occupancy.download": "refresh", "occupancy.lists": "refresh",
+               "render.gather": "sigma_kernel", "render.sigma": "sigma_kernel",
+               "render.resample": "resample", "render.fine": "fine_kernel",
+               "render.finish": "finish"}
 
-    def __init__(self, dev):
-        self.cuda = dev.type == "cuda"
-        self.marks = []
 
-    def mark(self, tag):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((tag, ev))
-        else:
-            self.marks.append((tag, time.perf_counter()))
-
-    def line(self) -> str:
-        if self.cuda:
-            self.marks[-1][1].synchronize()
-            ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(self.marks, self.marks[1:])]
-        else:
-            ms = [1e3 * (b - a) for (_, a), (_, b) in zip(self.marks, self.marks[1:])]
-        return " ".join(f"{tag}={t:.1f}ms" for (tag, _), t in zip(self.marks[1:], ms))
+def hier_t_line(marks) -> str:
+    """DFANERF_DEBUG_HIER_T's line from one frame's marks (``spans.timed``):
+    each tag's milliseconds, as the reference prints them."""
+    depth = next(d for name, d, _, _ in marks if name == "render.frame") + 1
+    stages = [m for m in marks if m[1] == depth and m[0] in HIER_T_TAGS]
+    ends = {HIER_T_TAGS[name]: end for name, _, _, end in stages}
+    edge, parts = stages[0][2], []
+    for tag in ("prep", "refresh", "sigma_kernel", "resample", "fine_kernel", "finish"):
+        if tag == "refresh" and tag not in ends:
+            continue
+        end = ends.get(tag, edge)
+        parts.append(f"{tag}={elapsed_ms(edge, end):.1f}ms")
+        edge = end
+    return " ".join(parts)
 
 
 def _make_hier_pair_renderer(rcfg: RenderConfig, act: str, H: int, W: int, z_c: torch.Tensor,
@@ -1377,85 +1450,93 @@ def _make_hier_pair_renderer(rcfg: RenderConfig, act: str, H: int, W: int, z_c: 
     the union tiles, which gives the same images. ``render.cache`` holds the
     refresh state (``tiles_u`` host int64 union tiles, ``ti_c``/``ji_c`` and
     ``ti_f``/``ji_f`` int32 device pair lists in union-tile positions,
-    ``occ_sub``, ``list_mask``, ``sat``, ``age``, ``empty``);
-    ``render.stages`` the stage functions; ``render.run_fast`` renders a
-    frame under the current lists without advancing the cadence."""
+    ``occ_sub``, ``list_mask``, ``sat``, ``age``, ``empty``, and ``served``,
+    ``gen``, ``gen_src``); ``render.stages`` the stage functions;
+    ``render.run_fast`` renders a frame under the current lists without
+    advancing the cadence."""
     dev = z_c.device
     S_c, S_f = rcfg.n_samples, rcfg.n_samples + rcfg.n_importance
     J_c, J_f = S_c // S_SLAB, S_f // S_SLAB
     T = (-(-H // 16)) * (-(-W // 16))
     thresh, grid_res = rcfg.occ_sigma_thresh, rcfg.occ_grid_res
-    hcache = {"age": 0}
+    hcache = {"age": 0, "served": 0, "gen": 0, "gen_src": -1}
 
     @torch.no_grad()
     def prep(params, z_shape, z_app, pose, signal, bc_img):
-        ro, rd = tiled_rays(torch.as_tensor(pose).to(device=dev, dtype=torch.float32))
-        return pack(params, z_shape, z_app, signal), ro, rd, bc_tiled(bc_img)
+        with span("render.inputs"):
+            ro, rd = tiled_rays(torch.as_tensor(pose).to(device=dev, dtype=torch.float32))
+            return pack(params, z_shape, z_app, signal), ro, rd, bc_tiled(bc_img)
 
     @torch.no_grad()
     def coarse_flags(pw, ro, rd):
-        return occupancy_flags_and_sat(pw, "head", ro, rd, z_c.expand(ro.shape[0], S_c), thresh,
-                                       grid_res=grid_res, act=act)
+        with span("occupancy.flags"):
+            return occupancy_flags_and_sat(pw, "head", ro, rd, z_c.expand(ro.shape[0], S_c),
+                                           thresh, grid_res=grid_res, act=act)
 
     def gather(x, sel):
         return x.reshape(T, R_T, -1).index_select(0, sel).reshape(-1, x.shape[-1])
 
     @torch.no_grad()
     def sigma(pw, ro_g, rd_g):
-        return pair_sigma_eval(pw, ro_g, rd_g, z_c, hcache["ti_c"], hcache["ji_c"], act)
+        with span("render.sigma"):
+            return pair_sigma_eval(pw, ro_g, rd_g, z_c, hcache["ti_c"], hcache["ji_c"], act)
 
     @torch.no_grad()
     def resample(pw, ro_g, rd_g, sig_buf):
         """Coarse buffer -> (z_buf [J_f, 8, n_u + 256], dists [S_f, n_u],
         fine flags [k_u, J_f] int32), reference :2007-2104."""
-        k_u = ro_g.shape[0] // R_T
-        n_u = k_u * R_T
-        flag = hcache["occ_sub"].bool().t()[:, None, :, None]
-        x = sig_buf.reshape(J_c, S_SLAB, k_u + 1, R_T)[:, :, :k_u]
-        sigma_c = torch.where(flag, x, 0.0).reshape(S_c, n_u).t()
-        z_fine, weights = fine_depths(rd_g, sigma_c)
-        occ_f, _ = occupancy_flags_and_sat(pw, "head", ro_g, rd_g, z_fine, thresh,
-                                           grid_res=grid_res, sat_cache=hcache["sat"], act=act)
-        if rcfg.occ_prune_trans > 0:
-            # T at each fine slab's earliest depth, tile-max: everything
-            # behind the saturated surface drops
-            t_prev = 1.0 - torch.cat([weights.new_zeros((n_u, 1)),
-                                      torch.cumsum(weights, dim=1)[:, :-1]], dim=1)
-            t_tile = t_prev.reshape(k_u, R_T, S_c).amax(dim=1)
-            z0_tile = z_fine[:, ::S_SLAB].reshape(k_u, R_T, J_f).amin(dim=1)
-            t_at = torch.where(z_c[None, None, :] >= z0_tile[:, :, None], t_tile[:, None, :],
-                               0.0).amax(dim=-1)
-            occ_f = occ_f * (t_at > rcfg.occ_prune_trans)
-        if rcfg.occ_prune_contrib > 0:
-            # per tile, drop the smallest-mass occupied slabs while their
-            # masses sum to at most the budget (stable order: ties drop in
-            # slab order, as jnp.argsort's)
-            mass_tile = torch.where(occ_f > 0, fine_slab_mass(weights, z_fine, z_c), 0.0)
-            order = torch.argsort(mass_tile, dim=1, stable=True)
-            cum = torch.cumsum(mass_tile.gather(1, order), dim=1)
-            drop = torch.zeros_like(occ_f, dtype=torch.bool).scatter_(
-                1, order, cum <= rcfg.occ_prune_contrib)
-            occ_f = occ_f * ~drop
-        zf = z_fine.float()
-        z_buf = torch.cat([zf.reshape(k_u, R_T, J_f, S_SLAB).permute(2, 3, 0, 1).reshape(
-            J_f, S_SLAB, n_u), zf.new_zeros((J_f, S_SLAB, R_T))], dim=2)
-        diffs = torch.cat([zf[:, 1:] - zf[:, :-1], zf.new_zeros((n_u, 1))], dim=1)
-        dists = (diffs * torch.linalg.norm(rd_g.float(), dim=-1, keepdim=True)).t()
-        return z_buf, dists, occ_f
+        with span("render.resample"):
+            k_u = ro_g.shape[0] // R_T
+            n_u = k_u * R_T
+            flag = hcache["occ_sub"].bool().t()[:, None, :, None]
+            x = sig_buf.reshape(J_c, S_SLAB, k_u + 1, R_T)[:, :, :k_u]
+            sigma_c = torch.where(flag, x, 0.0).reshape(S_c, n_u).t()
+            z_fine, weights = fine_depths(rd_g, sigma_c)
+            occ_f, _ = occupancy_flags_and_sat(pw, "head", ro_g, rd_g, z_fine, thresh,
+                                               grid_res=grid_res, sat_cache=hcache["sat"], act=act)
+            if rcfg.occ_prune_trans > 0:
+                # T at each fine slab's earliest depth, tile-max: everything
+                # behind the saturated surface drops
+                t_prev = 1.0 - torch.cat([weights.new_zeros((n_u, 1)),
+                                          torch.cumsum(weights, dim=1)[:, :-1]], dim=1)
+                t_tile = t_prev.reshape(k_u, R_T, S_c).amax(dim=1)
+                z0_tile = z_fine[:, ::S_SLAB].reshape(k_u, R_T, J_f).amin(dim=1)
+                t_at = torch.where(z_c[None, None, :] >= z0_tile[:, :, None], t_tile[:, None, :],
+                                   0.0).amax(dim=-1)
+                occ_f = occ_f * (t_at > rcfg.occ_prune_trans)
+            if rcfg.occ_prune_contrib > 0:
+                # per tile, drop the smallest-mass occupied slabs while their
+                # masses sum to at most the budget (stable order: ties drop in
+                # slab order, as jnp.argsort's)
+                mass_tile = torch.where(occ_f > 0, fine_slab_mass(weights, z_fine, z_c), 0.0)
+                order = torch.argsort(mass_tile, dim=1, stable=True)
+                cum = torch.cumsum(mass_tile.gather(1, order), dim=1)
+                drop = torch.zeros_like(occ_f, dtype=torch.bool).scatter_(
+                    1, order, cum <= rcfg.occ_prune_contrib)
+                occ_f = occ_f * ~drop
+            zf = z_fine.float()
+            z_buf = torch.cat([zf.reshape(k_u, R_T, J_f, S_SLAB).permute(2, 3, 0, 1).reshape(
+                J_f, S_SLAB, n_u), zf.new_zeros((J_f, S_SLAB, R_T))], dim=2)
+            diffs = torch.cat([zf[:, 1:] - zf[:, :-1], zf.new_zeros((n_u, 1))], dim=1)
+            dists = (diffs * torch.linalg.norm(rd_g.float(), dim=-1, keepdim=True)).t()
+            return z_buf, dists, occ_f
 
     @torch.no_grad()
     def fine(pw, ro_g, rd_g, z_buf):
-        return pair_field_eval_perz(pw, ro_g, rd_g, z_buf, hcache["ti_f"], hcache["ji_f"], act)
+        with span("render.fine"):
+            return pair_field_eval_perz(pw, ro_g, rd_g, z_buf, hcache["ti_f"], hcache["ji_f"],
+                                        act)
 
     @torch.no_grad()
     def finish(buf, occ_f, dists, bc_g, bc_p):
         # the fresh fine flags AND the fine list the kernel ran: unwritten
         # blocks stay masked, and pairs the carried list misses render as
         # pruned
-        head_u = deferred_composite_head(buf, occ_f * hcache["list_mask"], dists, bc_g)
-        full = bc_p.reshape(T, R_T, 3).index_copy(0, hcache["tiles_sel"],
-                                                  head_u.reshape(-1, R_T, 3))
-        return spatial_untile(full.reshape(-1, 3), H, W)
+        with span("render.finish"):
+            head_u = deferred_composite_head(buf, occ_f * hcache["list_mask"], dists, bc_g)
+            full = bc_p.reshape(T, R_T, 3).index_copy(0, hcache["tiles_sel"],
+                                                      head_u.reshape(-1, R_T, 3))
+            return spatial_untile(full.reshape(-1, 3), H, W)
 
     def pair_list(flags_np):
         t_i, j_i = np.nonzero(flags_np)  # tile-major, slabs ascending
@@ -1464,33 +1545,39 @@ def _make_hier_pair_renderer(rcfg: RenderConfig, act: str, H: int, W: int, z_c: 
 
     @torch.no_grad()
     def refresh(pw, ro, rd, bc_p):
+        """The refresh state into the cache (clearing the last one's)."""
         occ_c, sat = coarse_flags(pw, ro, rd)
-        occ_c_np = occ_c.cpu().numpy()  # host sync, [T, J_c] int32
-        tiles_u = np.nonzero(occ_c_np.max(axis=1))[0]
-        hcache.clear()
-        if len(tiles_u) == 0:
-            hcache.update(age=0, empty=True)
-            return
-        occ_sub = np.ascontiguousarray(occ_c_np[tiles_u])
-        ti_c, ji_c = pair_list(occ_sub)
-        sel = torch.from_numpy(tiles_u).to(dev)
-        hcache.update(age=0, empty=False, tiles_u=tiles_u, tiles_sel=sel, sat=sat,
-                      occ_sub=torch.from_numpy(occ_sub).to(dev), ti_c=ti_c, ji_c=ji_c)
-        ro_g, rd_g, bc_g = (gather(x, sel) for x in (ro, rd, bc_p))
-        z_buf, dists, occ_f = resample(pw, ro_g, rd_g, sigma(pw, ro_g, rd_g))
-        occ_f_np = occ_f.cpu().numpy() > 0  # host sync, [k_u, J_f]
-        ti_f, ji_f = pair_list(occ_f_np)
+        with span("occupancy.download"):
+            occ_c_np = occ_c.cpu().numpy()  # host sync, [T, J_c] int32
+        with span("occupancy.lists"):
+            tiles_u = np.nonzero(occ_c_np.max(axis=1))[0]
+            hcache.clear()
+            if len(tiles_u) == 0:
+                hcache.update(age=0, empty=True)
+                return
+            occ_sub = np.ascontiguousarray(occ_c_np[tiles_u])
+            ti_c, ji_c = pair_list(occ_sub)
+            sel = torch.from_numpy(tiles_u).to(dev)
+            hcache.update(age=0, empty=False, tiles_u=tiles_u, tiles_sel=sel, sat=sat,
+                          occ_sub=torch.from_numpy(occ_sub).to(dev), ti_c=ti_c, ji_c=ji_c)
+        with span("occupancy.flags"):
+            ro_g, rd_g, bc_g = (gather(x, sel) for x in (ro, rd, bc_p))
+            z_buf, dists, occ_f = resample(pw, ro_g, rd_g, sigma(pw, ro_g, rd_g))
+        with span("occupancy.download"):
+            occ_f_np = occ_f.cpu().numpy() > 0  # host sync, [k_u, J_f]
+        with span("occupancy.lists"):
+            ti_f, ji_f = pair_list(occ_f_np)
+            hcache.update(ti_f=ti_f, ji_f=ji_f,
+                          list_mask=torch.from_numpy(occ_f_np.astype(np.float32)).to(dev),
+                          frame0=(ro_g, rd_g, bc_g, z_buf, dists, occ_f))
         if os.environ.get("DFANERF_DEBUG_HIER"):
             # k_u and the buckets are the reference's padded sizes; the port
             # pads nothing, so they are the counts themselves
             print(f"[hier] tiles_u={len(tiles_u)} k_u={len(tiles_u)} "
                   f"coarse_pairs={int(occ_sub.sum())} fine_pairs={int(occ_f_np.sum())} "
                   f"(buckets {ti_c.numel()}/{ti_f.numel()})", flush=True)
-        hcache.update(ti_f=ti_f, ji_f=ji_f,
-                      list_mask=torch.from_numpy(occ_f_np.astype(np.float32)).to(dev),
-                      frame0=(ro_g, rd_g, bc_g, z_buf, dists, occ_f))
 
-    def steady(pw, ro, rd, bc_p, mark=lambda tag: None):
+    def steady(pw, ro, rd, bc_p):
         """One frame under the cached lists: no host sync."""
         if hcache["empty"]:
             # nothing occupied anywhere: every ray is transmittance-1 background
@@ -1498,32 +1585,32 @@ def _make_hier_pair_renderer(rcfg: RenderConfig, act: str, H: int, W: int, z_c: 
         if "frame0" in hcache:
             # the refresh frame renders from its own intermediates
             ro_g, rd_g, bc_g, z_buf, dists, occ_f = hcache.pop("frame0")
-            mark("sigma_kernel")
         else:
             sel = hcache["tiles_sel"]
-            ro_g, rd_g, bc_g = (gather(x, sel) for x in (ro, rd, bc_p))
-            sig_buf = sigma(pw, ro_g, rd_g)
-            mark("sigma_kernel")
-            z_buf, dists, occ_f = resample(pw, ro_g, rd_g, sig_buf)
-        mark("resample")
+            with span("render.gather"):
+                ro_g, rd_g, bc_g = (gather(x, sel) for x in (ro, rd, bc_p))
+            z_buf, dists, occ_f = resample(pw, ro_g, rd_g, sigma(pw, ro_g, rd_g))
         buf = fine(pw, ro_g, rd_g, z_buf)
-        mark("fine_kernel")
         return finish(buf, occ_f, dists, bc_g, bc_p)
 
+    def frame(params, z_shape, z_app, pose, signal, bc_img):
+        with span("render.frame"):
+            i, gen = hcache["served"], hcache["gen"]
+            inputs = prep(params, z_shape, z_app, pose, signal, bc_img)
+            if "empty" not in hcache or hcache["age"] >= max(int(rcfg.occ_refresh_every), 1):
+                refresh(*inputs)  # clears the cache
+                hcache.update(gen=gen + 1, gen_src=i)
+            hcache["age"] += 1
+            hcache["served"] = i + 1
+            return steady(*inputs)
+
     def render(params, z_shape, z_app, pose, signal, bc_img):
-        timer = _StageTimer(dev) if os.environ.get("DFANERF_DEBUG_HIER_T") else None
-        mark = timer.mark if timer else (lambda tag: None)
-        mark("start")
-        inputs = prep(params, z_shape, z_app, pose, signal, bc_img)
-        mark("prep")
-        if "empty" not in hcache or hcache["age"] >= max(int(rcfg.occ_refresh_every), 1):
-            refresh(*inputs)
-            mark("refresh")
-        hcache["age"] += 1
-        out = steady(*inputs, mark=mark)
-        if timer and not hcache["empty"]:
-            mark("finish")
-            print(f"[hier:t] {timer.line()}", flush=True)
+        if not os.environ.get("DFANERF_DEBUG_HIER_T"):
+            return frame(params, z_shape, z_app, pose, signal, bc_img)
+        with timed(dev.type == "cuda") as marks:
+            out = frame(params, z_shape, z_app, pose, signal, bc_img)
+        if not hcache["empty"]:
+            print(f"[hier:t] {hier_t_line(marks)}", flush=True)
         return out
 
     def run_fast(params, z_shape, z_app, pose, signal, bc_img):
@@ -1546,11 +1633,12 @@ def encode_frame_signals(params, auds, exps, poses, img_i: int, n_valid: int,
     """Conditioning signals of one frame: (signal [dim_signal],
     signal_torso [dim_et_embed]). auds/exps/poses are tensors on the
     params' device."""
-    sig = encode_signal(params, auds, exps, img_i, n_valid, cfg.signal.smo_size,
-                        use_smoothing, cfg.signal.audio_net, cfg.signal.win_size)
-    sig_t = encode_signal_torso(params, poses, img_i, n_valid, cfg.signal.smo_torso_size,
-                                use_smoothing, cfg.signal.et_multires)
-    return sig, sig_t
+    with span("render.signals"):
+        sig = encode_signal(params, auds, exps, img_i, n_valid, cfg.signal.smo_size,
+                            use_smoothing, cfg.signal.audio_net, cfg.signal.win_size)
+        sig_t = encode_signal_torso(params, poses, img_i, n_valid, cfg.signal.smo_torso_size,
+                                    use_smoothing, cfg.signal.et_multires)
+        return sig, sig_t
 
 
 def render_video_frames(state, data, cfg: ExperimentConfig, hwfcxy, near: float, far: float,

@@ -19,7 +19,8 @@ The step is split in two:
 Nothing in a step reads a device value on the host: the stage gates come
 from the host step counter, the clip scale stays a tensor, and the metrics
 are returned as tensors.
-The stages are torch.profiler ranges (STAGES): the draws, the loss (the
+The stages are spans (STAGES; dfanerf_torch/spans.py), torch.profiler
+ranges under a profiler that records CPU activity: the draws, the loss (the
 signals and both fields' forward render), the backward with the gradient
 norm and clip, and the staged Adam update with the metrics. The backward's
 kernels are launched from autograd's device thread, outside its range.
@@ -32,7 +33,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from dfanerf_torch.config import ExperimentConfig
 from dfanerf_torch.core.compositing import _PositiveCumprod
@@ -42,6 +42,7 @@ from dfanerf_torch.data.dataset import FrameDataset, speaking_i_train
 from dfanerf_torch.device import resolve_device
 from dfanerf_torch.ops.fused_render import density_act
 from dfanerf_torch.render.fields import render_ray_batch
+from dfanerf_torch.spans import span
 from dfanerf_torch.train.optim import adam_update, exp_decay_lr
 from dfanerf_torch.train.signals import encode_signal, encode_signal_torso
 from dfanerf_torch.train.state import OPT_GROUPS, TrainState
@@ -223,7 +224,7 @@ class TrainStep:
         [n_rand, n_samples]} for one step, drawn from the host generator;
         with the sparsity prior also its draws (sparse_draws)."""
         tcfg = self.cfg.train
-        with record_function(STAGES[0]):
+        with span(STAGES[0]):
             img_i = int(self.i_train[int(torch.randint(self.n_train, (), generator=generator))])
             g = device_generator(generator, self.device)
             coords = sample_pixel_coords(g, self.H, self.W, tcfg.n_rand, tcfg.sample_rate,
@@ -375,10 +376,10 @@ class TrainStep:
         use_smo, use_exp = step >= scfg.nosmo_iters, step >= scfg.noexp_iters
         for p in params.parameters():
             p.grad = None
-        with record_function(STAGES[1]):
+        with span(STAGES[1]):
             loss, loss_head, loss_com = self.loss(params, state, data, batch, use_smo,
                                                   step >= tcfg.distortion_from)
-        with record_function(STAGES[2]):
+        with span(STAGES[2]):
             loss.backward()
             grads = [p.grad for p in params.parameters() if p.grad is not None]
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -386,7 +387,7 @@ class TrainStep:
                 scale = torch.clamp_max(tcfg.grad_clip / (grad_norm + 1e-12), 1.0)
                 torch._foreach_mul_(grads, scale)
 
-        with record_function(STAGES[3]):
+        with span(STAGES[3]):
             lr = staged_adam(self.cfg, state, use_smo, use_exp)
             state["step"] = step + 1
             loss_head, loss_com = loss_head.detach(), loss_com.detach()

@@ -229,7 +229,9 @@ def test_render_config_of_the_shipped_server():
     hw = (32, 32, 35.2, 16.0, 16.0)
     small = dataclasses.replace(cfg, render=dataclasses.replace(rc, compute_dtype="float32"))
     render = make_frame_renderer(small, hw, 0.3, 0.9, device="cpu")
-    assert set(render.cache) == {"order", "ks", "occs", "age"} and "segment" in render.stages
+    gens = {"served", "gen", "gen_src"}  # every serving renderer's frame and install counts
+    assert set(render.cache) == {"order", "ks", "occs", "age"} | gens and "segment" in render.stages
     plain = dataclasses.replace(small, render=dataclasses.replace(small.render,
                                                                   occ_tile_compaction=False))
-    assert set(make_frame_renderer(plain, hw, 0.3, 0.9, device="cpu").cache) == {"occ", "age"}
+    plain_cache = make_frame_renderer(plain, hw, 0.3, 0.9, device="cpu").cache
+    assert set(plain_cache) == {"occ", "age"} | gens
