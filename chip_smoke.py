@@ -267,14 +267,17 @@ SIG_RTOL, SIG_FLOOR, RGB_ULPS = 2e-2, 5e-2, 1.0
 # ragged one).
 FAR_COUNTS = (77, 4096, 4096 + 77, 3364)
 # The occupancy flags decide which pairs are rendered at all, and on the card
-# they come from bf16 products on the tensor cores (the CUDA branch of
-# fused_render._mm_cast). Each refresh's flags are rebuilt from the same
-# inputs with the products widened to float32 (the branch the CPU tests hold
-# against the reference) and compared node by node. The two differ only in
-# float32 sum order, which can flip a bf16 activation and move a node density
-# by a few 1e-4 (4.2e-4 measured, port vs reference on the CPU,
-# tests/test_torch_occupancy.py), so a node may take the other side of the
-# threshold sigma_thresh / 4 only where it lies within NODE_TOL of it.
+# their node densities come from the node-grid kernel (csrc/node_grid.cu:
+# bf16 products on the tensor cores). Each refresh's flags are rebuilt from
+# the same inputs through the plain version of the grid
+# (occupancy.node_density_reference) with the products widened to float32
+# (the branch the CPU tests hold against the reference) and compared node by
+# node. The two differ in float32 sum order and the kernel's PE rounding,
+# which can flip a bf16 activation and move a node density by a few 1e-4
+# (4.2e-4 measured, port vs reference on the CPU, and 5.6e-4, the kernel's
+# semantics vs the plain grid, tests/test_torch_occupancy.py), so a node may take the other
+# side of the threshold sigma_thresh / 4 only where it lies within NODE_TOL
+# of it.
 NODE_TOL = 1e-3
 
 
@@ -414,11 +417,12 @@ def _cuda_call(fn):
 # each of their kernels must hold HGMMA instructions, and ptxas must not
 # have serialised their wgmma.
 WGMMA_LIBRARIES = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head",
-                   "pair_hier", "far_eval")
+                   "pair_hier", "far_eval", "node_grid")
 RENDER_INSTANTIATIONS = 6  # render_rays_kernel<EVAL_H, EVAL_T, BG_IN_KERNEL>: every combination
 WGMMA_KERNELS = ("render_rays_kernel", "pair_field_kernel", "pair2_field_kernel",
                  "render_head_kernel", "pair_field_perz_kernel", "sigma_head_kernel",
-                 "pair_sigma_kernel", "far_head_kernel", "far_torso_kernel", "far_joint_kernel")
+                 "pair_sigma_kernel", "far_head_kernel", "far_torso_kernel", "far_joint_kernel",
+                 "node_grid_kernel")
 
 
 def _cuobjdump():
@@ -932,8 +936,9 @@ def _plain_pair_path(captured):
 
 
 def _check_flags(tag, occ_args, occ_kw, flags):
-    """One refresh's shipped flags [2, T, J] against the flags of the same
-    inputs with widened float32 products (see NODE_TOL)."""
+    """One refresh's shipped flags [2, T, J] (the node-grid kernel's nodes)
+    against the flags of the same inputs through the plain grid with widened
+    float32 products (see NODE_TOL)."""
     from unittest import mock
 
     from dfanerf_torch.ops import fused_render, occupancy
@@ -948,7 +953,7 @@ def _check_flags(tag, occ_args, occ_kw, flags):
     for f, (pw, branch) in enumerate(((pw_h, "head"), (pw_t, "torso"))):
         sig = occupancy.node_density(pw, branch, lo, span, grid_res, act)
         with mock.patch.object(occupancy, "_mm_cast", fused_render._mm_widened):
-            sig_w = occupancy.node_density(pw, branch, lo, span, grid_res, act)
+            sig_w = occupancy.node_density_reference(pw, branch, lo, span, grid_res, act)
         on, on_w = sig > thr, sig_w > thr
         flipped = on != on_w
         n_far = int((flipped & ((sig_w - thr).abs() > NODE_TOL)).sum())
@@ -979,7 +984,9 @@ def phase_pair_main_path():
     )
     from dfanerf_torch.ops._build import weight_blobs
     from dfanerf_torch.ops.fused_render import R_T, field_flops_per_sample, view_bias
-    from dfanerf_torch.ops.occupancy import conservative_occupancy
+    from dfanerf_torch.ops.occupancy import (
+        SUPERSAMPLE, conservative_occupancy, node_grid_kernel, occupancy_boxes,
+    )
     from dfanerf_torch.ops.pair_field import pair_field_eval_reference, pair_field_kernel
 
     cfg = ExperimentConfig(decoder=DecoderConfig(density_activation="softplus"),
@@ -1093,6 +1100,15 @@ def phase_pair_main_path():
     occ_ms = _cuda_ms(lambda: conservative_occupancy(pw_h, pw_t, ro, rd, ro_t, rd_t, z_vals,
                                                      rcfg.occ_sigma_thresh, rcfg.occ_grid_res,
                                                      act), 2)
+    # of it, the node grid: one node-grid kernel launch a field
+    lo, span, _ = occupancy_boxes(ro, rd, ro_t, rd_t, z_vals, rcfg.occ_grid_res)
+    grid_ms, grid_bound = {}, {}
+    for branch, pw in (("head", pw_h), ("torso", pw_t)):
+        grid_ms[branch] = _cuda_ms(lambda: node_grid_kernel(pw, branch, lo, span,
+                                                            rcfg.occ_grid_res, act), 3)
+        grid_bound[branch] = ((rcfg.occ_grid_res * SUPERSAMPLE) ** 3
+                              * field_flops_per_sample(branch, color=False)
+                              / PEAK_BF16_FLOPS * 1e3)
     bufs, pair_ms, pair_plain_ms, pair_err, pair_flops, pair_bytes = {}, 0.0, 0.0, 0.0, 0.0, 0.0
     for branch, (pw, o, d, vr, ti, ji) in pair_ops.items():
         bufs[branch] = pair_field_kernel(pw, branch, o, d, vr, z_vals, ti, ji, act)
@@ -1147,7 +1163,12 @@ def phase_pair_main_path():
         entries.append(_entry(name, "far_eval.cu", f"dfanerf_tpu/ops/fused_render.py:{line}",
                               launches[name], err_k, *far_res[name][2:]))
     print(f"[pair path] stages on frame {PAIR_FRAMES - 1}'s operands: occupancy {occ_ms:.2f} ms "
-          f"(refresh frames only), pair_field head+torso {pair_ms:.2f} ms, far_head + far_torso "
+          f"(refresh frames only; of it node_grid at grid {rcfg.occ_grid_res}: head "
+          f"{grid_ms['head']:.3f} ms, torso {grid_ms['torso']:.3f} ms a launch against "
+          f"{grid_bound['head']:.3f} / {grid_bound['torso']:.3f} ms at bf16 peak, "
+          f"{grid_bound['head'] / grid_ms['head']:.1%} / "
+          f"{grid_bound['torso'] / grid_ms['torso']:.1%}), pair_field head+torso "
+          f"{pair_ms:.2f} ms, far_head + far_torso "
           f"{entries[1]['ms'] + entries[2]['ms']:.2f} ms, deferred_composite {comp_ms:.2f} ms; "
           f"frame-level error vs plain {err:.3e}", flush=True)
     print("[pair path] library_ms is null for pair_field, far_head and far_torso: no single "
@@ -2840,8 +2861,9 @@ def phase_hier_dense_main_path():
 
 
 def _check_hier_flags(tag, args, kw, result):
-    """One refresh's coarse head flags against the flags of the same inputs
-    with widened float32 products (see NODE_TOL)."""
+    """One refresh's coarse head flags (the node-grid kernel's nodes) against
+    the flags of the same inputs through the plain grid with widened float32
+    products (see NODE_TOL)."""
     from unittest import mock
 
     from dfanerf_torch.ops import fused_render, occupancy
@@ -2854,7 +2876,7 @@ def _check_hier_flags(tag, args, kw, result):
     thr = thresh * 0.25
     sig = occupancy.node_density(pw, branch, lo, span, grid_res, act)
     with mock.patch.object(occupancy, "_mm_cast", fused_render._mm_widened):
-        sig_w = occupancy.node_density(pw, branch, lo, span, grid_res, act)
+        sig_w = occupancy.node_density_reference(pw, branch, lo, span, grid_res, act)
     on, on_w = sig > thr, sig_w > thr
     flipped = on != on_w
     n_far = int((flipped & ((sig_w - thr).abs() > NODE_TOL)).sum())
@@ -2885,6 +2907,7 @@ def phase_hier_pair_main_path(noskip_frames):
     from dfanerf_torch.core.rays import linspace
     from dfanerf_torch.models import DecoderConfig
     from dfanerf_torch.ops.fused_render import field_flops_per_sample, view_bias
+    from dfanerf_torch.ops.occupancy import node_grid_kernel
     from dfanerf_torch.ops.pair_hier import (
         pair_field_eval_perz_reference, pair_field_perz_kernel, pair_sigma_eval_reference,
         pair_sigma_kernel,
@@ -2900,7 +2923,8 @@ def phase_hier_pair_main_path(noskip_frames):
     torch.cuda.synchronize()
 
     render = renderer.make_head_hierarchical_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
-    kernels = {"pair_sigma": pair_sigma_kernel, "pair_field_perz": pair_field_perz_kernel}
+    kernels = {"pair_sigma": pair_sigma_kernel, "pair_field_perz": pair_field_perz_kernel,
+               "node_grid": node_grid_kernel}
     for k in kernels.values():
         k.launches = 0
     frames, marks, refreshes, flag_runs, syncs = [], [], [], [], 0
@@ -2951,8 +2975,10 @@ def phase_hier_pair_main_path(noskip_frames):
     if len(refresh_ms) != 3:
         _fail(f"{len(refresh_ms)} refresh frames in {HIER_FRAMES}, expected 3")
     for i, (st, _, _, got) in enumerate(marks):
-        if st and got != {"pair_sigma": 1, "pair_field_perz": 1}:
+        if st and got != {"pair_sigma": 1, "pair_field_perz": 1, "node_grid": 0}:
             _fail(f"hier pair steady frame {i} launched {got}")
+        if not st and got["node_grid"] != 1:
+            _fail(f"hier pair refresh frame {i} launched {got}: one node grid, the head's")
     if syncs:
         _fail(f"{syncs} host synchronizations in the hier pair steady frames")
     for i, img in enumerate(frames):
@@ -3306,6 +3332,7 @@ def phase_serve_main_path():
         R_T, fused_render_rays_reference, prepare_render_operands, render_flops_per_sample,
         render_rays_kernel,
     )
+    from dfanerf_torch.ops.occupancy import node_grid_kernel
     from dfanerf_torch.render.renderer import CLASS_FIELDS
 
     cfg = _serve_cfg()
@@ -3318,6 +3345,7 @@ def phase_serve_main_path():
 
     render = renderer.make_frame_renderer(cfg, scene.hwfcxy, scene.near, scene.far)
     kernels = {name: (render_rays_kernel, name) for name in CLASS_VARIANTS}
+    kernels["node_grid"] = (node_grid_kernel, None)
     render_rays_kernel.launches, render_rays_kernel.variant_launches = 0, {}
     refreshes, flag_runs = [], []
 
@@ -3353,6 +3381,8 @@ def phase_serve_main_path():
         want = {CLASS_VARIANTS[c]: 1 for c in range(3) if ks_of[i][c]}
         if st and got != want:
             _fail(f"serve tile classes steady frame {i} launched {got}, expected {want}")
+        if not st and got.get("node_grid") != 2:
+            _fail(f"serve tile classes refresh frame {i} launched {got}: one node grid a field")
     if syncs:
         _fail(f"{syncs} host synchronizations in the serve tile-class steady frames")
     for i, (head, com) in enumerate(frames):

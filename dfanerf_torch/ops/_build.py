@@ -36,7 +36,7 @@ from dfanerf_torch.spans import span
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("render_rays", "pair_field", "far_eval", "sigma_head", "render_head", "pair_hier",
-           "pair_perz")
+           "pair_perz", "node_grid")
 LAYOUT_SIZES = 5  # ints a library's <name>_layout writes: weight and bias blob sizes, smem
 # --fmad=false: the kernels mirror their plain versions' float32 rounding
 # (see the note in csrc/render_rays.cu); -Xptxas -v reports registers, shared

@@ -1,6 +1,7 @@
 // The wgmma device core of every field kernel of the port: dense, pair,
-// per-ray-depth, density-only and far-plane (render_rays.cu, pair_field.cu,
-// render_head.cu, pair_perz.cu, sigma_head.cu, pair_hier.cu, far_eval.cu):
+// per-ray-depth, density-only, far-plane and node-grid (render_rays.cu,
+// pair_field.cu, render_head.cu, pair_perz.cu, sigma_head.cu, pair_hier.cu,
+// far_eval.cu, node_grid.cu):
 // one packed, frame-folded field (ops/pack.py, layout in field_common.cuh)
 // evaluated over a chunk of 128 rows by two consumer warpgroups, with the
 // weights fed by a producer warp through a ring of shared-memory stages.

@@ -1,20 +1,34 @@
 """Conservative per-(field, tile, slab) occupancy flags (port of
 dfanerf_tpu/ops/fused_render.py :374-600).
 
-The reference computes these in XLA, outside any kernel, so they are plain
-PyTorch here too. For each (tile, slab) the samples of a TILE x TILE pixel
-tile lie inside the convex hull of its 4 corner rays at the slab's z
-extremes, so the axis-aligned box of those 8 points bounds them; a flag is
-set when the box meets an occupied voxel of a dilated density grid, found
-with one summed-area-table query.
+The reference computes these in XLA, outside any kernel. For each (tile,
+slab) the samples of a TILE x TILE pixel tile lie inside the convex hull of
+its 4 corner rays at the slab's z extremes, so the axis-aligned box of those
+8 points bounds them; a flag is set when the box meets an occupied voxel of
+a dilated density grid, found with one summed-area-table query.
+
+The density at the grid's fine nodes has two implementations:
+
+- ``node_grid_kernel``: the hand-written CUDA kernel csrc/node_grid.cu, one
+  launch per field over the whole grid, bound with ctypes and built at first
+  launch. It counts its launches in ``node_grid_kernel.launches``.
+- ``node_density_reference``: the plain PyTorch version, the reference's
+  grid in z-groups of 8 slices (bounding the [8 Gf^2, 384] trunk
+  intermediate).
+
+``node_density`` takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises. ``node_grid_rows`` is the
+kernel's own semantics in plain PyTorch (its PE, its bf16 rounding points,
+its point arithmetic), for the tests.
 
 Flags must equal the reference's exactly, so every step keeps its rounding:
-the grid nodes come from the XLA-rounded ``linspace``, the fine grid is
-evaluated in z-groups of 8 slices (bounding the [8 Gf^2, 384] trunk
-intermediate), the pooling and dilation are max-pools, the table is an
+the grid nodes come from the XLA-rounded ``linspace`` (a product, then a
+sum, on both paths), the pooling and dilation are max-pools, the table is an
 integer cumsum, and the box bounds are the same float32 expressions in the
 same order. What can differ is the float32 sum order of the bf16 trunk
-products, which moves a node's density by a few ulps: a node within that
+products and, in the kernel, the PE's rounding (its cos half is a sin at a
+phase of pi/2, and the torso's deformation adds the bf16 PE, as the render
+kernels do), which move a node's density by a few ulps: a node within that
 distance of ``sigma_thresh * 0.25`` can flip.
 
 The reference's knobs that its renderer never sets are constants here: 16x16
@@ -24,6 +38,7 @@ grid step (``SUPERSAMPLE``) and bf16 trunk products for the grid.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -31,11 +46,16 @@ import torch.nn.functional as F
 
 from dfanerf_torch.core.posenc import sincos_posenc
 from dfanerf_torch.core.rays import linspace
+from dfanerf_torch.ops import _build
 from dfanerf_torch.ops.fused_render import (
-    PE_PAD, R_T, S_SLAB, TILE, _deform, _mm_cast, _trunk, density_act, sigma_only,
+    PE_PAD, R_T, S_SLAB, TILE, _deform, _mm_cast, _mm_kernel, _slot_tables, _trunk, density_act,
+    pe_replicate, sigma_only,
 )
+from dfanerf_torch.ops.sigma_head import sigma_rows
 
 SUPERSAMPLE = 2  # fine density nodes per grid step along each axis
+MAX_FINE = 1290  # the kernel's largest fine grid side (gf^3 nodes fit an int; its launch checks)
+_ROWS = 65536  # nodes per group in node_grid_rows (bounds its activation memory)
 
 
 def packed_sigma_xla(pw: Dict[str, torch.Tensor], pts: torch.Tensor, branch: str,
@@ -51,10 +71,18 @@ def packed_sigma_xla(pw: Dict[str, torch.Tensor], pts: torch.Tensor, branch: str
     return _trunk(sigma_only(pw), x, mm)[:, 0]
 
 
-def node_density(pw, branch: str, lo: torch.Tensor, span: torch.Tensor, grid_res: int,
-                 act: str = "relu") -> torch.Tensor:
-    """Density (after the activation) at the (grid_res * SUPERSAMPLE)^3 fine
-    nodes spanning [lo, lo + span], axes (z, y, x) (reference :407-423)."""
+def _check(branch: str, act: str) -> None:
+    if branch not in ("head", "torso"):
+        raise ValueError(f"unknown branch {branch!r}")
+    if act not in ("relu", "softplus"):
+        raise ValueError(f"unknown density activation {act!r}")
+
+
+def node_density_reference(pw, branch: str, lo: torch.Tensor, span: torch.Tensor,
+                           grid_res: int, act: str = "relu") -> torch.Tensor:
+    """Plain PyTorch version of the node grid: density (after the
+    activation) at the (grid_res * SUPERSAMPLE)^3 fine nodes spanning [lo,
+    lo + span], axes (z, y, x) (reference :407-423)."""
     gf = grid_res * SUPERSAMPLE
     g_fine = linspace(0.0, 1.0, gf, device=lo.device)
     gy, gx = torch.meshgrid(g_fine, g_fine, indexing="ij")
@@ -66,6 +94,74 @@ def node_density(pw, branch: str, lo: torch.Tensor, span: torch.Tensor, grid_res
              z_group[:, None, None].expand(zc, gf, gf)], dim=-1).reshape(-1, 3) * span
         slabs.append(density_act(packed_sigma_xla(pw, pts, branch), act).reshape(zc, gf, gf))
     return torch.cat(slabs)
+
+
+@torch.no_grad()
+def node_grid_rows(pw, branch: str, lo: torch.Tensor, span: torch.Tensor, grid_res: int,
+                   nodes: torch.Tensor, act: str = "relu") -> torch.Tensor:
+    """The kernel's semantics in plain PyTorch at the flat fine-node indices
+    ``nodes`` [N] of the (z, y, x) grid: the point lo + g * span, the PE as
+    one sin(p * freq + phase) over the slot tables rounded to bf16, the
+    torso's deformation on it, the trunk and the sigma column with
+    activations rounded to bf16, and the density activation -> [N]."""
+    _check(branch, act)
+    gf = grid_res * SUPERSAMPLE
+    g = linspace(0.0, 1.0, gf, device=lo.device)
+    freq, phase = _slot_tables(lo.device)
+    pw_s = sigma_only(pw)
+    out = []
+    for rows in nodes.split(_ROWS):
+        idx = torch.stack([rows % gf, rows // gf % gf, rows // (gf * gf)], dim=-1)
+        pts = lo + g[idx] * span
+        x = torch.sin(pe_replicate(pts) * freq + phase).to(torch.bfloat16)
+        if branch == "torso":
+            x = _deform(pw, x, _mm_kernel)
+        out.append(sigma_rows(pw_s, x, act))
+    return torch.cat(out)
+
+
+class NodeGridKernel(_build.Binding):
+    """ctypes binding of csrc/node_grid.cu."""
+
+    def __init__(self):
+        ptr = ctypes.c_void_p
+        super().__init__("node_grid", {
+            "node_grid_launch": [ctypes.c_int] + [ptr] * 8 + [ctypes.c_int] * 2 + [ptr]})
+
+    def __call__(self, pw, branch: str, lo: torch.Tensor, span: torch.Tensor, grid_res: int,
+                 act: str = "relu") -> torch.Tensor:
+        """Launch on the current stream; same operands and result as
+        ``node_density_reference``."""
+        _check(branch, act)
+        gf = grid_res * SUPERSAMPLE
+        if not 2 <= gf <= MAX_FINE:
+            raise ValueError(f"node grid of {gf}^3 fine nodes: the kernel takes 2 to {MAX_FINE}")
+        dev = _build.check_cuda_operands("node_grid_kernel", {
+            "lo": (lo, (3,), torch.float32), "span": (span, (3,), torch.float32)})
+        w, b = self.blobs(pw, branch, dev)
+        freq, phase = _slot_tables(dev)
+        out = torch.empty((gf, gf, gf), dtype=torch.float32, device=dev)
+        self.launch("node_grid_launch", dev, int(branch == "torso"),
+                    linspace(0.0, 1.0, gf, device=dev), lo, span, freq, phase, w, b, out, gf,
+                    int(act == "softplus"))
+        return out
+
+
+node_grid_kernel = NodeGridKernel()
+
+
+def node_density(pw, branch: str, lo: torch.Tensor, span: torch.Tensor, grid_res: int,
+                 act: str = "relu") -> torch.Tensor:
+    """Density (after the activation) at the (grid_res * SUPERSAMPLE)^3 fine
+    nodes spanning [lo, lo + span], axes (z, y, x): the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    _check(branch, act)
+    dev = lo.device
+    if dev.type == "cuda":
+        return node_grid_kernel(pw, branch, lo, span, grid_res, act)
+    if dev.type != "cpu":
+        raise ValueError(f"node_density runs on cpu or cuda tensors, got {dev}")
+    return node_density_reference(pw, branch, lo, span, grid_res, act)
 
 
 def _occupancy_sat(node_on: torch.Tensor) -> torch.Tensor:

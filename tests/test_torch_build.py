@@ -14,14 +14,14 @@ from dfanerf_torch.ops import _build
 
 def test_sources_list_every_kernel():
     assert _build.SOURCES == ("render_rays", "pair_field", "far_eval", "sigma_head",
-                              "render_head", "pair_hier", "pair_perz")
+                              "render_head", "pair_hier", "pair_perz", "node_grid")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
 
 
 # The libraries of the wgmma core, over the shared layout header: every one.
 WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier",
-         "far_eval")
+         "far_eval", "node_grid")
 HEADERS = {name: ["field_wgmma.cuh", "field_common.cuh"] for name in WGMMA}
 
 
@@ -66,14 +66,15 @@ def test_flags_target_sm90a_without_fma_contraction():
 
 
 def _bindings():
-    from dfanerf_torch.ops import far_eval, fused_render, pair_field, pair_hier, render_head
-    from dfanerf_torch.ops import sigma_head
+    from dfanerf_torch.ops import far_eval, fused_render, occupancy, pair_field, pair_hier
+    from dfanerf_torch.ops import render_head, sigma_head
 
     return [fused_render.render_rays_kernel, pair_field.pair_field_kernel,
             pair_field.pair2_field_kernel, far_eval.far_head_kernel, far_eval.far_torso_kernel,
             far_eval.far_joint_kernel,
             sigma_head.sigma_head_kernel, render_head.render_head_kernel,
-            pair_hier.pair_sigma_kernel, pair_hier.pair_field_perz_kernel]
+            pair_hier.pair_sigma_kernel, pair_hier.pair_field_perz_kernel,
+            occupancy.node_grid_kernel]
 
 
 @pytest.mark.parametrize("binding", _bindings(), ids=lambda b: next(iter(b._launchers)))

@@ -34,6 +34,7 @@ from dfanerf_torch.core.rays import linspace
 from dfanerf_torch.ops import occupancy as occ_mod
 from dfanerf_torch.ops.composite import deferred_composite_head
 from dfanerf_torch.ops.fused_render import density_act
+from dfanerf_torch.ops.occupancy import node_grid_kernel
 from dfanerf_torch.ops.pair_hier import (
     pair_field_eval_perz, pair_field_perz_kernel, pair_sigma_eval, pair_sigma_kernel,
 )
@@ -269,6 +270,32 @@ def test_occupancy_flags_and_sat_match_reference(setup, act, thresh):
     assert got_f.shape == (4, 4) and 0 < got_f.float().mean() < 1
 
 
+@pytest.mark.parametrize("act, thresh", [("relu", 0.095), ("softplus", 2.82)])
+def test_node_grid_semantics_give_the_reference_coarse_flags(setup, act, thresh):
+    """The node-grid kernel's semantics (occupancy.node_grid_rows) on the
+    coarse pass's grid: every node density within SIG_MAX of the plain
+    grid's, every node on the same side of the threshold, and the flags of
+    those nodes, through the cached summed-area table, the reference
+    package's coarse flags exactly."""
+    pw = _pack(setup)
+    tw = _to_torch(pw)
+    ro, rd = _camera(32)
+    z_c = np.broadcast_to(np.asarray(jnp.linspace(0.3, 0.9, 16)), (ro.shape[0], 16)).copy()
+    ref_c, _ = jf.occupancy_flags_and_sat(pw, "head", jnp.asarray(ro), jnp.asarray(rd),
+                                          jnp.asarray(z_c), thresh, 16, act=act)
+    _, (_, lo, span) = occ_mod.occupancy_flags_and_sat(tw, "head", _t(ro), _t(rd), _t(z_c),
+                                                       thresh, 16, act=act)
+    plain = occ_mod.node_density_reference(tw, "head", lo, span, 16, act)
+    got = occ_mod.node_grid_rows(tw, "head", lo, span, 16, torch.arange(32 ** 3), act)
+    assert float((got - plain.reshape(-1)).abs().max()) < SIG_MAX
+    on = (got > thresh * 0.25).reshape(32, 32, 32)
+    assert torch.equal(on, plain > thresh * 0.25)
+    flags, _ = occ_mod.occupancy_flags_and_sat(tw, "head", _t(ro), _t(rd), _t(z_c), thresh, 16,
+                                               (occ_mod._occupancy_sat(on), lo, span), act)
+    np.testing.assert_array_equal(flags.numpy(), np.asarray(ref_c))
+    assert 0 < flags.float().mean() < 1
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_serve(setup):
     """CPU tensors never reach a kernel; bad shapes raise."""
     pw = _to_torch(_pack(setup))
@@ -291,5 +318,17 @@ def test_wrappers_refuse_what_the_kernels_cannot_serve(setup):
         pair_field_eval_perz(pw, _t(o), _t(d), _t(z_buf)[:, :, :512], ti, ji)
     with pytest.raises(ValueError, match="multiple"):
         fused_sigma_head(pw, _t(o), _t(d), z[:30])
-    for k in (sigma_head_kernel, render_head_kernel, pair_sigma_kernel, pair_field_perz_kernel):
+    lo, span = torch.zeros(3), torch.ones(3)
+    with pytest.raises(ValueError, match="CUDA"):
+        node_grid_kernel(pw, "head", lo, span, 8)
+    with pytest.raises(ValueError, match="activation"):
+        node_grid_kernel(pw, "head", lo, span, 8, act="gelu")
+    with pytest.raises(ValueError, match="activation"):
+        occ_mod.node_density(pw, "head", lo, span, 8, act="gelu")
+    with pytest.raises(ValueError, match="branch"):
+        occ_mod.node_density(pw, "face", lo, span, 8)
+    with pytest.raises(ValueError, match="fine nodes"):
+        node_grid_kernel(pw, "head", lo, span, 1000)
+    for k in (sigma_head_kernel, render_head_kernel, pair_sigma_kernel, pair_field_perz_kernel,
+              node_grid_kernel):
         assert k.launches == 0

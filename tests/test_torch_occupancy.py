@@ -157,3 +157,45 @@ def test_conservative_occupancy_half_slab_flags_equal(packs, H, thresh, act):
         on = (density_act(raw, act) > thresh * 0.25).numpy()
         on_ref = np.asarray(jf.density_act(raw_ref, act) > thresh * 0.25)
         np.testing.assert_array_equal(on, on_ref)
+
+
+# The node-grid kernel (csrc/node_grid.cu) runs only on the card; its
+# semantics in plain PyTorch (occupancy.node_grid_rows: its PE as one sin
+# over the slot tables, the torso's deformation adding the bf16 PE, its bf16
+# rounding points and its point arithmetic) are held here against the plain
+# grid the CPU path runs (node_density_reference), on the reference
+# package's packed weights and the grid of a camera's (tile, slab) boxes.
+@pytest.mark.parametrize("act, thresh", [("relu", 0.13), ("softplus", 2.83)])
+@pytest.mark.parametrize("branch", ["head", "torso"])
+@pytest.mark.parametrize("grid_res", [8, 16])
+def test_node_grid_semantics_match_the_plain_grid(packs, grid_res, branch, act, thresh):
+    """Every node density within NODE_DIFF (measured 5.6e-4), and every
+    node farther than that from the node threshold on the same side of
+    it."""
+    pw = _to_torch(packs[0 if branch == "head" else 1])
+    ro, rd = (torch.from_numpy(x) for x in _camera(32))
+    z = torch.from_numpy(np.array(jnp.linspace(0.3, 0.9, 16)))
+    lo, span, _ = occ_mod.occupancy_boxes(ro, rd, ro, rd, z, grid_res)
+    gf = grid_res * occ_mod.SUPERSAMPLE
+    ref = occ_mod.node_density_reference(pw, branch, lo, span, grid_res, act).reshape(-1)
+    got = occ_mod.node_grid_rows(pw, branch, lo, span, grid_res, torch.arange(gf ** 3), act)
+    assert got.shape == ref.shape == (gf ** 3,) and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) < NODE_DIFF
+    thr = thresh * 0.25
+    on, on_ref = got > thr, ref > thr
+    assert not bool((on != on_ref)[(ref - thr).abs() > NODE_DIFF].any())
+    assert 0 < float(on_ref.float().mean()) < 1, "the case should have nodes on both sides"
+
+
+@pytest.mark.parametrize("branch", ["head", "torso"])
+def test_node_density_on_the_cpu_is_the_plain_grid(packs, branch):
+    """CPU tensors never reach the kernel: node_density returns the plain
+    grid's tensor bit for bit, and launches nothing."""
+    pw = _to_torch(packs[0 if branch == "head" else 1])
+    ro, rd = (torch.from_numpy(x) for x in _camera(24))
+    z = torch.from_numpy(np.array(jnp.linspace(0.3, 0.9, 16)))
+    lo, span, _ = occ_mod.occupancy_boxes(ro, rd, ro, rd, z, 8)
+    launches = occ_mod.node_grid_kernel.launches
+    got = occ_mod.node_density(pw, branch, lo, span, 8, "softplus")
+    assert torch.equal(got, occ_mod.node_density_reference(pw, branch, lo, span, 8, "softplus"))
+    assert got.shape == (16, 16, 16) and occ_mod.node_grid_kernel.launches == launches

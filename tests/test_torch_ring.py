@@ -1,7 +1,7 @@
 """The host side of the wgmma core's weight ring (dfanerf_torch/ops/_build.py
 ring_blob, csrc/field_wgmma.cuh): the staged blob of every kernel library
 (render_rays, pair_field, render_head, pair_perz, sigma_head, pair_hier,
-far_eval) against the ``weight_blobs`` blob it is re-laid from, on packed
+far_eval, node_grid) against the ``weight_blobs`` blob it is re-laid from, on packed
 weights of a seeded decoder. Nothing is compiled here: the tests read the
 staged blob as the kernel's wgmma descriptors address it (start address,
 leading byte offset 128 B along K, stride byte offset KS/8 x 128 B along N)
@@ -18,7 +18,7 @@ from dfanerf_torch.models import Decoder, DecoderConfig
 from dfanerf_torch.models.layers import init_uniform_
 from dfanerf_torch.ops import _build
 from dfanerf_torch.ops.far_eval import _far_rows, far_head_reference, far_torso_reference
-from dfanerf_torch.ops.fused_render import _field_rows, density_act, sigma_only
+from dfanerf_torch.ops.fused_render import _deform, _field_rows, _mm_kernel, density_act, sigma_only
 from dfanerf_torch.ops.pack import pack_field_weights
 from dfanerf_torch.ops.sigma_head import sigma_rows
 
@@ -149,24 +149,27 @@ def _walk_trunk(cur, b, x):
     return h
 
 
+def _walk_deform(cur, b, pe):
+    """The torso's deformation net over its PE rows pe (float, bf16 values)
+    in field_wgmma.cuh wg_deform's order: the trunk's input, bf16 values."""
+    db1, dbk = B_OUT + 8, B_OUT + 8 + 128
+    dbskip, dbout, sig_pad = dbk + 4 * 128, dbk + 5 * 128, dbk + 6 * 128
+    h = cur.relu_layer(pe, 128, 64, b[db1:db1 + 128])
+    h = cur.relu_layer(h, 128, 128, b[dbk:dbk + 128])
+    h = cur.relu_layer(h, 128, 128, b[dbk + 128:dbk + 256])
+    h = (_mm(h, cur.take(128, 128)) + b[dbk + 256:dbk + 384]).relu()
+    h = (h + _mm(pe, cur.take(128, 64)) + b[dbskip:dbskip + 128]).to(torch.bfloat16).float()
+    h = cur.relu_layer(h, 128, 128, b[dbk + 384:dbk + 512])
+    d = _mm(h, cur.take(128, 128)) + b[dbout:dbout + 128] + b[sig_pad:sig_pad + 128]
+    return (d + torch.cat([pe, torch.zeros_like(pe)], dim=1)).to(torch.bfloat16).float()
+
+
 def _walk_field(staged, b, x, vr, branch, act):
     """The field over rows x [ROWS, 64] bf16 with every wide layer's weight
     taken from the staged blob by a cursor, in the order the kernel's code
     runs its layers (field_wgmma.cuh wg_deform, wg_trunk, wg_trunk_and_heads)."""
     cur = _Cursor(staged)
-    pe = x.float()
-    x = pe
-    if branch == "torso":
-        db1, dbk = B_OUT + 8, B_OUT + 8 + 128
-        dbskip, dbout, sig_pad = dbk + 4 * 128, dbk + 5 * 128, dbk + 6 * 128
-        h = cur.relu_layer(pe, 128, 64, b[db1:db1 + 128])
-        h = cur.relu_layer(h, 128, 128, b[dbk:dbk + 128])
-        h = cur.relu_layer(h, 128, 128, b[dbk + 128:dbk + 256])
-        h = (_mm(h, cur.take(128, 128)) + b[dbk + 256:dbk + 384]).relu()
-        h = (h + _mm(pe, cur.take(128, 64)) + b[dbskip:dbskip + 128]).to(torch.bfloat16).float()
-        h = cur.relu_layer(h, 128, 128, b[dbk + 384:dbk + 512])
-        d = _mm(h, cur.take(128, 128)) + b[dbout:dbout + 128] + b[sig_pad:sig_pad + 128]
-        x = (d + torch.cat([pe, torch.zeros_like(pe)], dim=1)).to(torch.bfloat16).float()
+    x = _walk_deform(cur, b, x.float()) if branch == "torso" else x.float()
     h = _walk_trunk(cur, b, x)
     narrow = staged[-2 * 8 * 256:].reshape(2, 8, 256).float()
     sigma = _mm(h, narrow[0, 0:1].t())[:, 0] + b[B_SF]
@@ -194,12 +197,14 @@ def test_ring_walk_runs_the_field(packed, branch):
     torch.testing.assert_close(rgb, want_rgb, rtol=1e-4, atol=1e-5)
 
 
-def _walk_sigma(staged, b, x, act):
-    """The head's density over rows x in a density-only chunk's order (the
-    trunk, then the sigma rows at the staged blob's end); the slabs taken."""
+def _walk_sigma(staged, b, x, act, branch="head"):
+    """A field's density over rows x in a density-only chunk's order (the
+    torso's deformation net, the trunk, then the sigma rows at the staged
+    blob's end); the slabs taken."""
     cur = _Cursor(staged)
-    h = _walk_trunk(cur, b, x.float())
-    sigw = _const("NS_HEAD") * _build.SLAB  # Staged<PEW>::SIGW
+    x = _walk_deform(cur, b, x.float()) if branch == "torso" else x.float()
+    h = _walk_trunk(cur, b, x)
+    sigw = _const("NS_HEAD" if branch == "head" else "NS_TORSO") * _build.SLAB  # Staged::SIGW
     sig_rows = staged[sigw:sigw + 8 * 256].reshape(8, 256).float()
     return density_act(_mm(h, sig_rows[0:1].t())[:, 0] + b[B_SF], act), cur.pos
 
@@ -240,6 +245,33 @@ def test_density_kernels_share_the_sigma_walk(name):
     assert len(re.findall(r"void wg_sigma_walk\(", HEADER)) == 1
 
 
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+@pytest.mark.parametrize("branch", ["head", "torso"])
+def test_node_grid_walk_runs_the_density_only_field(packed, branch, act):
+    """node_grid.cu's chunk: the torso's deformation net, the trunk, then the
+    sigma rows at the staged blob's end, computes the kernel's semantics
+    (occupancy.node_grid_rows: the deformation on the bf16 PE, sigma_rows)
+    and consumes exactly the slabs its producer issues a chunk: the first
+    NS_HEAD_TRUNK or NS_TORSO_TRUNK, never the view feature's."""
+    src = (_build.CSRC / "node_grid.cu").read_text()
+    assert re.findall(r"ring\.produce\([^;]*\);", src) == [
+        "ring.produce(p.w, TORSO ? NS_TORSO_TRUNK : NS_HEAD_TRUNK, mine);"]
+    assert "constexpr int NS_TORSO_TRUNK = NS_TORSO - slabs(HID, HID);" in src
+    ns = {"head": _const("NS_HEAD_TRUNK"), "torso": _const("NS_TORSO") - 256 * 256 // _build.SLAB}
+    pw = packed[branch]
+    w, b = _build.weight_blobs(pw, branch)
+    staged = _build.ring_blob(w, branch)
+    g = torch.Generator().manual_seed(6)
+    x = torch.sin(torch.randn(ROWS, 64, generator=g) * 3.0)
+    x[:, 60:] = 0.0
+    x = x.to(torch.bfloat16)
+    sigma, used = _walk_sigma(staged, b, x, act, branch)
+    assert used == ns[branch] == {"head": 60, "torso": 76}[branch]
+    inp = _deform(pw, x, _mm_kernel) if branch == "torso" else x
+    torch.testing.assert_close(sigma, sigma_rows(sigma_only(pw), inp, act), rtol=1e-4, atol=1e-5)
+    assert _build.staged_weight_bytes(branch, color=False) == 2 * (used * _build.SLAB + 8 * 256)
+
+
 @pytest.mark.parametrize("layout", ["staged", "plain", "neither"])
 def test_binding_hands_each_library_the_layout_it_reports(packed, layout):
     """Binding.blobs gives a library the staged weight blob, the one layout
@@ -267,7 +299,7 @@ def test_binding_hands_each_library_the_layout_it_reports(packed, layout):
 
 # The libraries of the wgmma core: every one.
 WGMMA = ("render_rays", "pair_field", "render_head", "pair_perz", "sigma_head", "pair_hier",
-         "far_eval")
+         "far_eval", "node_grid")
 
 
 def _layout_exprs(name):
