@@ -30,24 +30,25 @@ from port_bench import harness, serve, train  # noqa: E402
 
 
 def readings(cell, seed: int, seconds: float, device, size=None, control: bool = True) -> dict:
-    """{"program": numbers, "control": numbers or None} of one seed."""
-    st = serve.prepare(cell.model, cell.mix, seed, device, size)
-    prog = serve.Program(st)
+    """{"program": numbers, "control": numbers or None} of one seed, on the
+    cell's serving path."""
+    path = serve.resolve_path(cell)
+    st = path.prepare(cell.model, cell.mix, seed, device, size)
+    prog = path.Program(st)
     warm = int((size or {}).get("warm_frames", cell.mix["warm_frames"]))
     c_ref = serve.warm_up(prog, warm)
     frames, kept, _ = serve.run_window(prog, warm, seconds, False, 0.0, seed,
                                        int(cell.mix["check"]["frames"]), c_ref)
     which = [(frames[j].c, frames[j].c_ref) for j in sorted(kept)]
     kept = [kept[j] for j in sorted(kept)]
-    kind = prog.kind
     prog.close()
     del prog
     gc.collect()
-    refs = serve.reference_frames(st, kind, which)
+    refs = path.reference_frames(st, which)
     out = {"seed": seed, "frames": len(frames), "program": serve.compare(kept, refs),
            "control": None}
     if control:
-        low = serve.reference_frames(st, kind, which, prec="fp8")
+        low = path.reference_frames(st, which, prec="fp8")
         out["control"] = serve.compare([x[0] for x in low], refs)
     return out
 

@@ -1,23 +1,21 @@
 """One run of one cell: the cell's configuration, traffic mix and metric
 readers are found by the names in BENCHMARK.json (``configs/<file>``,
-``traffic/<mix>.json``, ``metrics/<metric>.py``); the mix's ``kind``
-(``serve`` or ``train``) drives the program; the result is one JSON line.
+``traffic/<mix>.json``, ``metrics/<metric>.py``); the mix's ``kind`` names
+the run's shape (``kinds/<kind>.py``, such as ``serve`` or ``train``),
+whose ``run`` drives the program; the result is one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import gc
 import importlib.util
 import json
 import sys
-import time
 from pathlib import Path
-from types import SimpleNamespace
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -52,14 +50,37 @@ def load_cell(root: Path, name: str) -> Cell:
     return Cell(name, int(w["chips"]), model, mix, e2e, per_layer, root)
 
 
+def load_named(root: Path, folder: str, name: str) -> ModuleType:
+    """The module port_bench/<folder>/<name>.py under ``root``, loaded from its
+    file; stops, naming the file it looked for, where there is none."""
+    path = root / "port_bench" / folder / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"port_bench: no {folder[:-1]} {name!r}: looked for {path}")
+    key = f"port_bench_{folder}_{name.replace('.', '_')}"
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod  # dataclasses and pickling look a class's module up by name
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def load_reader(root: Path, name: str) -> Callable:
     """``read(run)`` of port_bench/metrics/<name>.py under ``root``."""
-    path = root / "port_bench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"port_bench_metric_{name.replace('.', '_')}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_named(root, "metrics", name).read
+
+
+def load_kind(cell: Cell) -> ModuleType:
+    """The run kind of the cell's mix, port_bench/kinds/<kind>.py under the
+    cell's root: its ``run(cell, seed, seconds, traced, device, t_proc,
+    size=None, program=None)`` makes one run and returns its result line."""
+    return load_named(cell.root, "kinds", cell.mix["kind"])
+
+
+def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_proc: float,
+        size: Optional[dict] = None, program=None) -> dict:
+    """One run of the cell by its kind. ``size`` and ``program`` (a program
+    factory) are the tests' small sizes and broken programs."""
+    return load_kind(cell).run(cell, seed, seconds, traced, device, t_proc, size, program)
 
 
 def forbidden_modules() -> List[str]:
@@ -97,129 +118,6 @@ def all_within(checks: Dict[str, dict]) -> bool:
                                 for c in checks.values())
 
 
-# ---------------------------------------------------------------- serving
-
-def run_serve(cell: Cell, seed: int, seconds: float, traced: bool, device, t_proc: float,
-              size: Optional[dict] = None, program=None) -> dict:
-    """One serving run. ``size`` and ``program`` (a Program factory) are the
-    tests' small frames and broken programs."""
-    from port_bench import serve
-
-    split = {"imports": time.perf_counter() - t_proc}
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.init()
-        torch.cuda.reset_peak_memory_stats(device)
-    split["cuda_context"] = time.perf_counter() - t_proc - sum(split.values())
-    st = serve.prepare(cell.model, cell.mix, seed, device, size)
-    split["weights_clip_calibration"] = time.perf_counter() - t_proc - sum(split.values())
-    prog = (program or serve.Program)(st)
-    warm = int((size or {}).get("warm_frames", cell.mix["warm_frames"]))
-    c_ref = serve.warm_up(prog, warm)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    split["renderer_and_warm_frames"] = time.perf_counter() - t_proc - sum(split.values())
-    setup_s = time.perf_counter() - t_proc
-
-    t_start = time.perf_counter()
-    frames, kept, prof = serve.run_window(prog, warm, seconds, traced,
-                                          min(TRACE_SECONDS, seconds / 3), seed,
-                                          int(cell.mix["check"]["frames"]), c_ref)
-    t_end = frames[-1].t2
-    dev_info = device_info(device, cell.chips)
-    swaps = getattr(prog.render, "cache", {}).get("swaps")
-    tr = prof.reduce(*serve.host_spans(frames)) if prof is not None else None
-    if tr is not None:
-        dev_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
-    which = [(frames[j].c, frames[j].c_ref) for j in sorted(kept)]
-    kept = [kept[j] for j in sorted(kept)]
-    prog_kind = prog.kind
-    prog.close()
-    del prog
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    numbers = serve.compare(kept, serve.reference_frames(st, prog_kind, which))
-
-    values = {"setup_s": setup_s,
-              "fps": len(frames) / (t_end - t_start),
-              "frame_ms_p95": float(np.percentile([f.ms for f in frames], 95))}
-    if traced:
-        run = SimpleNamespace(frames=frames, trace=tr, kind=prog_kind, cell=cell,
-                              t_start=t_start, t_end=t_end, swaps=swaps)
-        values = {m["name"]: load_reader(cell.root, m["name"])(run) for m in cell.per_layer}
-    checks = checked(numbers, cell.mix["check"]["limits"])
-    result = {"correct": all_within(checks), "attempted": len(frames), "failed": 0,
-              "metrics": metric(cell, values, traced), "device": dev_info}
-    if tr is not None:
-        result["breakdown"] = tr.breakdown()
-    result.update(setup_split=split, swaps=swaps, calibration=st.calibration,
-                  refreshes=sum(f.refreshed for f in frames), readings=numbers,
-                  checks=checks)
-    return result
-
-
-# ---------------------------------------------------------------- training
-
-def run_train(cell: Cell, seed: int, seconds: float, traced: bool, device, t_proc: float,
-              size: Optional[dict] = None, program=None) -> dict:
-    """One training run: set-up drives the state through its first steps,
-    the window trains the same state, the reference follows the first steps
-    after it."""
-    from port_bench import train
-
-    split = {"imports": time.perf_counter() - t_proc}
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.init()
-        torch.cuda.reset_peak_memory_stats(device)
-    split["cuda_context"] = time.perf_counter() - t_proc - sum(split.values())
-    ts = train.prepare(cell.model, cell.mix, seed, device, size)
-    split["weights_identity"] = time.perf_counter() - t_proc - sum(split.values())
-    prog = (program or train.TrainProgram)(ts)
-    feed = train.Batches(ts, seed)
-    batches, got = train.program_side(prog, feed, ts)
-    for _ in range(int((size or {}).get("warm_steps", cell.mix["warm_steps"]))):
-        prog.run(feed())
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    split["step_and_warm_steps"] = time.perf_counter() - t_proc - sum(split.values())
-    setup_s = time.perf_counter() - t_proc
-
-    t_start = time.perf_counter()
-    steps, t_end, (prof, tw) = train.run_window(prog, feed, seconds, traced,
-                                                 min(TRACE_SECONDS, seconds / 3),
-                                                 int(cell.model["train"]["i_print"]))
-    dev_info = device_info(device, cell.chips)
-    tr = None
-    if prof is not None:
-        spans = [("train.step", a, b) for a, b, on in steps if on]
-        tr = prof.reduce(spans, *tw)
-        dev_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
-    prog.close()
-    del prog
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    numbers = train.check_numbers(train.reference_side(ts, batches), got)
-
-    values = {"setup_s": setup_s, "train_rays_per_s": len(steps) * ts.n_rand / (t_end - t_start)}
-    if traced:
-        run = SimpleNamespace(steps=steps, trace=tr, cell=cell, n_rand=ts.n_rand,
-                              n_samples=ts.model["render"]["n_samples"])
-        values = {m["name"]: load_reader(cell.root, m["name"])(run) for m in cell.per_layer}
-    checks = checked(numbers, cell.mix["check"]["limits"])
-    result = {"correct": all_within(checks), "attempted": len(steps), "failed": 0,
-              "metrics": metric(cell, values, traced), "device": dev_info}
-    if tr is not None:
-        result["breakdown"] = tr.breakdown()
-    result.update(setup_split=split, losses=got[0], readings=numbers, checks=checks)
-    return result
-
-
-RUNS = {"serve": run_serve, "train": run_train}
-
-
 def parse(argv):
     p = argparse.ArgumentParser(description="Run one cell of BENCHMARK.json once.")
     p.add_argument("--workload", required=True)
@@ -232,12 +130,13 @@ def parse(argv):
 def main(argv, t_proc: float) -> int:
     args = parse(argv)
     cell = load_cell(HERE.parent, args.workload)
+    kind = load_kind(cell)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"port_bench: {args.workload} needs {cell.chips} CUDA device(s); "
               f"torch.cuda.is_available() = {torch.cuda.is_available()}", file=sys.stderr)
         return 2
-    result = RUNS[cell.mix["kind"]](cell, args.seed, args.seconds, bool(args.trace),
-                                         torch.device("cuda", 0), t_proc)
+    result = kind.run(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda", 0),
+                      t_proc)
     found = forbidden_modules()
     if found:
         print(f"port_bench: the run loaded {found}, which the port may not use", file=sys.stderr)

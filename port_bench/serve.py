@@ -4,15 +4,24 @@ through the program's public entry points (``make_frame_renderer`` or
 composite copied to the host as uint8 before the next is dispatched, as
 ``render_video_frames`` does. After the window, frames that the seed picks
 (the slowest among them) are compared with the plain reference's frames of
-the same inputs, which make their own skip decisions at the same refresh
-frames (``reference.py``, "skipping").
+the same inputs.
+
+The loop is shared here; what differs between serving paths sits in one file
+per path, ``paths/<path>.py``, found by name (``resolve_path``). A path file
+holds ``prepare`` (as a rule this module's), ``Program`` (as a rule a
+subclass of this module's that lists the frame's kernel work), its
+``reference_frames(st, frames, prec="fp32")``, which makes the path's skip
+decisions itself at the same refresh frames (``reference.py``, "skipping"),
+and ``KERNELS``, the counted work of each kernel its ``work()`` names.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from pathlib import Path
+from types import ModuleType
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -20,6 +29,7 @@ import torch.nn.functional as F
 
 from port_bench import counts, reference, trace
 from port_bench.clip import make_clip
+from port_bench.harness import Cell, load_named
 from port_bench.weights import calibrate, make_weights
 
 
@@ -54,7 +64,8 @@ class Setup:
 
 def prepare(model: dict, mix: dict, seed: int, device, size: Optional[dict] = None) -> Setup:
     """Weights on the device from the configuration's weights seed, the clip
-    from ``seed``, the density calibrated as the configuration's
+    from ``seed``, the density of both fields (the head alone for a
+    hierarchical configuration) calibrated as the configuration's
     ``assumed.field`` states. The render settings are the
     configuration's, then the mix's; ``size`` overrides frame and render
     sizes (the CPU tests' small frames)."""
@@ -85,10 +96,60 @@ def reference_signals(params, model, clip, c: int, device):
                                        s["et_multires"]))
 
 
+def path_name(model: dict, mix: dict) -> str:
+    """The serving path of a configuration under a mix: the mix's ``path``,
+    else the one its render flags select (pair lists, tile classes or
+    neither; the hierarchical head on pair lists). A hierarchical
+    configuration off the pair path has none: the hierarchical pair path's
+    reference would make decisions its renderer does not make."""
+    if "path" in mix:
+        return mix["path"]
+    rcfg = {**model["render"], **mix.get("render", {})}
+    if rcfg.get("n_importance", 0) > 0:
+        if (rcfg.get("use_fused_kernel") and rcfg.get("occ_pair_compaction")
+                and rcfg.get("occ_sigma_thresh", 0) > 0):
+            return "hier_pairs"
+        raise SystemExit(f"port_bench: {model['name']} under this mix is hierarchical off the "
+                         "pair path: no serving path; name one with `path` in the mix")
+    return ("pairs" if rcfg.get("occ_pair_compaction")
+            else "tile_classes" if rcfg.get("occ_tile_compaction") else "dense")
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """A kernel's counted work: the FLOPs at one (ray, sample) point of a
+    listed block, ``flops_per_point(fields)``, and the bytes a launch must
+    move, ``bytes(fields, tiles, blocks)``."""
+    flops_per_point: Callable[[str], float]
+    bytes: Callable[[str, int, int], float]
+
+
+# The counted work of each kernel that a loaded serving path names, by the
+# kernel's name (the name a launch carries in the trace): filled as paths load.
+KERNELS: Dict[str, Kernel] = {}
+
+
+def load_path(root: Path, name: str) -> ModuleType:
+    """The serving path port_bench/paths/<name>.py under ``root``, its
+    kernels' counted work entered in KERNELS."""
+    path = load_named(root, "paths", name)
+    KERNELS.update(path.KERNELS)
+    return path
+
+
+def resolve_path(cell: Cell) -> ModuleType:
+    """The cell's serving path, found under the cell's root."""
+    return load_path(cell.root, path_name(cell.model, cell.mix))
+
+
 class Program:
     """The system under test, built from the setup through its public entry
-    points; ``dispatch(c)`` renders clip frame c and returns the composite
-    [H, W, 3] on the device."""
+    points: the hierarchical head renderer for a configuration with
+    ``n_importance`` > 0, else the head+torso frame renderer. ``dispatch(c)``
+    renders clip frame c and returns the composite [H, W, 3] on the device.
+    It lists no kernel work; a path's program that does subclasses it."""
+
+    kind = "dense"
 
     def __init__(self, st: Setup):
         from dfanerf_torch.config import ExperimentConfig
@@ -112,9 +173,6 @@ class Program:
         make = (renderer.make_head_hierarchical_renderer if self.hier
                 else renderer.make_frame_renderer)
         self.render = make(self.cfg, clip.hwfcxy, clip.near, clip.far, device=st.device)
-        self.kind = ("hier_pairs" if self.hier else "pairs" if rcfg.get("occ_pair_compaction")
-                     else "tile_classes" if rcfg.get("occ_tile_compaction") else "dense")
-        self._class_work = (None, None)
 
     def frame_of(self, i: int) -> int:
         """The clip index of the run's i-th frame."""
@@ -133,26 +191,8 @@ class Program:
 
     def work(self) -> list:
         """The listed work of the frame just rendered, read from the
-        renderer's state: (kernel, fields, tiles, listed (tile, slab) blocks)."""
-        cache = self.render.cache
-        if self.kind == "tile_classes":
-            key = cache["order"]
-            if self._class_work[0] is not key:  # the flags changed: a refresh frame
-                fields = ("both", "head", "torso")
-                w = [("render_rays_kernel", fields[i], k, int(cache["occs"][i].sum()))
-                     for i, k in enumerate(cache["ks"]) if k]
-                self._class_work = (key, w)
-            return self._class_work[1]
-        if self.kind == "pairs":
-            k_u = len(cache["tiles_u"])
-            return [("pair_field_kernel", b, k_u, int(t.numel()))
-                    for b, (t, _) in zip(("head", "torso"), cache["lists"])]
-        if self.kind == "hier_pairs":
-            if cache.get("empty"):
-                return []
-            k_u = len(cache["tiles_u"])
-            return [("pair_sigma_kernel", "head", k_u, int(cache["ti_c"].numel())),
-                    ("pair_field_perz_kernel", "head", k_u, int(cache["ti_f"].numel()))]
+        renderer's state: [(kernel, fields, tiles, listed (tile, slab)
+        blocks)]."""
         return []
 
     def close(self):
@@ -169,12 +209,11 @@ def to_host(img: torch.Tensor) -> torch.Tensor:
 
 
 def work_flops(kernel: str, fields: str, blocks: int) -> float:
+    """The counted FLOPs of a kernel's listed blocks (KERNELS)."""
+    if kernel not in KERNELS:
+        raise KeyError(f"{kernel}: no loaded serving path counts its work")
     pts = blocks * counts.RAYS_PER_TILE * counts.SAMPLES_PER_SLAB
-    if kernel == "render_rays_kernel":
-        return pts * counts.render_flops_per_sample(fields)
-    if kernel == "pair_sigma_kernel":
-        return pts * counts.field_flops_per_sample(fields, sigma=True, color=False)
-    return pts * counts.field_flops_per_sample(fields)
+    return pts * KERNELS[kernel].flops_per_point(fields)
 
 
 def run_window(prog: Program, start: int, seconds: float, traced: bool, trace_s: float,
@@ -246,11 +285,13 @@ def warm_up(prog: Program, n: int) -> int:
 
 # The check's allowance for rounding in the program's skip decisions: a node
 # whose raw density lies within MARGIN of the threshold (in units of the
-# calibrated density output's scale, the contrast) and a box bound within
-# BOX_EPS node steps of a node may be decided either way.
+# calibrated density output's scale, the contrast) may be decided either
+# way; a path's file sets how far a box bound may be off a node.
 MARGIN = 2e-3
-BOX_EPS = 0.05
-HIER_BOX_EPS = 0.25  # the fine depths follow the coarse densities' rounding
+
+
+def margin(st: Setup) -> float:
+    return MARGIN * float(st.model["assumed"]["field"]["contrast"])
 
 
 def _frame_inputs(st: Setup, c: int) -> dict:
@@ -261,41 +302,36 @@ def _frame_inputs(st: Setup, c: int) -> dict:
             "z_shape": st.z_shape, "z_app": st.z_app, "bc": bc.reshape(-1, 3).float() / 255.0}
 
 
-def reference_frames(st: Setup, kind: str, frames: List[tuple], prec: str = "fp32"):
+def frames_under_refresh(st: Setup, frames: List[tuple], render, decide=None) -> list:
     """The plain reference's frames [(composite [H, W, 3], U [H, W])] for
-    ``frames`` [(clip index, refresh frame's clip index)]: under its own
-    skip decisions made at the refresh frame (tile classes, hierarchical
-    pairs), with U the bound on what the uncertain decisions can move; the
-    no-skip frame with U = 0 for another path."""
-    clip = st.clip
-    hwf = (clip.H, clip.W, clip.focal)
-    dec, rcfg = st.model["decoder"], st.render
-    margin = MARGIN * float(st.model["assumed"]["field"]["contrast"])
+    ``frames`` [(clip index, refresh frame's clip index)] in strict float32:
+    ``decide(inputs)`` once for each refresh frame's inputs, and
+    ``render(inputs, decided)`` for each frame, U the bound on what the
+    uncertain decisions can move. Without ``decide`` nothing is decided."""
     out, states = [], {}
     with reference.strict_float32():
         for c, c_ref in frames:
             fr = _frame_inputs(st, c)
-            if kind == "tile_classes":
-                if c_ref not in states:
-                    states[c_ref] = reference.class_masks(reference.decisions(
-                        st.params, dec, rcfg, _frame_inputs(st, c_ref), hwf, margin, BOX_EPS,
-                        prec))
-                out.append(reference.head_torso_skip_frame(st.params, dec, rcfg, fr,
-                                                           states[c_ref], hwf, margin, prec))
-            elif kind == "hier_pairs":
-                if c_ref not in states:
-                    states[c_ref] = reference.hier_refresh(st.params, dec, rcfg,
-                                                           _frame_inputs(st, c_ref), hwf, margin,
-                                                           HIER_BOX_EPS, prec)
-                out.append(reference.head_hier_skip_frame(st.params, dec, rcfg, fr,
-                                                          states[c_ref], hwf, prec))
-            elif rcfg.get("n_importance", 0) > 0:
-                img = reference.head_hier_frame(st.params, dec, rcfg, fr, hwf, prec)
-                out.append((img, torch.zeros(img.shape[:2], device=img.device)))
-            else:
-                img = reference.head_torso_frame(st.params, dec, rcfg, fr, hwf, prec)[1]
-                out.append((img, torch.zeros(img.shape[:2], device=img.device)))
+            if decide is not None and c_ref not in states:
+                states[c_ref] = decide(_frame_inputs(st, c_ref))
+            out.append(render(fr, states.get(c_ref)))
     return out
+
+
+def no_skip_frames(st: Setup, frames: List[tuple], prec: str = "fp32") -> list:
+    """The reference's no-skip frames, U = 0: the head+torso frame, or the
+    hierarchical head for a configuration with ``n_importance`` > 0."""
+    hwf = (st.clip.H, st.clip.W, st.clip.focal)
+    dec, rcfg = st.model["decoder"], st.render
+
+    def render(fr, _):
+        if rcfg.get("n_importance", 0) > 0:
+            img = reference.head_hier_frame(st.params, dec, rcfg, fr, hwf, prec)
+        else:
+            img = reference.head_torso_frame(st.params, dec, rcfg, fr, hwf, prec)[1]
+        return img, torch.zeros(img.shape[:2], device=img.device)
+
+    return frames_under_refresh(st, frames, render)
 
 
 def tile_means(e: torch.Tensor) -> torch.Tensor:
@@ -331,17 +367,19 @@ def compare(kept: List[torch.Tensor], refs: List[tuple]) -> dict:
             "nonfinite_px": 0, "excess_max": float(max(x.max() for x in e))}
 
 
-def roofline_share(run, kernel: str, bytes_of):
+def roofline_share(run, kernel: str, bytes_of=None):
     """A kernel's share of its roofline over the traced window: its launches'
     device time on the serving stream against the larger of the counted
     FLOPs over the bf16 peak and the counted bytes (``bytes_of(fields,
-    tiles, blocks)``) over HBM bandwidth. None where it did not run."""
+    tiles, blocks)``, by default the path's KERNELS) over HBM bandwidth.
+    None where it did not run."""
     tr = run.trace
     items = [w for f in run.frames if f.traced and f.work for w in f.work
              if w[0] == kernel and w[3] > 0]
     if tr is None or not items:
         return None
     seconds = tr.kernel_seconds(kernel, tr.serving_stream)
+    bytes_of = bytes_of or KERNELS[kernel].bytes
     flops = sum(work_flops(k, fields, blocks) for k, fields, _, blocks in items)
     n_bytes = sum(bytes_of(fields, tiles, blocks) for _, fields, tiles, blocks in items)
     return counts.roofline_pct(flops, n_bytes, seconds)

@@ -82,7 +82,7 @@ def test_frames_match_the_unfused_renderers(model, mix):
             else renderer.make_frame_renderer)
     render = make(cfg, st.clip.hwfcxy, st.clip.near, st.clip.far, device="cpu")
     auds, exps, poses, bc = serve.clip_tensors(st.clip, "cpu")
-    refs = dict(zip((3, 9), serve.reference_frames(st, "dense", [(3, 3), (9, 9)])))
+    refs = dict(zip((3, 9), serve.no_skip_frames(st, [(3, 3), (9, 9)])))
     for c in (3, 9):
         sig, sig_t = renderer.encode_frame_signals(module, auds, exps, poses, c, 32, cfg, True)
         if model is HIER:
@@ -117,7 +117,7 @@ def test_decisions_bracket_the_programs_flags(seed):
     with reference.strict_float32():
         d = reference.decisions(st.params, MODEL["decoder"], st.render, serve._frame_inputs(st, c),
                                 (clip.H, clip.W, clip.focal),
-                                serve.MARGIN * MODEL["assumed"]["field"]["contrast"], serve.BOX_EPS)
+                                serve.margin(st), serve.load_path(ROOT, "tile_classes").BOX_EPS)
     for k, f in enumerate(("head", "torso")):
         sure, _, maybe = d[f]
         assert not (sure & ~got[k]).any() and not (got[k] & ~maybe).any()

@@ -52,14 +52,14 @@ def check_line(r, e2e):
 
 @pytest.mark.parametrize("name", SERVING)
 def test_serving_run_is_correct_and_prints_the_result_keys(name):
-    r = harness.run_serve(cell(name), 2 ** 31 + 7, 1.0, False, "cpu", time.perf_counter(),
+    r = harness.run(cell(name), 2 ** 31 + 7, 1.0, False, "cpu", time.perf_counter(),
                           size=small(name))
     check_line(r, {"fps", "frame_ms_p95", "setup_s"})
     assert r["correct"], r["checks"]
 
 
 def test_the_live_mix_runs():
-    r = harness.run_serve(waiting_cell(*LIVE), 2 ** 31 + 7, 1.0, False, "cpu",
+    r = harness.run(waiting_cell(*LIVE), 2 ** 31 + 7, 1.0, False, "cpu",
                           time.perf_counter(), size=SMALL)
     check_line(r, set(LIVE[3]))
 
@@ -84,7 +84,7 @@ class AlteredAnswer(serve.Program):
 
 def test_an_altered_answer_is_not_correct():
     name = "head_torso.shipped_serve"
-    r = harness.run_serve(cell(name), 2 ** 31 + 13, 1.0, False, "cpu", time.perf_counter(),
+    r = harness.run(cell(name), 2 ** 31 + 13, 1.0, False, "cpu", time.perf_counter(),
                           size=SMALL, program=AlteredAnswer)
     assert not r["correct"] and r["checks"]["err_p50"]["value"] > r["checks"]["err_p50"]["limit"]
 
@@ -121,7 +121,7 @@ def test_a_fault_on_one_tile_is_not_correct(name, fault):
     """One tile of 9 (48x48 frames) wrong in the frames after a refresh: the
     median error does not see it, the worst tile's excess does."""
     size = dict(small(name), frame={"H": 48, "W": 48})
-    r = harness.run_serve(cell(name), 2 ** 31 + 29, 1.0, False, "cpu", time.perf_counter(),
+    r = harness.run(cell(name), 2 ** 31 + 29, 1.0, False, "cpu", time.perf_counter(),
                           size=size, program=fault)
     checks = r["checks"]
     assert not r["correct"], checks
@@ -130,7 +130,7 @@ def test_a_fault_on_one_tile_is_not_correct(name, fault):
 
 
 def test_the_training_mix_runs():
-    r = harness.run_train(waiting_cell(*TRAIN), 2 ** 31 + 17, 1.0, False, "cpu",
+    r = harness.run(waiting_cell(*TRAIN), 2 ** 31 + 17, 1.0, False, "cpu",
                           time.perf_counter(), size=SMALL)
     check_line(r, set(TRAIN[3]))
 
@@ -157,7 +157,7 @@ def test_training_faults_read_far_above_a_sound_step():
     reads ten times the sound step's loss gap or more."""
     c = waiting_cell(*TRAIN)
     c.model["render"] = dict(c.model["render"], compute_dtype="float32")
-    runs = {f.__name__: harness.run_train(c, 2 ** 31 + 19, 0.5, False, "cpu",
+    runs = {f.__name__: harness.run(c, 2 ** 31 + 19, 0.5, False, "cpu",
                                           time.perf_counter(), size=SMALL, program=f)["readings"]
             for f in (train.TrainProgram, Unchanged, HalfBatch)}
     assert runs["Unchanged"]["delta3_gap"] == pytest.approx(1.0)
@@ -180,7 +180,7 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
             "from pathlib import Path\n"
             "from port_bench import harness\n"
             "c = harness.load_cell(Path(%r), 'head_torso.shipped_serve')\n"
-            "harness.run_serve(c, 3, 0.5, False, 'cpu', time.perf_counter(), size=SMALL)\n"
+            "harness.run(c, 3, 0.5, False, 'cpu', time.perf_counter(), size=SMALL)\n"
             "print(harness.forbidden_modules())\n") % (str(ROOT), str(ROOT / "port_bench" /
                                                                   "tests"), str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)

@@ -124,16 +124,19 @@ def test_the_serving_cells_list_the_new_metrics():
 def test_kernel_spans_and_blob_relays_on_the_card(card, name):
     """Frames under a CUDA-activity profiler, as in a traced run: their
     kernel.* spans are recorded, and the blobs re-laid per frame equal the
-    launches' blobs (render_rays two, the hierarchical kernels one each)."""
+    launches' blobs (render_rays two, the hierarchical kernels and the node
+    grid of a refresh frame one each)."""
     from dfanerf_torch import spans
     from dfanerf_torch.ops.fused_render import render_rays_kernel
+    from dfanerf_torch.ops.occupancy import node_grid_kernel
     from dfanerf_torch.ops.pair_hier import pair_field_perz_kernel, pair_sigma_kernel
 
     cell = harness.load_cell(ROOT, name)
     size = SMALL_HIER if name == "head_hier.pair_serve" else SMALL
     prog = serve.Program(serve.prepare(cell.model, cell.mix, 2 ** 31 + 29, card, size))
     serve.warm_up(prog, 4)
-    blobs_of = {render_rays_kernel: 2, pair_sigma_kernel: 1, pair_field_perz_kernel: 1}
+    blobs_of = {render_rays_kernel: 2, pair_sigma_kernel: 1, pair_field_perz_kernel: 1,
+                node_grid_kernel: 1}
     before = {b: b.launches for b in blobs_of}
     n, frames = 8, []
     spans.stop()
